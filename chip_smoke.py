@@ -1,0 +1,526 @@
+#!/usr/bin/env python3
+"""Proof that the PyTorch/CUDA port runs its main path on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
+card, ``nvcc`` and nothing of JAX. Phases, in order; any failure exits
+non-zero:
+
+1. device: prints the card's name and power limit (nvidia-smi);
+2. build: compiles every kernel of the path from ``dynamo_tpu_torch/csrc``;
+3. kernels: holds each kernel against its plain PyTorch version on the card,
+   in every regime the JAX kernels covered, and times kernel, plain version
+   and the library call beside it;
+4. serve: starts ``dynamo_tpu_torch.cli.run``'s HTTP server in this process
+   on a llama3-8b-width model with random weights, answers 8 concurrent
+   streaming requests, and checks the launch counts of the kernels;
+5. decode parity: one full-width ``forward_window`` step through the kernel
+   and through its plain version;
+6. prints the kernels' JSON line and, last, the device JSON line.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import http.client
+import json
+import os
+import socket
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# llama3-8b widths (models/llama.py LLAMA_PRESETS["llama3-8b"])
+LLAMA3_8B = dict(vocab=128256, hidden=4096, ffn=14336, layers=32, heads=32, kv_heads=8,
+                 head_dim=128)
+CHAT_TEMPLATE = (
+    "{% for message in messages %}"
+    "{{ '<s>' + message['role'] + '\\n' + message['content'] + '</s>' }}"
+    "{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<s>assistant\\n' }}{% endif %}"
+)
+N_REQUESTS = 8
+MAX_TOKENS = 32
+BF16_PEAK = 989e12  # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
+FP32_PEAK = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
+
+
+def byte_level_tokenizer_json() -> dict:
+    """A byte-level BPE tokenizer.json: the 256 byte tokens (ids 0-255, in
+    GPT-2's byte↔unicode mapping) plus <s> (256) and </s> (257), no merges."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    b2u = {b: chr(c) for b, c in zip(bs, cs)}
+    vocab = {b2u[b]: b for b in range(256)}
+    vocab["<s>"] = 256
+    vocab["</s>"] = 257
+    added = [
+        {"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+         "normalized": False, "special": True}
+        for i, t in ((256, "<s>"), (257, "</s>"))
+    ]
+    level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None, "pre_tokenizer": level, "post_processor": None,
+        "decoder": dict(level), "model": {
+            "type": "BPE", "dropout": None, "unk_token": None,
+            "continuing_subword_prefix": None, "end_of_word_suffix": None,
+            "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+            "vocab": vocab, "merges": [],
+        },
+    }
+
+
+def write_model_dir(path: str) -> str:
+    """config.json at llama3-8b width (context 2048), the byte-level
+    tokenizer and a chat template; no weight files (random weights)."""
+    c = LLAMA3_8B
+    config = {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": c["vocab"], "hidden_size": c["hidden"],
+        "intermediate_size": c["ffn"], "num_hidden_layers": c["layers"],
+        "num_attention_heads": c["heads"], "num_key_value_heads": c["kv_heads"],
+        "head_dim": c["head_dim"], "max_position_embeddings": 2048,
+        "rms_norm_eps": 1e-5, "rope_theta": 500000.0, "bos_token_id": 256,
+        "eos_token_id": 257, "tie_word_embeddings": False,
+    }
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(byte_level_tokenizer_json(), f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>", "chat_template": CHAT_TEMPLATE,
+                   "model_max_length": 2048}, f)
+    return path
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def hbm_rate(card_name: str) -> float:
+    """Data-sheet HBM rate of the named H100 part, bytes/s."""
+    return 2.0e12 if "PCIe" in card_name else 3.35e12
+
+
+# -- phase 1/2 ------------------------------------------------------------------
+
+def phase_device() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    )
+    if res.returncode != 0 or not res.stdout.strip():
+        fail(f"nvidia-smi: {res.stderr.strip()}")
+    line = res.stdout.strip().splitlines()[0]
+    print(line)
+    return line
+
+
+def phase_build() -> None:
+    from dynamo_tpu_torch.ops.paged_attention import build
+
+    info = build()
+    print(f"build: paged_attention.cu in {info['seconds']:.2f} s -> {info['path']}")
+    for ln in info["log"].splitlines():
+        if "registers" in ln or "spill" in ln:
+            print("  ptxas:", ln.strip())
+
+
+# -- phase 3 --------------------------------------------------------------------
+
+REGIMES = [
+    # name, S, H, KVH, D, bs, max_len
+    ("llama3-8b decode (D=128, KVH=8, 8 lanes)", 8, 32, 8, 128, 16, 2048),
+    ("many lanes (D=128, 64 lanes)", 64, 32, 8, 128, 16, 1024),
+    ("llama3.2-1b heads (D=64, KVH=8)", 8, 32, 8, 64, 16, 2048),
+    ("tiny heads (D=16, KVH=2)", 8, 4, 2, 16, 16, 256),
+]
+
+
+def make_case(torch, S, H, KVH, D, bs, max_len, dtype, seed, dev="cuda"):
+    """Ragged lengths with one padding lane, permuted tables with garbage
+    past each lane's live pages, and NaN in every dead slot of a lane's last
+    page (a kernel that loads one feeds 0 * NaN into its value sum)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mb = -(-max_len // bs)
+    lengths = rng.integers(1, max_len + 1, size=S)
+    lengths[0] = max_len
+    lengths[S // 2] = 0
+    n_blocks = S * mb + 7
+    perm = rng.permutation(n_blocks)[: S * mb].reshape(S, mb)
+    k = rng.standard_normal((n_blocks, bs, KVH, D), dtype=np.float32)
+    v = rng.standard_normal((n_blocks, bs, KVH, D), dtype=np.float32)
+    tables = perm.astype(np.int32)
+    for s in range(S):
+        n_pages = -(-int(lengths[s]) // bs)
+        tables[s, n_pages:] = 1 << 30
+        if lengths[s] % bs:
+            k[perm[s, n_pages - 1], lengths[s] % bs:] = np.nan
+            v[perm[s, n_pages - 1], lengths[s] % bs:] = np.nan
+    q = rng.standard_normal((S, H, D), dtype=np.float32)
+    return (
+        torch.from_numpy(q).to(dev, dtype), torch.from_numpy(k).to(dev, dtype),
+        torch.from_numpy(v).to(dev, dtype), torch.from_numpy(tables).to(dev),
+        torch.from_numpy(lengths.astype(np.int32)).to(dev),
+    )
+
+
+def time_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def sdpa_library(torch, q, k_cache, v_cache, tables, lengths):
+    """The library yardstick: scaled_dot_product_attention (enable_gqa) over
+    K/V pre-gathered into contiguous [S, KVH, T, D] with a length mask; the
+    gather is done here, outside the timed call."""
+    S, H, D = q.shape
+    _, bs, KVH, _ = k_cache.shape
+    mb = tables.shape[1]
+    n_pages = (lengths.long() + bs - 1) // bs
+    live = torch.arange(mb, device=q.device)[None, :] < n_pages[:, None]
+    t = torch.where(live, tables.long(), 0)
+    k = k_cache[t].reshape(S, mb * bs, KVH, D).transpose(1, 2).contiguous()
+    v = v_cache[t].reshape(S, mb * bs, KVH, D).transpose(1, 2).contiguous()
+    mask = torch.arange(mb * bs, device=q.device)[None, :] < lengths[:, None].long()
+    # dead slots hold NaN in these inputs: a masked key must not poison PV
+    k = torch.where(mask[:, None, :, None], k, torch.zeros_like(k))
+    v = torch.where(mask[:, None, :, None], v, torch.zeros_like(v))
+    mask[:, 0] = True  # a padding lane still needs one key (its output is discarded)
+    q4 = q[:, :, None, :]
+    attn_mask = mask[:, None, None, :]
+    f = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return f(q4, k, v, attn_mask=attn_mask, enable_gqa=True)
+
+    return call
+
+
+def bound(S, H, KVH, D, bs, lengths, itemsize, rate):
+    """(bound_ms, bound_by, bytes, flops) for this call's live data."""
+    total = int(lengths.sum())
+    n_pages = sum(-(-int(x) // bs) for x in lengths)
+    nbytes = (
+        2 * total * KVH * D * itemsize  # live K and V rows, read once
+        + S * H * D * itemsize  # q
+        + S * H * D * itemsize + 2 * S * H * 4  # o, m, l
+        + S * 4 + n_pages * 4  # lengths, live table entries
+    )
+    flops = 4 * total * H * D  # QK and PV
+    peak = BF16_PEAK if itemsize == 2 else FP32_PEAK
+    t_bytes, t_ops = nbytes / rate, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+
+def phase_kernels(card: str) -> dict:
+    import torch
+
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    rate = hbm_rate(card)
+    result = {}
+    for ri, (name, S, H, KVH, D, bs, max_len) in enumerate(REGIMES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, tables, lengths = make_case(torch, S, H, KVH, D, bs, max_len, dtype, 100 + ri)
+            o, m, l = paged_decode_attention(q, k, v, tables, lengths, return_stats=True)
+            torch.cuda.synchronize()
+            po, pm, pl = paged_decode_attention_plain(q, k, v, tables, lengths, return_stats=True)
+            err_o = (o.float() - po.float()).abs().max().item()
+            err_m = (m - pm).abs().max().item()
+            err_l = (l - pl).abs().max().item()
+            if not torch.isfinite(o.float()).all():
+                fail(f"{name} {dtype}: non-finite kernel output")
+            if dtype == torch.float32:
+                # l sums up to 2048 terms of size ~1 in another order than
+                # the plain version, so it is held to 1e-5 relative to itself
+                ok = (err_o <= 1e-5 and err_m <= 1e-5
+                      and torch.allclose(l, pl, rtol=1e-5, atol=1e-5))
+                tol = "atol 1e-5 on o/m, rtol 1e-5 on l"
+            else:
+                ok = (err_o <= 2e-2 and torch.allclose(m, pm, rtol=1e-3, atol=0)
+                      and torch.allclose(l, pl, rtol=1e-3, atol=0))
+                tol = "o atol 2e-2, m/l rtol 1e-3"
+            dt = "fp32" if dtype == torch.float32 else "bf16"
+            print(f"kernel vs plain [{name}, {dt}]: max|do| {err_o:.3e} max|dm| {err_m:.3e} "
+                  f"max|dl| {err_l:.3e} ({tol}) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"paged_decode_attention disagrees with its plain version: {name} {dt}")
+            if dtype != torch.bfloat16:
+                continue
+            lens_np = lengths.cpu().numpy()
+            launches0 = paged_decode_attention.launches
+            ms = time_ms(torch, lambda: paged_decode_attention(q, k, v, tables, lengths))
+            paged_decode_attention.launches = launches0  # timing launches are not the path's
+            plain_ms = time_ms(torch, lambda: paged_decode_attention_plain(q, k, v, tables, lengths),
+                               reps=20, warmup=2)
+            lib_ms = time_ms(torch, sdpa_library(torch, q, k, v, tables, lengths))
+            b_ms, b_by, nbytes, flops = bound(S, H, KVH, D, bs, lens_np, 2, rate)
+            print(f"  time [{name}, bf16]: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                  f"{nbytes / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms, "
+                  f"library (SDPA enable_gqa on pre-gathered K/V, gather not timed) {lib_ms:.4f} ms")
+            result[name] = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib_ms, S=S, H=H, KVH=KVH, D=D,
+                                live_tokens=int(lens_np.sum()))
+    return result
+
+
+# -- phase 4 --------------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _stream(port: int, path: str, body: dict, t_sent: list, i: int) -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t_sent[i] = time.perf_counter()
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = {"status": resp.status, "finish": None, "usage": None, "text": "", "end": None}
+    if resp.status != 200:
+        out["error"] = resp.read().decode(errors="replace")
+        return out
+    buf = b""
+    while True:
+        piece = resp.read1(65536) if hasattr(resp, "read1") else resp.read(65536)
+        if not piece:
+            break
+        buf += piece
+    out["end"] = time.perf_counter()
+    for frame in buf.decode().split("\n\n"):
+        if not frame.startswith("data: ") or frame == "data: [DONE]":
+            continue
+        chunk = json.loads(frame[len("data: "):])
+        for ch in chunk.get("choices", []):
+            if ch.get("finish_reason"):
+                out["finish"] = ch["finish_reason"]
+            out["text"] += (ch.get("delta") or {}).get("content") or ch.get("text") or ""
+        if chunk.get("usage"):
+            out["usage"] = chunk["usage"]
+    out["done"] = buf.rstrip().endswith(b"data: [DONE]")
+    conn.close()
+    return out
+
+
+def phase_serve(card: str, model_dir: str) -> dict:
+    from dynamo_tpu_torch.cli.run import build_engine, build_parser, run_http
+    from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    port = _free_port()
+    flags = build_parser().parse_args([
+        "--model-path", model_dir, "--host", "127.0.0.1", "--port", str(port),
+        "--max-batch-size", str(N_REQUESTS),
+    ])
+    t0 = time.perf_counter()
+    chat, comp, name, core = build_engine("torch", flags)
+    print(f"serve: engine built and warmed up in {time.perf_counter() - t0:.1f} s "
+          f"(llama3-8b width, bf16 random weights, {core.num_blocks} KV blocks)")
+    loop = asyncio.new_event_loop()
+    ready = threading.Event()
+    task_box = []
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        task_box.append(loop.create_task(run_http(chat, comp, name, flags,
+                                                  ready=lambda p: ready.set())))
+        try:
+            loop.run_until_complete(task_box[0])
+        except asyncio.CancelledError:
+            pass
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    if not ready.wait(60):
+        fail("server did not start")
+    try:
+        words = ("the paged pool serves every lane of the batch while the decode window "
+                 "holds the newest keys and values ").split()
+        bodies = []
+        for i in range(N_REQUESTS):
+            text = " ".join(words[(i * 3 + j) % len(words)] for j in range(12 + 9 * i))
+            common = {"model": name, "stream": True, "max_tokens": MAX_TOKENS,
+                      "nvext": {"ignore_eos": True}, "stream_options": {"include_usage": True}}
+            if i % 2 == 0:
+                bodies.append(("/v1/chat/completions",
+                               dict(common, messages=[{"role": "user", "content": text}])))
+            else:
+                bodies.append(("/v1/completions", dict(common, prompt=text)))
+        results = [None] * N_REQUESTS
+        t_sent = [0.0] * N_REQUESTS
+        paged_decode_attention.launches = 0
+        steps0 = core.decode_steps_total
+        t_start = time.perf_counter()
+
+        def run_one(i):
+            results[i] = _stream(port, bodies[i][0], bodies[i][1], t_sent, i)
+
+        threads = [threading.Thread(target=run_one, args=(i,)) for i in range(N_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t_start
+        launches = paged_decode_attention.launches
+        steps = core.decode_steps_total - steps0
+    finally:
+        loop.call_soon_threadsafe(task_box[0].cancel)
+        th.join(30)
+        loop.close()
+    for i, r in enumerate(results):
+        if r is None:
+            fail(f"request {i} did not complete")
+        if r["status"] != 200:
+            fail(f"request {i}: HTTP {r['status']} {r.get('error', '')[:300]}")
+        if not r["finish"] or not r.get("done"):
+            fail(f"request {i}: stream ended without finish_reason/[DONE]")
+        if not r["usage"] or r["usage"]["completion_tokens"] != MAX_TOKENS:
+            fail(f"request {i}: usage {r['usage']}, expected {MAX_TOKENS} completion tokens")
+    L = LLAMA3_8B["layers"]
+    print(f"serve: {N_REQUESTS} streams (4 chat, 4 completions) HTTP 200, finish_reason "
+          f"{sorted(set(r['finish'] for r in results))}, {MAX_TOKENS} completion tokens each")
+    print(f"serve: paged_decode_attention launches {launches} over {steps} decode steps "
+          f"x {L} layers = {steps * L}")
+    if steps == 0 or launches < L * steps:
+        fail(f"paged_decode_attention ran {launches} times, expected >= {L} x {steps}")
+    ttfts = list(core.recent_ttft_s)[-N_REQUESTS:]
+    first = min(t_sent) + min(ttfts)
+    decode_tok_s = N_REQUESTS * (MAX_TOKENS - 1) / (max(r["end"] for r in results) - first)
+    ttft_p50 = statistics.median(ttfts) * 1e3
+    print(f"serve: TTFT p50 {ttft_p50:.1f} ms (engine enqueue -> first token), decode "
+          f"{decode_tok_s:.1f} tok/s over {N_REQUESTS} lanes, wall {wall:.2f} s, on {card}")
+    return {"launches": launches, "core": core, "ttft_p50_ms": ttft_p50,
+            "decode_tok_s": decode_tok_s}
+
+
+# -- phase 5 --------------------------------------------------------------------
+
+def phase_parity(core) -> None:
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.models.llama import forward_chunk, forward_window, make_kv_cache
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    cfg = core.model_config
+    S, bs, per_lane = 8, 16, 32  # 32 pages = 512 tokens of room per lane
+    rng = np.random.default_rng(7)
+    lens = rng.integers(100, 500, size=S)
+    cache = make_kv_cache(cfg, S * per_lane, bs, device="cuda")
+    tables = torch.arange(S * per_lane, dtype=torch.int32, device="cuda").reshape(S, per_lane)
+    tables = tables[:, torch.randperm(per_lane, generator=torch.Generator().manual_seed(1))]
+    tables = tables.contiguous()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(S, 512))).cuda()
+    with torch.no_grad():
+        for c0 in range(0, int(lens.max()), 128):
+            pos = torch.arange(c0, c0 + 128, device="cuda")[None, :].repeat(S, 1)
+            pos = torch.where(pos < torch.from_numpy(lens).cuda()[:, None], pos, -1)
+            forward_chunk(core.params, cfg, toks[:, c0:c0 + 128], pos.int(), cache, tables,
+                          hidden_only=True, with_history=c0 > 0)
+        base = torch.from_numpy(lens).cuda().int()
+        nxt = toks[torch.arange(S), base.long()].int()  # the token at position base
+        shape = (cfg.num_layers, S, 1, cfg.num_kv_heads, cfg.head_dim)
+        outs = []
+        for fn in (paged_decode_attention, paged_decode_attention_plain):
+            wk = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+            wv = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+            logits, _, _ = forward_window(core.params, cfg, nxt, base, cache, tables, base,
+                                          wk, wv, 0, decode_attention=fn)
+            outs.append(logits.float())
+        torch.cuda.synchronize()
+    diff = (outs[0] - outs[1]).abs().max().item()
+    scale = outs[1].abs().max().item()
+    agree = (outs[0].argmax(-1) == outs[1].argmax(-1)).float().mean().item()
+    rel = diff / max(scale, 1e-30)
+    print(f"decode parity (forward_window, llama3-8b width, {S} lanes, lengths "
+          f"{int(lens.min())}-{int(lens.max())}): max|dlogits| {diff:.4e}, max|logits| "
+          f"{scale:.4e}, ratio {rel:.3e} (limit 2e-2), greedy agreement {agree:.3f}")
+    if not np.isfinite(rel) or rel > 2e-2:
+        fail("full-width decode parity")
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "dynamo_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(dynamo_tpu_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    card = phase_device()
+    phase_build()
+    kern = phase_kernels(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        served = phase_serve(card, write_model_dir(os.path.join(tmp, "llama3-8b-random")))
+    phase_parity(served["core"])
+    served["core"].close()
+    main_regime = kern[REGIMES[0][0]]
+    line = {"kernels": [{
+        "name": "paged_decode_attention",
+        "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "dynamo_tpu/ops/pallas/paged_attention.py:554 (v4; also v2 :258, v1 :693)",
+        "launches": served["launches"],
+        "max_abs_err": main_regime["max_abs_err"],
+        "ms": main_regime["ms"],
+        "plain_ms": main_regime["plain_ms"],
+        "bound_ms": main_regime["bound_ms"],
+        "bound_by": main_regime["bound_by"],
+        "library_ms": main_regime["library_ms"],
+        "regimes": [dict(name=k, **v) for k, v in kern.items()],
+    }], "serve": {"ttft_p50_ms": served["ttft_p50_ms"], "decode_tok_s": served["decode_tok_s"]},
+        "card": card, "seconds": time.perf_counter() - t0}
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,1072 @@
+"""The continuous-batching torch serving engine.
+
+Counterpart of the main path of the JAX package's ``engine_jax/engine.py``:
+
+- **Fixed batch slots**: ``max_slots`` lanes; a request holds one slot from
+  its first prefill chunk to its finish.
+- **Chunked, batched prefill**: a step with a prefilling lane runs one
+  ``[slots, prefill_chunk]`` forward (``models/llama.py::forward_chunk``) in
+  which prefilling lanes consume up to a chunk of prompt while decode lanes
+  advance one token.
+- **Windowed, pipelined decode**: a decode dispatch runs ``decode_steps``
+  steps of ``forward_window`` (the pool is read through the paged
+  flash-decode kernel; fresh K/V go to a window buffer) and flushes the
+  window into the pages once (``flush_window``). The next dispatch is
+  enqueued off the previous one's device-resident carry before the host
+  fetches the previous tokens, so the device→host copy overlaps compute.
+- **Paged KV** with content-addressed prefix reuse (``allocator.py``).
+- **Sampling beside the step** (``sampling.py``): only token ids (and, when
+  asked for, logprobs) cross to the host.
+- **Step loop on a dedicated thread**, which sets its CUDA device; tokens
+  reach requesters through ``loop.call_soon_threadsafe`` into per-request
+  asyncio queues.
+
+Not in this engine yet (later slices, ROADMAP.md): speculative verify, int8
+weights and KV, the host KV tier, disaggregated prefill, live migration,
+integrity, QoS, profiling/straggler hooks, meshes.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import math
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, AsyncIterator, Deque, Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from ..llm.protocols.common import FinishReason, LLMEngineOutput, PreprocessedRequest
+from ..models.llama import (
+    LlamaConfig,
+    LlamaParams,
+    flush_window,
+    forward_chunk,
+    forward_window,
+    lm_head,
+    make_kv_cache,
+)
+from ..ops.paged_attention import build as build_kernels
+from ..ops.paged_attention import paged_decode_attention
+from ..runtime.annotated import Annotated
+from ..runtime.engine import AsyncEngine, Context
+from .allocator import BlockAllocator, InflightPrefix, KvEventSink, SequenceAllocation
+from .sampling import (
+    apply_penalties,
+    gumbel_noise,
+    sample_tokens,
+    token_logprobs,
+    update_counts,
+)
+
+logger = logging.getLogger(__name__)
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """The engine's device: CUDA unless the caller asks for the CPU. A CUDA
+    request on a machine without a card raises instead of running slowly
+    on the CPU."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass --device cpu (device='cpu') to "
+            "run on the CPU"
+        )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    max_slots: int = 8
+    kv_block_size: int = 16
+    max_model_len: int = 2048
+    num_kv_blocks: Optional[int] = None  # default: 1.5x what max_slots need
+    # prompt tokens consumed per prefilling lane per step
+    prefill_chunk: int = 128
+    # decode steps per dispatch (tokens past a stop are discarded host-side)
+    decode_steps: int = 1
+    # alternatives computed per step for OpenAI logprobs (OpenAI's bound)
+    top_logprobs: int = 20
+    # idle engine: wait up to this long for an admission wave to land
+    admission_window: float = 0.02
+
+    def resolve_num_blocks(self) -> int:
+        if self.num_kv_blocks is not None:
+            return self.num_kv_blocks
+        per_seq = math.ceil(self.max_model_len / self.kv_block_size)
+        return int(self.max_slots * per_seq * 3 // 2)
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return math.ceil(self.max_model_len / self.kv_block_size)
+
+
+class _Seq:
+    """One in-flight request's host-side state."""
+
+    __slots__ = (
+        "ctx", "request", "prompt", "alloc", "slot", "out_queue", "loop",
+        "generated", "emitted", "max_tokens", "eos_ids", "ignore_eos",
+        "temperature", "top_k", "top_p", "seed", "logprobs", "enqueue_t",
+        "first_token_t", "admit_t", "prefill_pos", "freq_pen", "pres_pen",
+        "out_tokens", "joined_inflight", "wait_hash",
+    )
+
+    def __init__(self, ctx: Context, request: PreprocessedRequest, loop) -> None:
+        self.ctx = ctx
+        self.request = request
+        self.prompt: List[int] = list(request.token_ids)
+        self.alloc: Optional[SequenceAllocation] = None
+        self.slot: Optional[int] = None
+        self.out_queue: asyncio.Queue = asyncio.Queue()
+        self.loop = loop
+        self.generated: List[int] = []
+        # tokens streamed to the caller — survives preemption
+        self.emitted = 0
+        sc = request.stop_conditions
+        self.max_tokens = sc.max_tokens if sc.max_tokens is not None else 2**30
+        self.eos_ids: Set[int] = set(request.eos_token_ids or [])
+        self.ignore_eos = bool(sc.ignore_eos)
+        so = request.sampling_options
+        self.temperature = so.temperature if so.temperature is not None else 0.0
+        self.top_k = so.top_k if so.top_k is not None else 0
+        self.top_p = so.top_p if so.top_p is not None else 1.0
+        self.seed = so.seed if so.seed is not None else 0
+        self.freq_pen = so.frequency_penalty or 0.0
+        self.pres_pen = so.presence_penalty or 0.0
+        # every output token ever emitted (rebuilds the penalty counts)
+        self.out_tokens: List[int] = []
+        self.logprobs = so.logprobs
+        self.enqueue_t = time.perf_counter()
+        self.first_token_t: Optional[float] = None
+        self.admit_t: Optional[float] = None
+        self.joined_inflight = False
+        self.wait_hash: Optional[int] = None
+        # next prompt position to compute while prefilling; None = decoding
+        self.prefill_pos: Optional[int] = None
+
+    @property
+    def total_len(self) -> int:
+        return len(self.prompt) + len(self.generated)
+
+    @property
+    def penalized(self) -> bool:
+        return self.freq_pen != 0.0 or self.pres_pen != 0.0
+
+    def emit(self, item) -> None:
+        # the consumer's loop may be gone (client teardown): nobody can
+        # receive the item, and writing into a closed loop could wedge
+        # the engine thread
+        if self.loop.is_closed():
+            return
+        try:
+            self.loop.call_soon_threadsafe(self.out_queue.put_nowait, item)
+        except RuntimeError:
+            pass
+
+
+_FINISHED = object()  # sentinel closing a request's output queue
+
+
+class _HostFetch:
+    """A device tensor's device→host copy, started at construction: on CUDA
+    into pinned memory behind an event (stream-ordered right after the
+    work that produced it), so :meth:`get` later waits only for that work."""
+
+    __slots__ = ("_host", "_event")
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+            self._event = None
+
+    def get(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+class _Inflight:
+    """A dispatched-but-unprocessed decode dispatch (pipelined decode): host
+    fetches of its tokens (and logprobs), the device carry (last token and
+    position per lane) and the lane→sequence snapshot at dispatch time."""
+
+    __slots__ = ("out", "lps", "top_ids", "top_lps", "tokens", "positions", "lanes")
+
+    def __init__(self, out, lps, top_ids, top_lps, tokens, positions, lanes):
+        self.out = out
+        self.lps = lps
+        self.top_ids = top_ids
+        self.top_lps = top_lps
+        self.tokens = tokens
+        self.positions = positions
+        self.lanes = lanes
+
+
+class TorchServingEngine(AsyncEngine):
+    """Continuous-batching paged-KV engine over an eager Llama step."""
+
+    def __init__(
+        self,
+        model_config: LlamaConfig,
+        params: LlamaParams,
+        engine_config: EngineConfig = EngineConfig(),
+        device="cuda",
+        event_sink: Optional[KvEventSink] = None,
+    ):
+        self.model_config = model_config
+        self.config = engine_config
+        self.device = resolve_device(str(device))
+        self.params = params
+        self.num_blocks = engine_config.resolve_num_blocks()
+        self.allocator = BlockAllocator(
+            self.num_blocks, engine_config.kv_block_size, event_sink=event_sink,
+        )
+        self.cache = make_kv_cache(
+            model_config, self.num_blocks, engine_config.kv_block_size,
+            device=self.device,
+        )
+
+        S = engine_config.max_slots
+        MB = engine_config.max_blocks_per_seq
+        self._slots: List[Optional[_Seq]] = [None] * S
+        self._tables = np.zeros((S, MB), np.int32)
+        self._last_tokens = np.zeros((S,), np.int32)
+        self._positions = np.full((S,), -1, np.int32)
+        self._temp = np.zeros((S,), np.float32)
+        self._topk = np.zeros((S,), np.int32)
+        self._topp = np.ones((S,), np.float32)
+        self._seeds = np.zeros((S,), np.int64)
+        self._freqp = np.zeros((S,), np.float32)
+        self._presp = np.zeros((S,), np.float32)
+
+        # [S, V] output-token counts for the penalties, allocated on the
+        # first penalized request and rebuilt per changed lane
+        self._counts: Optional[torch.Tensor] = None
+        self._counts_lanes: List[Optional[_Seq]] = [None] * S
+
+        self._step_counter = 0
+        self._pending: Deque[_Seq] = deque()
+        self._cond = threading.Condition()
+        self._shutdown = False
+        self._thread: Optional[threading.Thread] = None
+
+        # pipelined decode: at most one dispatched-but-unprocessed dispatch,
+        # plus allocations that may still receive its speculative writes
+        self._inflight: Optional[_Inflight] = None
+        self._zombie_allocs: List[SequenceAllocation] = []
+
+        # (with_logprobs, with_penalties, with_sampling) step variants
+        self._decode_fns: Dict[Tuple[bool, bool, bool], Any] = {}
+        self._chunk_fns: Dict[Tuple[bool, bool, bool, bool], Any] = {}
+
+        # stats
+        self.total_requests = 0
+        self.total_generated_tokens = 0
+        self.total_prompt_tokens = 0
+        self.preemptions = 0
+        self.decode_dispatches = 0
+        self.decode_steps_total = 0
+        self.chunk_dispatches = 0
+        # seconds from enqueue to first token of the latest requests
+        self.recent_ttft_s: Deque[float] = deque(maxlen=1024)
+
+    def _put(self, host_arr) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host_arr)).to(self.device)
+
+    # -- step functions -------------------------------------------------------
+
+    def _decode(self, want_lp: bool, want_pen: bool = False, want_sample: bool = True):
+        key = (want_lp, want_pen, want_sample)
+        fn = self._decode_fns.get(key)
+        if fn is None:
+            fn = self._decode_fns[key] = self._build_decode_fn(*key)
+        return fn
+
+    def _build_decode_fn(self, with_lp: bool, with_pen: bool, with_sample: bool):
+        cfg = self.model_config
+        k_steps = self.config.decode_steps
+        max_pos = self.config.max_model_len - 1
+        n_top = self.config.top_logprobs
+        S = self.config.max_slots
+        wshape = (cfg.num_layers, S, k_steps, cfg.num_kv_heads, cfg.head_dim)
+
+        def decode(tokens, positions, tables, step_ctr, seeds, temp_host, topk,
+                   temp, topp, freqp, presp, counts):
+            # k_steps forward+sample iterations, each sampled token fed back
+            # in; the pool is read-only inside, the window is flushed once
+            base = positions
+            wk = torch.zeros(wshape, dtype=cfg.dtype, device=self.device)
+            wv = torch.zeros(wshape, dtype=cfg.dtype, device=self.device)
+            toks, pos = tokens, positions
+            outs, lps, tids, tlps = [], [], [], []
+            for k in range(k_steps):
+                logits, wk, wv = forward_window(
+                    self.params, cfg, toks, pos, self.cache, tables, base, wk, wv, k,
+                )
+                sampled_from = (
+                    apply_penalties(logits, counts, freqp, presp) if with_pen else logits
+                )
+                noise = (
+                    gumbel_noise(seeds, temp_host > 0, step_ctr, k, device=self.device)
+                    if with_sample else None
+                )
+                nxt = sample_tokens(sampled_from, temp, topk, topp, noise=noise,
+                                    greedy_only=not with_sample)
+                if with_pen:
+                    update_counts(counts, nxt, pos >= 0)
+                if with_lp:
+                    lp, ti, tl = token_logprobs(logits, nxt, n_top)
+                    lps.append(lp)
+                    tids.append(ti)
+                    tlps.append(tl)
+                outs.append(nxt)
+                pos = torch.where((pos >= 0) & (pos < max_pos), pos + 1,
+                                  torch.full_like(pos, -1))
+                toks = nxt
+            flush_window(self.cache, tables, base, wk, wv, max_pos)
+            out = torch.stack(outs, dim=1)  # [S, k_steps]
+            if with_lp:
+                return (out, torch.stack(lps, 1), torch.stack(tids, 1),
+                        torch.stack(tlps, 1), toks, pos)
+            return out, None, None, None, toks, pos
+
+        return decode
+
+    def _chunk(self, want_lp: bool, want_pen: bool = False, want_sample: bool = True,
+               want_history: bool = True):
+        key = (want_lp, want_pen, want_sample, want_history)
+        fn = self._chunk_fns.get(key)
+        if fn is None:
+            fn = self._chunk_fns[key] = self._build_chunk_fn(*key)
+        return fn
+
+    def _build_chunk_fn(self, with_lp: bool, with_pen: bool, with_sample: bool,
+                        with_history: bool):
+        cfg = self.model_config
+        S = self.config.max_slots
+        n_top = self.config.top_logprobs
+
+        def chunk(tokens, positions, tables, sample_at, step_ctr, seeds, temp_host,
+                  topk, temp, topp, freqp, presp, counts):
+            # tokens/positions [S, C] (-1 positions = padding); sample_at [S]
+            # picks the position whose logits are sampled (-1: unused); the
+            # LM head runs on those [S, E] rows only
+            h, _ = forward_chunk(
+                self.params, cfg, tokens, positions, self.cache, tables,
+                hidden_only=True, with_history=with_history,
+            )
+            rows = torch.arange(S, device=self.device)
+            hs = h[rows, sample_at.clamp(min=0).long()]
+            sel = lm_head(self.params, cfg, hs)
+            sampled_from = apply_penalties(sel, counts, freqp, presp) if with_pen else sel
+            noise = (
+                gumbel_noise(seeds, temp_host > 0, step_ctr, 0, device=self.device)
+                if with_sample else None
+            )
+            nxt = sample_tokens(sampled_from, temp, topk, topp, noise=noise,
+                                greedy_only=not with_sample)
+            if with_pen:
+                update_counts(counts, nxt, sample_at >= 0)
+            if with_lp:
+                return (nxt,) + token_logprobs(sel, nxt, n_top)
+            return nxt, None, None, None
+
+        return chunk
+
+    # -- penalty counts -------------------------------------------------------
+
+    def _release_counts(self) -> None:
+        if self._counts is not None:
+            self._counts = None
+            self._counts_lanes = [None] * self.config.max_slots
+
+    def _sync_counts(self, lanes: List[Optional[_Seq]]) -> torch.Tensor:
+        """Rebuild the count rows of lanes whose (penalized) sequence changed
+        since the last penalized dispatch from its emitted output tokens."""
+        S = self.config.max_slots
+        if self._counts is None:
+            self._counts = torch.zeros(
+                (S, self.model_config.vocab_size), dtype=torch.int32, device=self.device
+            )
+        for i in range(S):
+            seq = lanes[i]
+            if self._counts_lanes[i] is seq or seq is None or not seq.penalized:
+                continue
+            self._counts[i].zero_()
+            if seq.out_tokens:
+                toks = torch.tensor(seq.out_tokens, dtype=torch.int64, device=self.device)
+                self._counts[i].index_put_(
+                    (toks,), torch.ones_like(toks, dtype=torch.int32), accumulate=True
+                )
+        self._counts_lanes = list(lanes)
+        return self._counts
+
+    def _dummy_counts(self) -> torch.Tensor:
+        return torch.zeros((self.config.max_slots, 1), dtype=torch.int32, device=self.device)
+
+    def _sampling_args(self) -> tuple:
+        return (
+            self._seeds.copy(), self._temp.copy(), self._put(self._topk),
+            self._put(self._temp), self._put(self._topp), self._put(self._freqp),
+            self._put(self._presp),
+        )
+
+    # -- warmup ---------------------------------------------------------------
+
+    def warmup(self) -> Dict[str, float]:
+        """Build the kernels and run one all-padding chunk and decode
+        dispatch (cuBLAS handles, allocator pools) before serving traffic.
+        Returns seconds per part."""
+        cfg = self.config
+        S, C, MB = cfg.max_slots, cfg.prefill_chunk, cfg.max_blocks_per_seq
+        timings: Dict[str, float] = {}
+        if self.device.type == "cuda":
+            timings["kernel_build"] = build_kernels()["seconds"]
+        tables = self._put(np.zeros((S, MB), np.int32))
+        neg = self._put(np.full((S,), -1, np.int32))
+        samp = self._sampling_args()
+        with self._device_scope():
+            t0 = time.perf_counter()
+            self._chunk(False, False, False, False)(
+                self._put(np.zeros((S, C), np.int32)),
+                self._put(np.full((S, C), -1, np.int32)), tables, neg, 0,
+                *samp, self._dummy_counts(),
+            )
+            self._sync()
+            timings["chunk"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self._decode(False, False, False)(
+                self._put(np.zeros((S,), np.int32)), neg, tables, 0, *samp,
+                self._dummy_counts(),
+            )
+            self._sync()
+            timings["decode"] = time.perf_counter() - t0
+        return timings
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _device_scope(self):
+        return _DeviceScope(self.device)
+
+    # -- AsyncEngine interface ------------------------------------------------
+
+    async def generate(
+        self, request: Context[PreprocessedRequest]
+    ) -> AsyncIterator[Annotated[dict]]:
+        req = request.data
+        if not isinstance(req, PreprocessedRequest):
+            req = PreprocessedRequest.from_dict(req)
+        if len(req.token_ids) > self.config.max_model_len - 1:
+            yield Annotated.from_error(
+                f"prompt is {len(req.token_ids)} tokens; engine max_model_len "
+                f"is {self.config.max_model_len}"
+            )
+            return
+        if not req.token_ids:
+            yield Annotated.from_error("prompt is empty")
+            return
+        self._ensure_thread()
+        seq = _Seq(request, req, asyncio.get_running_loop())
+        with self._cond:
+            self._pending.append(seq)
+            self._cond.notify()
+        try:
+            while True:
+                item = await seq.out_queue.get()
+                if item is _FINISHED:
+                    return
+                yield item
+        finally:
+            # consumer closed the stream (stop string, disconnect): stop
+            # burning the slot; a no-op after a normal finish
+            request.context.stop_generating()
+            with self._cond:
+                self._cond.notify()
+
+    # -- engine thread ----------------------------------------------------------
+
+    def _ensure_thread(self) -> None:
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._step_loop, name="torch-engine-step", daemon=True
+            )
+            self._thread.start()
+
+    def close(self) -> None:
+        with self._cond:
+            self._shutdown = True
+            self._cond.notify()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def _step_loop(self) -> None:
+        try:
+            with self._device_scope():
+                while True:
+                    with self._cond:
+                        while (
+                            not self._shutdown
+                            and not self._pending
+                            and not any(self._slots)
+                            and self._inflight is None
+                            and self._counts is None  # idle pass frees it first
+                        ):
+                            self._cond.wait()
+                        if self._shutdown:
+                            return
+                    idle = (
+                        not self._pending and not any(self._slots)
+                        and self._inflight is None
+                    )
+                    if idle:
+                        self._release_counts()
+                    self._coalesce_admission_wave()
+                    self._admit()
+                    self._dispatch_step()
+        except Exception:
+            logger.exception("engine step loop crashed")
+            for seq in list(self._slots) + list(self._pending):
+                if seq is not None:
+                    seq.emit(Annotated.from_error("engine internal error"))
+                    seq.emit(_FINISHED)
+
+    # -- scheduling -------------------------------------------------------------
+
+    def _coalesce_admission_wave(self) -> None:
+        """Hold the first dispatch briefly while an admission wave is still
+        landing, so the whole wave prefills together."""
+        window = self.config.admission_window
+        if window <= 0:
+            return
+        if self._inflight is not None or any(s is not None for s in self._slots):
+            return
+        deadline = time.perf_counter() + window
+        with self._cond:
+            prev = len(self._pending)
+            while (
+                0 < prev < self.config.max_slots
+                and not self._shutdown
+                and time.perf_counter() < deadline
+            ):
+                self._cond.wait(timeout=0.001)
+                if len(self._pending) == prev:
+                    return
+                prev = len(self._pending)
+
+    def _admit(self) -> None:
+        """Move pending requests into free slots."""
+        deferred: List[_Seq] = []  # waiting on another lane's in-flight prefix
+        try:
+            self._admit_inner(deferred)
+        finally:
+            if deferred:
+                with self._cond:
+                    for s in reversed(deferred):
+                        self._pending.appendleft(s)
+
+    def _try_alloc(self, seq: _Seq, deferred: List[_Seq]):
+        """allocate_sequence; an in-flight shared prefix parks the request."""
+        alloc = self.allocator.allocate_sequence(seq.prompt)
+        if isinstance(alloc, InflightPrefix):
+            seq.joined_inflight = True
+            seq.wait_hash = alloc.seq_hash
+            deferred.append(seq)
+            return False
+        return alloc
+
+    def _admit_inner(self, deferred: List[_Seq]) -> None:
+        while True:
+            with self._cond:
+                if not self._pending:
+                    return
+                free = [i for i, s in enumerate(self._slots) if s is None]
+                if not free:
+                    return
+                seq = self._pending.popleft()
+            if seq.ctx.context.is_stopped:
+                seq.emit(Annotated.from_data(
+                    LLMEngineOutput.final(FinishReason.CANCELLED).to_dict()
+                ))
+                seq.emit(_FINISHED)
+                continue
+            if seq.wait_hash is not None:
+                if self.allocator.inflight_pending(seq.wait_hash):
+                    deferred.append(seq)
+                    continue
+                seq.wait_hash = None
+            alloc = self._try_alloc(seq, deferred)
+            if alloc is False:
+                continue
+            if alloc is None and (self._inflight is not None or self._zombie_allocs):
+                # blocks may be parked behind the in-flight dispatch
+                self._drain_inflight()
+                alloc = self._try_alloc(seq, deferred)
+                if alloc is False:
+                    continue
+            if alloc is None:
+                if not any(self._slots):
+                    # nothing running will ever free blocks: impossible request
+                    seq.emit(Annotated.from_error(
+                        f"prompt needs {self.allocator.blocks_needed(len(seq.prompt))} "
+                        f"KV blocks; pool has {self.num_blocks}"
+                    ))
+                    seq.emit(_FINISHED)
+                    continue
+                with self._cond:
+                    self._pending.appendleft(seq)  # retry when blocks free up
+                return
+            seq.alloc = alloc
+            if seq.joined_inflight:
+                self.allocator.shared_prefill_tokens += alloc.cached_tokens
+                seq.joined_inflight = False
+            if seq.emitted == 0:  # preempted re-admissions are not new requests
+                self.total_requests += 1
+                self.total_prompt_tokens += len(seq.prompt)
+            seq.slot = free[0]
+            self._slots[seq.slot] = seq
+            if seq.admit_t is None:
+                seq.admit_t = time.perf_counter()
+            # the last prompt token is never cached: >= 1 position computes
+            seq.prefill_pos = seq.alloc.cached_tokens
+
+    def _dispatch_step(self) -> None:
+        active = [s for s in self._slots if s is not None]
+        if not active:
+            self._drain_inflight()
+            return
+        if any(s.prefill_pos is not None for s in active):
+            # chunk prefill needs each decode lane's true last token host-side
+            self._drain_inflight()
+            self._chunk_step()
+        else:
+            self._decode_step()
+
+    def _set_lane(self, i: int, seq: Optional[_Seq]) -> None:
+        """Sampling vectors + block table of lane i (zeros for an idle lane)."""
+        self._tables[i, :] = 0
+        if seq is None:
+            self._temp[i] = 0.0
+            self._topk[i] = 0
+            self._topp[i] = 1.0
+            self._seeds[i] = 0
+            self._freqp[i] = 0.0
+            self._presp[i] = 0.0
+            return
+        self._tables[i, : len(seq.alloc.block_ids)] = seq.alloc.block_ids
+        self._temp[i] = seq.temperature
+        self._topk[i] = seq.top_k
+        self._topp[i] = seq.top_p
+        self._seeds[i] = seq.seed & 0x7FFFFFFF
+        self._freqp[i] = seq.freq_pen
+        self._presp[i] = seq.pres_pen
+
+    def _chunk_step(self) -> None:
+        """One [slots, prefill_chunk] dispatch: prefilling lanes consume up to
+        a chunk of prompt; decode lanes advance one token."""
+        cfg = self.config
+        S, C = cfg.max_slots, cfg.prefill_chunk
+        for seq in [s for s in self._slots if s is not None]:
+            if seq.slot is None:
+                continue  # preempted earlier in this pass
+            if seq.ctx.context.is_stopped:
+                self._finish(seq, FinishReason.CANCELLED)
+            elif seq.prefill_pos is None:
+                # a decode lane writes KV at position total_len-1
+                need = min(seq.total_len, cfg.max_model_len)
+                if not self.allocator.grow(seq.alloc, need):
+                    self._preempt(seq)
+        if not any(self._slots):
+            return
+
+        tokens = np.zeros((S, C), np.int32)
+        positions = np.full((S, C), -1, np.int32)
+        sample_at = np.full((S,), -1, np.int32)
+        consumed: List[Optional[List[int]]] = [None] * S
+        for i in range(S):
+            seq = self._slots[i]
+            self._set_lane(i, seq)
+            if seq is None:
+                continue
+            if seq.prefill_pos is not None:
+                n = min(C, len(seq.prompt) - seq.prefill_pos)
+                chunk_toks = seq.prompt[seq.prefill_pos : seq.prefill_pos + n]
+                tokens[i, :n] = chunk_toks
+                positions[i, :n] = np.arange(seq.prefill_pos, seq.prefill_pos + n)
+                if seq.prefill_pos + n == len(seq.prompt):
+                    sample_at[i] = n - 1
+                consumed[i] = chunk_toks
+            else:
+                fed = seq.generated[-1] if seq.generated else seq.prompt[-1]
+                tokens[i, 0] = fed
+                positions[i, 0] = seq.total_len - 1
+                sample_at[i] = 0
+                consumed[i] = [fed]
+
+        self._step_counter += 1
+        self.chunk_dispatches += 1
+        lanes = list(self._slots)
+        want_lp = any(s is not None and s.logprobs is not None for s in lanes)
+        want_pen = any(s is not None and s.penalized for s in lanes)
+        want_sample = any(s is not None and s.temperature > 0.0 for s in lanes)
+        # a wave whose lanes all start at position 0 attends nothing in the pool
+        want_history = any(
+            s is not None and (s.prefill_pos is None or s.prefill_pos > 0)
+            for s in lanes
+        )
+        counts = self._sync_counts(lanes) if want_pen else self._dummy_counts()
+        sampled, lp, tids, tlps = self._chunk(want_lp, want_pen, want_sample, want_history)(
+            self._put(tokens), self._put(positions), self._put(self._tables),
+            self._put(sample_at), self._step_counter, *self._sampling_args(), counts,
+        )
+        sampled_np = sampled.cpu().numpy()
+        if want_lp:
+            lp_np, tids_np, tlps_np = lp.cpu().numpy(), tids.cpu().numpy(), tlps.cpu().numpy()
+        else:
+            lp_np = tids_np = tlps_np = None
+        if not want_pen:
+            self._release_counts()
+
+        for i in range(S):
+            seq = self._slots[i]
+            if seq is None or consumed[i] is None:
+                continue
+            self.allocator.note_tokens_computed(seq.alloc, consumed[i])
+            lpinfo = (
+                (float(lp_np[i]), tids_np[i], tlps_np[i]) if lp_np is not None else None
+            )
+            tok = int(sampled_np[i])
+            if seq.prefill_pos is not None:
+                seq.prefill_pos += len(consumed[i])
+                if seq.prefill_pos >= len(seq.prompt):
+                    seq.prefill_pos = None
+                    seq.first_token_t = time.perf_counter()
+                    if seq.emitted == 0:
+                        self.recent_ttft_s.append(seq.first_token_t - seq.enqueue_t)
+                    self._emit_token(seq, tok, lpinfo=lpinfo)
+            else:
+                self._emit_token(seq, tok, lpinfo=lpinfo)
+
+    def _decode_step(self) -> None:
+        """Pipelined decode: dispatch N+1 off dispatch N's device carry, then
+        fetch and process N. Blocks of sequences that finish while a
+        dispatch is in flight may still receive its writes, so their
+        allocations park in ``_zombie_allocs`` until it is fetched."""
+        cfg = self.config
+        S, k = cfg.max_slots, cfg.decode_steps
+
+        stopped = [s for s in self._slots if s is not None and s.ctx.context.is_stopped]
+        if stopped:
+            self._drain_inflight()
+            for seq in stopped:
+                if seq.slot is not None:
+                    self._finish(seq, FinishReason.CANCELLED)
+
+        # capacity: this dispatch writes total_len-1 .. total_len-2+k, and
+        # the next (speculative) one another k past that
+        while True:
+            ok = True
+            for seq in [s for s in self._slots if s is not None]:
+                need = min(seq.total_len - 1 + 2 * k, cfg.max_model_len)
+                if not self.allocator.grow(seq.alloc, need):
+                    if self._inflight is not None or self._zombie_allocs:
+                        self._drain_inflight()  # releases zombie blocks
+                    else:
+                        self._preempt(seq)
+                    ok = False
+                    break
+            if ok:
+                break
+        if not any(self._slots):
+            return
+
+        lanes = list(self._slots)
+        if self._inflight is not None and any(
+            a is not b for a, b in zip(self._inflight.lanes, lanes)
+        ):
+            # the lane set changed: the in-flight carry no longer matches
+            self._drain_inflight()
+            lanes = list(self._slots)
+            if not any(lanes):
+                return
+
+        def lane_needs_more(seq: _Seq) -> bool:
+            ahead = k if (
+                self._inflight is not None
+                and seq.slot is not None
+                and self._inflight.lanes[seq.slot] is seq
+            ) else 0
+            if seq.emitted + ahead >= seq.max_tokens:
+                return False
+            return seq.total_len + ahead < cfg.max_model_len
+
+        # every lane provably stops within the in-flight dispatch: another
+        # dispatch would only compute garbage the next wave queues behind
+        if not any(lane_needs_more(s) for s in lanes if s is not None):
+            self._drain_inflight()
+            return
+
+        for i in range(S):
+            seq = self._slots[i]
+            self._set_lane(i, seq)
+            if seq is None:
+                self._positions[i] = -1
+                self._last_tokens[i] = 0
+                continue
+            self._positions[i] = seq.total_len - 1
+            self._last_tokens[i] = seq.generated[-1] if seq.generated else seq.prompt[-1]
+
+        if self._inflight is not None:
+            toks_in, pos_in = self._inflight.tokens, self._inflight.positions
+        else:
+            toks_in = self._put(self._last_tokens)
+            pos_in = self._put(self._positions)
+
+        self._step_counter += 1
+        self.decode_dispatches += 1
+        self.decode_steps_total += k
+        want_lp = any(s is not None and s.logprobs is not None for s in lanes)
+        want_pen = any(s is not None and s.penalized for s in lanes)
+        want_sample = any(s is not None and s.temperature > 0.0 for s in lanes)
+        counts = self._sync_counts(lanes) if want_pen else self._dummy_counts()
+        out, lps, tids, tlps, toks2, pos2 = self._decode(want_lp, want_pen, want_sample)(
+            toks_in, pos_in, self._put(self._tables), self._step_counter,
+            *self._sampling_args(), counts,
+        )
+        if not want_pen:
+            self._release_counts()
+        fetch = lambda t: None if t is None else _HostFetch(t)  # noqa: E731
+        prev, self._inflight = self._inflight, _Inflight(
+            fetch(out), fetch(lps), fetch(tids), fetch(tlps), toks2, pos2, lanes
+        )
+        if prev is not None:
+            self._process_chunk(prev, defer_free=True)
+
+    def _emit_token_run(self, seq: _Seq, cand: List[int], lp_rows, *,
+                        defer_free: bool = False) -> int:
+        """Emit one multi-token run for a lane: cut at max_tokens /
+        max_model_len / first EOS, register the fed tokens' KV, emit ONE
+        item, and finish the lane on a terminal cut. Returns the number of
+        tokens emitted."""
+        cfg = self.config
+        n_take = min(len(cand), seq.max_tokens - seq.emitted, cfg.max_model_len - seq.total_len)
+        finish: Optional[FinishReason] = None
+        if n_take < len(cand):
+            finish = FinishReason.LENGTH
+        toks = cand[:n_take]
+        if seq.eos_ids and not seq.ignore_eos:
+            for j, t in enumerate(toks):
+                if t in seq.eos_ids:
+                    toks = toks[: j + 1]
+                    finish = FinishReason.EOS
+                    break
+        if not toks:
+            if finish is not None:
+                self._finish(seq, finish, defer_free=defer_free)
+            return 0
+        if finish is None and seq.emitted + len(toks) >= seq.max_tokens:
+            finish = FinishReason.LENGTH
+        elif finish is None and seq.total_len + len(toks) >= cfg.max_model_len:
+            finish = FinishReason.LENGTH
+        # fed tokens whose KV is valid and part of the sequence
+        fed0 = seq.generated[-1] if seq.generated else seq.prompt[-1]
+        self.allocator.note_tokens_computed(seq.alloc, [fed0] + toks[:-1])
+
+        log_probs = top_logprobs = None
+        if lp_rows is not None and seq.logprobs is not None:
+            lps_row, tids_row, tlps_row = lp_rows
+            n = len(toks)
+            log_probs = [float(x) for x in lps_row[:n]]
+            if seq.logprobs > 0:
+                kk = min(seq.logprobs, tids_row.shape[1])
+                top_logprobs = [
+                    {int(tids_row[j, p]): float(tlps_row[j, p]) for p in range(kk)}
+                    for j in range(n)
+                ]
+        seq.generated.extend(toks)
+        seq.out_tokens.extend(toks)
+        seq.emitted += len(toks)
+        self.total_generated_tokens += len(toks)
+        seq.emit(Annotated.from_data(
+            LLMEngineOutput(
+                token_ids=toks, log_probs=log_probs, top_logprobs=top_logprobs
+            ).to_dict(),
+            id=seq.ctx.id,
+        ))
+        if finish is not None:
+            self._finish(seq, finish, defer_free=defer_free)
+        return len(toks)
+
+    def _process_chunk(self, chunk: _Inflight, defer_free: bool) -> None:
+        out = chunk.out.get()  # [S, k_steps]
+        if chunk.lps is not None:
+            lps, tids, tlps = chunk.lps.get(), chunk.top_ids.get(), chunk.top_lps.get()
+        else:
+            lps = tids = tlps = None
+        for i, seq in enumerate(chunk.lanes):
+            if seq is None or seq.slot != i:
+                continue  # empty lane, or finished in an earlier dispatch
+            self._emit_token_run(
+                seq, [int(t) for t in out[i]],
+                (lps[i], tids[i], tlps[i]) if lps is not None else None,
+                defer_free=defer_free,
+            )
+
+    def _drain_inflight(self) -> None:
+        """Fetch + process any in-flight dispatch, then release zombie blocks."""
+        if self._inflight is not None:
+            chunk, self._inflight = self._inflight, None
+            self._process_chunk(chunk, defer_free=False)
+        for alloc in self._zombie_allocs:
+            self.allocator.free_sequence(alloc)
+        self._zombie_allocs.clear()
+
+    def _emit_token(self, seq: _Seq, tok: int, defer_free: bool = False, lpinfo=None) -> None:
+        seq.generated.append(tok)
+        seq.out_tokens.append(tok)
+        seq.emitted += 1
+        self.total_generated_tokens += 1
+        finish: Optional[FinishReason] = None
+        if tok in seq.eos_ids and not seq.ignore_eos:
+            finish = FinishReason.EOS
+        elif seq.emitted >= seq.max_tokens:
+            finish = FinishReason.LENGTH
+        elif seq.total_len >= self.config.max_model_len:
+            finish = FinishReason.LENGTH
+        log_probs = top_logprobs = None
+        if seq.logprobs is not None and lpinfo is not None:
+            chosen_lp, top_ids, top_lps = lpinfo
+            log_probs = [chosen_lp]
+            if seq.logprobs > 0:
+                kk = min(seq.logprobs, len(top_ids))
+                top_logprobs = [{int(top_ids[p]): float(top_lps[p]) for p in range(kk)}]
+        seq.emit(Annotated.from_data(
+            LLMEngineOutput(
+                token_ids=[tok], log_probs=log_probs, top_logprobs=top_logprobs
+            ).to_dict(),
+            id=seq.ctx.id,
+        ))
+        if finish is not None:
+            self._finish(seq, finish, defer_free=defer_free)
+
+    def _finish(self, seq: _Seq, reason: FinishReason, defer_free: bool = False) -> None:
+        if seq.slot is not None:
+            self._slots[seq.slot] = None
+            seq.slot = None
+        if seq.alloc is not None:
+            if defer_free:
+                # the in-flight dispatch may still write into these blocks
+                self._zombie_allocs.append(seq.alloc)
+            else:
+                self.allocator.free_sequence(seq.alloc)
+            seq.alloc = None
+        seq.emit(Annotated.from_data(LLMEngineOutput.final(reason).to_dict(), id=seq.ctx.id))
+        seq.emit(_FINISHED)
+
+    def _preempt(self, seq: _Seq) -> None:
+        """Out of KV blocks: recompute-preempt — free the pages and requeue
+        with prompt := prompt + generated (the prefix cache softens the
+        recompute); ``emitted`` keeps the caller-visible count."""
+        logger.warning("preempting request %s (out of KV blocks)", seq.ctx.id)
+        self.preemptions += 1
+        if seq.slot is not None:
+            self._slots[seq.slot] = None
+            seq.slot = None
+        self.allocator.free_sequence(seq.alloc)
+        seq.prompt = seq.prompt + seq.generated
+        seq.generated = []
+        seq.alloc = None
+        seq.prefill_pos = None
+        with self._cond:
+            self._pending.append(seq)
+
+    # -- metrics ----------------------------------------------------------------
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """Load and KV gauges (the ForwardPassMetrics fields the router
+        reads) plus the engine's dispatch counters and the paged decode
+        kernel's launch count."""
+        with self._cond:
+            probe = max(self.allocator.probe_tokens, 1)
+            return {
+                "request_active_slots": sum(1 for s in self._slots if s is not None),
+                "request_total_slots": self.config.max_slots,
+                "kv_active_blocks": self.allocator.active_blocks,
+                "kv_total_blocks": self.num_blocks,
+                "kv_free_blocks": self.allocator.free_blocks,
+                "kv_reclaimable_blocks": self.allocator.reclaimable_blocks,
+                "num_requests_waiting": len(self._pending),
+                "gpu_cache_usage_perc": self.allocator.usage(),
+                "gpu_prefix_cache_hit_rate": self.allocator.hit_tokens / probe,
+                "inflight_prefill_waits": self.allocator.inflight_waits,
+                "shared_prefill_tokens": self.allocator.shared_prefill_tokens,
+                "kv_peak_occupancy_perc": round(self.allocator.peak_occupancy(), 4),
+                "preemptions": self.preemptions,
+                "chunk_dispatches": self.chunk_dispatches,
+                "decode_dispatches": self.decode_dispatches,
+                "decode_steps_total": self.decode_steps_total,
+                "paged_decode_launches": paged_decode_attention.launches,
+            }
+
+
+class _DeviceScope:
+    """``torch.no_grad`` plus, on CUDA, the engine's device as current."""
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._ng = torch.no_grad()
+
+    def __enter__(self):
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
+        self._ng.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._ng.__exit__(*exc)
+
+
+def build_torch_serving_engine(
+    card,
+    max_batch_size: int = 8,
+    kv_block_size: int = 16,
+    max_model_len: Optional[int] = None,
+    num_kv_blocks: Optional[int] = None,
+    seed: int = 0,
+    event_sink: Optional[KvEventSink] = None,
+    decode_steps: int = 4,
+    device: Optional[str] = None,
+    dtype: torch.dtype = torch.bfloat16,
+) -> TorchServingEngine:
+    """CLI entry: model + engine from a ModelDeploymentCard, on CUDA unless
+    ``device="cpu"``."""
+    from .weights import config_from_card, load_params
+
+    dev = resolve_device(device)
+    model_config = config_from_card(card, dtype=dtype)
+    params = load_params(card, model_config, seed=seed, device=dev)
+    engine_config = EngineConfig(
+        max_slots=max_batch_size,
+        kv_block_size=kv_block_size,
+        max_model_len=max_model_len or min(card.context_length, 4096),
+        num_kv_blocks=num_kv_blocks,
+        decode_steps=decode_steps,
+    )
+    return TorchServingEngine(
+        model_config, params, engine_config, device=dev, event_sink=event_sink
+    )

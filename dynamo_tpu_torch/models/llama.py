@@ -1,0 +1,456 @@
+"""Llama-family decoder in PyTorch over a paged KV cache.
+
+Counterpart of the JAX package's ``models/llama.py``. The parameters live in
+an ``nn.Module`` (:class:`LlamaParams`) that holds the same stacked
+``[L, in, out]`` tensors as the JAX pytree, so weights carry over 1:1
+(``engine_torch/weights.py``). The layer loop is a Python loop over the
+stacked leading axis (the JAX package scans it).
+
+The KV cache is ``{"k": [L, N, bs, KVH, D], "v": ...}`` (the JAX layout) and
+is updated in place. Decode history always goes through the paged flash-decode
+kernel (``ops/paged_attention.py``); the JAX package's dense history tier is
+not ported (its choice was tuned on a TPU).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.attention import gather_pages, paged_attention, write_kv_to_pages
+from ..ops.paged_attention import paged_decode_attention
+
+KVCache = Dict[str, torch.Tensor]  # {"k": [L,N,bs,KVH,D], "v": ...}
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rms_norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    qkv_bias: bool = False  # qwen2-family attention biases
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+LLAMA_PRESETS: Dict[str, LlamaConfig] = {
+    "tiny": LlamaConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=16, rope_theta=10000.0,
+    ),
+    "llama3.2-1b": LlamaConfig(
+        vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_layers=16,
+        num_heads=32, num_kv_heads=8, head_dim=64, tie_embeddings=True,
+    ),
+    "llama3-8b": LlamaConfig(),
+    "llama3-70b": LlamaConfig(
+        hidden_size=8192, intermediate_size=28672, num_layers=80,
+        num_heads=64, num_kv_heads=8, head_dim=128,
+    ),
+    "qwen2.5-7b": LlamaConfig(
+        vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_layers=28, num_heads=28, num_kv_heads=4, head_dim=128,
+        rope_theta=1000000.0, rms_norm_eps=1e-6, qkv_bias=True,
+    ),
+    "qwen2.5-1.5b": LlamaConfig(
+        vocab_size=151936, hidden_size=1536, intermediate_size=8960,
+        num_layers=28, num_heads=12, num_kv_heads=2, head_dim=128,
+        rope_theta=1000000.0, rms_norm_eps=1e-6, qkv_bias=True,
+        tie_embeddings=True,
+    ),
+}
+
+
+# -- params ------------------------------------------------------------------
+
+def param_shapes(c: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
+    """name → (shape, stored in fp32); ``layers.*`` are stacked over L."""
+    L, E, F = c.num_layers, c.hidden_size, c.intermediate_size
+    shapes = {
+        "embed": ((c.vocab_size, E), False),
+        "final_norm": ((E,), True),
+        "layers.attn_norm": ((L, E), True),
+        "layers.wq": ((L, E, c.q_dim), False),
+        "layers.wk": ((L, E, c.kv_dim), False),
+        "layers.wv": ((L, E, c.kv_dim), False),
+        "layers.wo": ((L, c.q_dim, E), False),
+        "layers.mlp_norm": ((L, E), True),
+        "layers.w_gate": ((L, E, F), False),
+        "layers.w_up": ((L, E, F), False),
+        "layers.w_down": ((L, F, E), False),
+    }
+    if c.qkv_bias:
+        shapes["layers.bq"] = ((L, c.q_dim), True)
+        shapes["layers.bk"] = ((L, c.kv_dim), True)
+        shapes["layers.bv"] = ((L, c.kv_dim), True)
+    if not c.tie_embeddings:
+        shapes["lm_head"] = ((E, c.vocab_size), False)
+    return shapes
+
+
+class LlamaParams(nn.Module):
+    """The stacked parameter set: ``embed``, ``final_norm``, ``lm_head``
+    (untied) and ``layers[name]`` with a leading layer axis. Norm weights
+    and biases are fp32, matrices the config dtype (the JAX dtypes)."""
+
+    def __init__(self, config: LlamaConfig, device: torch.device):
+        super().__init__()
+        self.config = config
+        self.layers = nn.ParameterDict()
+        for name, (shape, f32) in param_shapes(config).items():
+            dt = torch.float32 if f32 else config.dtype
+            p = nn.Parameter(torch.empty(shape, dtype=dt, device=device), requires_grad=False)
+            if name.startswith("layers."):
+                self.layers[name[len("layers."):]] = p
+            else:
+                self.register_parameter(name, p)
+
+    def layer(self, i: int) -> Dict[str, torch.Tensor]:
+        """One layer's tensors (leading axis removed): views, no copies."""
+        return {k: v[i] for k, v in self.layers.items()}
+
+
+def init_params(config: LlamaConfig, seed: int = 0, device="cpu") -> LlamaParams:
+    """Random init with fan-in scaling (normal / sqrt(fan_in)), drawn on
+    ``device`` from a ``torch.Generator`` seeded with ``seed``; norms are 1
+    and biases 0. Streams differ from ``jax.random``'s: carry JAX weights
+    over with ``weights.params_from_numpy`` where equality matters."""
+    device = torch.device(device)
+    params = LlamaParams(config, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            leaf = name.split(".")[-1]
+            if leaf.endswith("norm"):
+                p.fill_(1.0)
+            elif leaf in ("bq", "bk", "bv"):
+                p.zero_()
+            else:
+                fan_in = p.shape[-2] if leaf != "embed" else p.shape[-1]
+                w = torch.randn(p.shape, generator=gen, device=device, dtype=torch.float32)
+                p.copy_(w.div_(math.sqrt(fan_in)))
+    return params
+
+
+def make_kv_cache(
+    config: LlamaConfig, num_blocks: int, block_size: int,
+    dtype: Optional[torch.dtype] = None, device="cpu",
+) -> KVCache:
+    """Allocate the paged KV pool: [layers, blocks, block_size, kv_heads, head_dim]."""
+    c = config
+    shape = (c.num_layers, num_blocks, block_size, c.num_kv_heads, c.head_dim)
+    dt = dtype or c.dtype
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+    }
+
+
+# -- math --------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split rotation; x: [B, T, H, D], positions: [B, T]."""
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
+    angles = positions.clamp(min=0).float()[..., None] * freqs  # [B, T, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., : d // 2], x[..., d // 2 :]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rotated.to(x.dtype)
+
+
+def embed_lookup(params: LlamaParams, tokens: torch.Tensor) -> torch.Tensor:
+    return params.embed[tokens.clamp(min=0).long()]
+
+
+def project_qkv(
+    lp: Dict[str, torch.Tensor], c: LlamaConfig, hidden: torch.Tensor,
+    positions: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pre-norm, Q/K/V projections (+ qwen2 biases), head reshape, rope."""
+    b, t = positions.shape
+    x = rms_norm(hidden, lp["attn_norm"], c.rms_norm_eps)
+    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    if c.qkv_bias:
+        q = q + lp["bq"].to(q.dtype)
+        k = k + lp["bk"].to(k.dtype)
+        v = v + lp["bv"].to(v.dtype)
+    q = q.reshape(b, t, c.num_heads, c.head_dim)
+    k = k.reshape(b, t, c.num_kv_heads, c.head_dim)
+    v = v.reshape(b, t, c.num_kv_heads, c.head_dim)
+    q = apply_rope(q, positions, c.rope_theta)
+    k = apply_rope(k, positions, c.rope_theta)
+    return q, k, v
+
+
+def mlp_block(lp: Dict[str, torch.Tensor], c: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """Post-norm dense silu-gated FFN plus residual."""
+    x = rms_norm(hidden, lp["mlp_norm"], c.rms_norm_eps)
+    gate = torch.nn.functional.silu((x @ lp["w_gate"]).float()).to(x.dtype)
+    return hidden + (gate * (x @ lp["w_up"])) @ lp["w_down"]
+
+
+def lm_head(params: LlamaParams, config: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
+    """Project final hidden states to vocabulary logits (float32)."""
+    head = params.embed.T if config.tie_embeddings else params.lm_head
+    return (h @ head).float()
+
+
+def _merge(num_a, m_a, l_a, num_b, m_b, l_b):
+    """Flash-decoding combine of two unnormalized partials (rows in m/l's
+    shape, numerators with a trailing D)."""
+    m_t = torch.maximum(m_a, m_b)
+    a_a = torch.exp(m_a - m_t)
+    a_b = torch.exp(m_b - m_t)
+    den = a_a * l_a + a_b * l_b
+    num = num_a * a_a[..., None] + num_b * a_b[..., None]
+    out = num / den.clamp(min=1e-30)[..., None]
+    return torch.where((den > 0)[..., None], out, torch.zeros_like(out))
+
+
+# -- forward -----------------------------------------------------------------
+
+def decoder_layer(
+    lp: Dict[str, torch.Tensor], config: LlamaConfig, hidden: torch.Tensor,
+    positions: torch.Tensor, k_page: torch.Tensor, v_page: torch.Tensor,
+    block_tables: torch.Tensor,
+) -> torch.Tensor:
+    """One decoder layer of :func:`forward`; writes this step's K/V into the
+    layer's pages (in place) and attends through the block tables."""
+    c = config
+    b, t = positions.shape
+    q, k, v = project_qkv(lp, c, hidden, positions)
+    write_kv_to_pages(k_page, v_page, k, v, positions, block_tables)
+    attn = paged_attention(q, k_page, v_page, block_tables, positions)
+    hidden = hidden + attn.reshape(b, t, c.q_dim) @ lp["wo"]
+    return mlp_block(lp, c, hidden)
+
+
+def forward(
+    params: LlamaParams, config: LlamaConfig,
+    tokens: torch.Tensor,  # [B, T]
+    positions: torch.Tensor,  # [B, T]; < 0 = padding
+    kv_cache: KVCache, block_tables: torch.Tensor,
+    *, hidden_only: bool = False,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One forward step (prefill if T>1, decode if T==1): writes new K/V into
+    the paged cache, attends through block tables, returns (logits [B, T,
+    vocab] float32, cache)."""
+    c = config
+    h = embed_lookup(params, tokens)
+    for i in range(c.num_layers):
+        h = decoder_layer(
+            params.layer(i), c, h, positions, kv_cache["k"][i], kv_cache["v"][i],
+            block_tables,
+        )
+    h = rms_norm(h, params.final_norm, c.rms_norm_eps)
+    if hidden_only:
+        return h, kv_cache
+    return lm_head(params, c, h), kv_cache
+
+
+def _history_partial(q, gk, gv, chunk_start, q_positions, scale):
+    """Flash partial of chunk queries against pre-chunk paged history:
+    (numerator [B,T,H,D] f32, row max [B,H,T], denom [B,H,T])."""
+    b, t, h, d = q.shape
+    kvh = gk.shape[2]
+    g = h // kvh
+    smax = gk.shape[1]
+    qg = q.reshape(b, t, kvh, g, d).float()
+    scores = torch.einsum("btngd,bsnd->bngts", qg, gk.float()) * scale
+    kv_pos = torch.arange(smax, device=q.device)[None, :]
+    mask = (kv_pos < chunk_start[:, None])[:, None, None, None, :]
+    mask = mask & (q_positions >= 0)[:, None, None, :, None]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    m = scores.amax(dim=-1).clamp(min=-1e30)
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(dim=-1)
+    num = torch.einsum("bngts,bsnd->btngd", p, gv.float())
+    return num.reshape(b, t, h, d), m.reshape(b, h, t), l.reshape(b, h, t)
+
+
+def _chunk_self_partial(q, k, v, positions, scale):
+    """Flash partial of chunk queries against the chunk's own keys (causal
+    by position)."""
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, t, kvh, g, d).float()
+    scores = torch.einsum("btngd,bsnd->bngts", qg, k.float()) * scale
+    causal = positions[:, None, :] <= positions[:, :, None]
+    valid = (positions >= 0)[:, :, None] & (positions >= 0)[:, None, :]
+    mask = (causal & valid)[:, None, None, :, :]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    m = scores.amax(dim=-1).clamp(min=-1e30)
+    p = torch.exp(scores - m[..., None])
+    num = torch.einsum("bngts,bsnd->btngd", p, v.float())
+    return num.reshape(b, t, h, d), m.reshape(b, h, t), p.sum(dim=-1).reshape(b, h, t)
+
+
+def forward_chunk(
+    params: LlamaParams, config: LlamaConfig,
+    tokens: torch.Tensor,  # [B, C]
+    positions: torch.Tensor,  # [B, C]; < 0 = padding
+    kv_cache: KVCache, block_tables: torch.Tensor,
+    *, hidden_only: bool = False, with_history: bool = True,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill-chunk forward: attention is the flash merge of a partial over
+    pool history (positions < each lane's chunk start) with an in-chunk
+    causal partial over the fresh K/V in hand; the chunk's K/V are written
+    into the pages for later chunks and decode. ``with_history=False``
+    skips the history partial (every lane starts at position 0)."""
+    c = config
+    scale = c.head_dim ** -0.5
+    h = embed_lookup(params, tokens)
+    chunk_start = torch.where(positions[:, 0] >= 0, positions[:, 0], 0)
+    b, t = positions.shape
+    for i in range(c.num_layers):
+        lp = params.layer(i)
+        k_page, v_page = kv_cache["k"][i], kv_cache["v"][i]
+        q, k, v = project_qkv(lp, c, h, positions)
+        num, m, l = _chunk_self_partial(q, k, v, positions, scale)
+        if with_history:
+            # masked to < chunk_start, the history pages are untouched by
+            # this chunk's scatter either way
+            num_h, m_h, l_h = _history_partial(
+                q, gather_pages(k_page, block_tables),
+                gather_pages(v_page, block_tables), chunk_start, positions, scale,
+            )
+            tr = lambda x: x.transpose(1, 2)  # noqa: E731  [B,H,T] → [B,T,H]
+            attn = _merge(num_h, tr(m_h), tr(l_h), num, tr(m), tr(l))
+        else:
+            den = l.transpose(1, 2)[..., None]
+            attn = torch.where(den > 0, num / den.clamp(min=1e-30), torch.zeros_like(num))
+        write_kv_to_pages(k_page, v_page, k, v, positions, block_tables)
+        h = h + attn.to(h.dtype).reshape(b, t, c.q_dim) @ lp["wo"]
+        h = mlp_block(lp, c, h)
+    h = rms_norm(h, params.final_norm, c.rms_norm_eps)
+    if hidden_only:
+        return h, kv_cache
+    return lm_head(params, c, h), kv_cache
+
+
+def _window_only_attention(c, q, base, wk, wv, wslot):
+    """Flash attention over just the decode window: the unnormalized
+    numerator [B, H, D] f32 plus row max / denominator [B, H] f32."""
+    b, _, h_, d = q.shape
+    kvh = c.num_kv_heads
+    w = wk.shape[1]
+    g = h_ // kvh
+    qg = q.reshape(b, kvh, g, d).float()
+    mask = (torch.arange(w, device=q.device)[None, :] <= wslot) & (base[:, None] >= 0)
+    scores = torch.einsum("bngd,bwnd->bngw", qg, wk.float()) * (d ** -0.5)
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    m = scores.amax(dim=-1).clamp(min=-1e30)
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(dim=-1)
+    # the JAX einsum runs in the window dtype and is cast up after
+    num = torch.einsum("bngw,bwnd->bngd", p.to(wv.dtype), wv).float()
+    return num.reshape(b, h_, d), m.reshape(b, h_), l.reshape(b, h_)
+
+
+def _paged_window_attention(c, q, k_page, v_page, block_tables, base, wk, wv,
+                            wslot, decode_attention):
+    """Decode-window attention: the paged flash-decode kernel computes the
+    pool partial and its softmax stats; the window partial is merged with
+    the flash-decoding combine. The pool is read-only here."""
+    lengths = base.clamp(min=0).to(torch.int32)
+    o_p, m_p, l_p = decode_attention(
+        q[:, 0].contiguous(), k_page, v_page, block_tables, lengths,
+        return_stats=True,
+    )
+    num_w, m_w, l_w = _window_only_attention(c, q, base, wk, wv, wslot)
+    m_p = m_p.clamp(min=-1e30)
+    m_t = torch.maximum(m_p, m_w)
+    a_p = torch.exp(m_p - m_t) * l_p
+    a_w = torch.exp(m_w - m_t)
+    denom = a_p + a_w * l_w
+    num = o_p.float() * a_p[..., None] + num_w * a_w[..., None]
+    out = num / denom.clamp(min=1e-30)[..., None]
+    out = torch.where((denom > 0)[..., None], out, torch.zeros_like(out))
+    return out.to(q.dtype)[:, None]  # [B, 1, H, D]
+
+
+def forward_window(
+    params: LlamaParams, config: LlamaConfig,
+    tokens: torch.Tensor,  # [B] one token per lane
+    positions: torch.Tensor,  # [B]; < 0 = padding
+    kv_cache: KVCache, block_tables: torch.Tensor,
+    base: torch.Tensor,  # [B] pool holds positions < base
+    window_k: torch.Tensor,  # [L, B, W, KVH, D]
+    window_v: torch.Tensor,
+    wslot: int,  # window slot of this step
+    *, decode_attention=paged_decode_attention,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step over the read-only pool plus the window of fresh K/V
+    (the JAX ``forward_window`` in its paged history mode).
+
+    The step's K/V go into ``window_k/v[:, :, wslot]`` (in place); the
+    engine flushes the window into the pages once per dispatch
+    (:func:`flush_window`). ``decode_attention`` is the pool-attention
+    function (the kernel's wrapper; a caller may pass its plain version to
+    compare the two). Returns (logits [B, vocab] f32, window_k, window_v)."""
+    c = config
+    h = embed_lookup(params, tokens)[:, None]  # [B, 1, E]
+    pos2 = positions[:, None]
+    b = h.shape[0]
+    for i in range(c.num_layers):
+        lp = params.layer(i)
+        q, k, v = project_qkv(lp, c, h, pos2)
+        wk, wv = window_k[i], window_v[i]
+        wk[:, wslot] = k[:, 0]
+        wv[:, wslot] = v[:, 0]
+        attn = _paged_window_attention(
+            c, q, kv_cache["k"][i], kv_cache["v"][i], block_tables, base,
+            wk, wv, wslot, decode_attention,
+        )
+        h = h + attn.reshape(b, 1, c.q_dim) @ lp["wo"]
+        h = mlp_block(lp, c, h)
+    h = rms_norm(h, params.final_norm, c.rms_norm_eps)
+    return lm_head(params, c, h)[:, 0], window_k, window_v
+
+
+def flush_window(
+    kv_cache: KVCache, block_tables: torch.Tensor,
+    base: torch.Tensor,  # [B] first position written by this dispatch
+    window_k: torch.Tensor,  # [L, B, W, KVH, D]
+    window_v: torch.Tensor, max_pos: int,
+) -> KVCache:
+    """Scatter a decode dispatch's window into the paged pool (in place), one
+    scatter per layer per dispatch. Padding lanes (base < 0) and positions
+    past ``max_pos`` are dropped."""
+    w = window_k.shape[2]
+    fpos = base[:, None] + torch.arange(w, device=base.device)[None, :]
+    valid = (base[:, None] >= 0) & (fpos <= max_pos)
+    fpos = torch.where(valid, fpos, torch.full_like(fpos, -1))
+    for i in range(window_k.shape[0]):
+        write_kv_to_pages(
+            kv_cache["k"][i], kv_cache["v"][i], window_k[i], window_v[i],
+            fpos, block_tables,
+        )
+    return kv_cache

@@ -1,0 +1,93 @@
+"""Paged-KV attention and KV page scatter.
+
+The KV cache is a pool of fixed-size pages: ``[num_blocks, block_size,
+num_kv_heads, head_dim]`` per layer. A request owns a *block table*, the list
+of physical page ids backing its logical context. Counterpart of the JAX
+package's ``ops/attention.py``; the pool is updated in place here (a JAX
+array is immutable, a torch tensor is not, and an in-place scatter saves a
+pool-sized copy per layer).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def write_kv_to_pages(
+    k_cache: torch.Tensor,  # [num_blocks, block_size, ...]
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [B, T, ...]
+    v_new: torch.Tensor,
+    positions: torch.Tensor,  # [B, T] absolute position in sequence; < 0 = padding
+    block_tables: torch.Tensor,  # [B, max_blocks] physical page ids
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter new K/V rows into their pages, in place; padding and
+    out-of-table positions are dropped (the JAX scatter's ``mode="drop"``).
+    Trailing-dim agnostic. Returns the (same) cache tensors."""
+    num_blocks, block_size = k_cache.shape[0], k_cache.shape[1]
+    max_blocks = block_tables.shape[1]
+    positions = positions.to(torch.int64)
+    logical = torch.div(positions, block_size, rounding_mode="floor")
+    slot = torch.remainder(positions, block_size)
+    phys = torch.gather(
+        block_tables.to(torch.int64), 1, logical.clamp(0, max_blocks - 1)
+    )
+    # filter the rows first: index_put_ has no drop mode, and a clamped
+    # index would write into a wrong page
+    valid = ((positions >= 0) & (logical < max_blocks)).reshape(-1)
+    rows = (phys * block_size + slot).reshape(-1)[valid]
+    flat_k = k_cache.view(num_blocks * block_size, *k_cache.shape[2:])
+    flat_v = v_cache.view(num_blocks * block_size, *v_cache.shape[2:])
+    flat_k[rows] = k_new.reshape(-1, *k_new.shape[2:])[valid].to(k_cache.dtype)
+    flat_v[rows] = v_new.reshape(-1, *v_new.shape[2:])[valid].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def gather_pages(
+    cache: torch.Tensor,  # [num_blocks, block_size, KVH, D]
+    block_tables: torch.Tensor,  # [B, max_blocks]
+) -> torch.Tensor:
+    """Gather a request's pages into contiguous [B, max_blocks*block_size, KVH, D]."""
+    pages = cache[block_tables.to(torch.int64)]  # [B, MB, bs, KVH, D]
+    b, mb, bs = pages.shape[0], pages.shape[1], pages.shape[2]
+    return pages.reshape(b, mb * bs, *pages.shape[3:])
+
+
+def paged_attention(
+    q: torch.Tensor,  # [B, T, H, D]
+    k_cache: torch.Tensor,  # [num_blocks, block_size, KVH, D]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_blocks]
+    q_positions: torch.Tensor,  # [B, T] absolute positions of queries; < 0 = padding
+    *,
+    scale: Optional[float] = None,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal attention of ``q`` against the paged context (eager reference).
+
+    Query at absolute position p attends to context positions <= p; the new
+    K/V must already be in the cache."""
+    b, t, h, d = q.shape
+    kvh = k_cache.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    k = gather_pages(k_cache, block_tables)  # [B, S, KVH, D]
+    v = gather_pages(v_cache, block_tables)
+    s = k.shape[1]
+    g = h // kvh
+    qg = q.reshape(b, t, kvh, g, d)
+    scores = torch.einsum("btngd,bsnd->bngts", qg.float(), k.float()) * scale
+    if soft_cap is not None:
+        scores = torch.tanh(scores / soft_cap) * soft_cap
+    kv_pos = torch.arange(s, device=q.device)[None, None, :]
+    causal = kv_pos <= q_positions[:, :, None]  # [B, T, S]
+    valid_q = (q_positions >= 0)[:, :, None]
+    mask = (causal & valid_q)[:, None, None, :, :]  # [B, 1, 1, T, S]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    # rows with no valid keys (padding queries) produce NaN: zero them
+    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, torch.zeros_like(probs))
+    out = torch.einsum("bngts,bsnd->btngd", probs.to(v.dtype), v)
+    return out.reshape(b, t, h, d).to(q.dtype)
