@@ -8,11 +8,16 @@ non-zero:
 1. device: prints the card's name and power limit (nvidia-smi);
 2. build: compiles every kernel of the path from ``dynamo_tpu_torch/csrc``;
 3. kernels: holds each kernel against its plain PyTorch version on the card,
-   in every regime the JAX kernels covered, and times kernel, plain version
-   and the library call beside it;
+   in every regime the JAX kernels covered and with one lane, and times
+   kernel, plain version and the library call beside it over runs of many
+   calls cycling through inputs larger than L2; at two shapes it also times
+   the kernel at split counts around the planner's;
 4. serve: starts ``dynamo_tpu_torch.cli.run``'s HTTP server in this process
    on a llama3-8b-width model with random weights, answers 8 concurrent
-   streaming requests, and checks the launch counts of the kernels;
+   streaming requests, and checks the launch counts of both kernels (as the
+   wrapper counts them where it launches them); then profiles a few steady
+   decode dispatches of a second wave of requests and counts the kernels'
+   device events per wrapper call;
 5. decode parity: one full-width ``forward_window`` step through the kernel
    and through its plain version;
 6. prints the kernels' JSON line and, last, the device JSON line.
@@ -24,6 +29,7 @@ import asyncio
 import http.client
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -45,6 +51,8 @@ CHAT_TEMPLATE = (
 )
 N_REQUESTS = 8
 MAX_TOKENS = 32
+PROFILE_TOKENS = 64  # the profiled second wave
+PROFILE_DISPATCHES = 3
 BF16_PEAK = 989e12  # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 FP32_PEAK = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
 
@@ -136,9 +144,18 @@ def phase_build() -> None:
 
     info = build()
     print(f"build: paged_attention.cu in {info['seconds']:.2f} s -> {info['path']}")
+    # -Xptxas -v: "Compiling entry function '<mangled>'", then its spills,
+    # then its registers; the mangled name carries the template arguments
+    name, spills = "?", ""
     for ln in info["log"].splitlines():
-        if "registers" in ln or "spill" in ln:
-            print("  ptxas:", ln.strip())
+        if "Compiling entry function" in ln:
+            m = re.search(r"(paged_decode_\w+?_kernel)I(13__nv_bfloat16|f)E?(?:Li(\d+)E)?", ln)
+            name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}"
+                    + (f", D={m.group(3)}>" if m.group(3) else ">")) if m else ln.split("'")[1]
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "registers" in ln:
+            print(f"  ptxas: {name}: {ln.split(':', 1)[-1].strip()}; {spills}")
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -149,20 +166,29 @@ REGIMES = [
     ("many lanes (D=128, 64 lanes)", 64, 32, 8, 128, 16, 1024),
     ("llama3.2-1b heads (D=64, KVH=8)", 8, 32, 8, 64, 16, 2048),
     ("tiny heads (D=16, KVH=2)", 8, 4, 2, 16, 16, 256),
+    ("one lane (D=128, KVH=8, 1 lane, 2048)", 1, 32, 8, 128, 16, 2048),
 ]
+# regimes (indices into REGIMES) whose split count is swept around the plan
+SWEEP = (0, 4)
+SWEEP_SPLITS = (1, 2, 4, 8, 16, 32)
+TIMED_CALLS = 60  # launches between one event pair
+COLD_BYTES = 120e6  # live K/V bytes cycled through: over 2x the 50 MB L2
+MAX_SETS = 48
 
 
 def make_case(torch, S, H, KVH, D, bs, max_len, dtype, seed, dev="cuda"):
-    """Ragged lengths with one padding lane, permuted tables with garbage
-    past each lane's live pages, and NaN in every dead slot of a lane's last
-    page (a kernel that loads one feeds 0 * NaN into its value sum)."""
+    """Ragged lengths with one padding lane (when there are two lanes or
+    more), permuted tables with garbage past each lane's live pages, and NaN
+    in every dead slot of a lane's last page (a kernel that loads one feeds
+    0 * NaN into its value sum)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     mb = -(-max_len // bs)
     lengths = rng.integers(1, max_len + 1, size=S)
     lengths[0] = max_len
-    lengths[S // 2] = 0
+    if S > 1:
+        lengths[S // 2] = 0
     n_blocks = S * mb + 7
     perm = rng.permutation(n_blocks)[: S * mb].reshape(S, mb)
     k = rng.standard_normal((n_blocks, bs, KVH, D), dtype=np.float32)
@@ -182,20 +208,60 @@ def make_case(torch, S, H, KVH, D, bs, max_len, dtype, seed, dev="cuda"):
     )
 
 
-def time_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after warm-up."""
-    for _ in range(warmup):
-        fn()
+def timing_sets(torch, case, n_sets: int, seed: int) -> list:
+    """``n_sets`` independent inputs of the case's shapes, tables and
+    lengths: the case itself plus fresh q, K and V made on the card, so that
+    cycling through them reads K/V that is not in L2."""
+    q, k, v, tables, lengths = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sets = [case]
+    for _ in range(n_sets - 1):
+        sets.append(tuple(
+            torch.randn(x.shape, generator=gen, device="cuda", dtype=torch.float32).to(x.dtype)
+            for x in (q, k, v)
+        ) + (tables, lengths))
+    return sets
+
+
+def time_many(torch, fns, calls: int = TIMED_CALLS, reps: int = 3) -> float:
+    """ms per call: ``calls`` calls cycling through ``fns`` between one event
+    pair (the median of ``reps`` such runs), after one warm-up pass."""
+    calls = -(-max(calls, len(fns)) // len(fns)) * len(fns)
+    for f in fns:
+        f()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for i in range(calls):
+            fns[i % len(fns)]()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def time_graph(torch, fns, calls: int = TIMED_CALLS, reps: int = 3) -> float:
+    """ms per call of the same run captured once in a CUDA graph and
+    replayed: the device's time with the host's enqueue taken out."""
+    calls = -(-max(calls, len(fns)) // len(fns)) * len(fns)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -242,22 +308,29 @@ def bound(S, H, KVH, D, bs, lengths, itemsize, rate):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-
 def phase_kernels(card: str) -> dict:
     import torch
 
     from dynamo_tpu_torch.ops.paged_attention import (
+        device_launches,
         paged_decode_attention,
         paged_decode_attention_plain,
+        reset_launch_counts,
+        splits_launched,
     )
 
     rate = hbm_rate(card)
     result = {}
     for ri, (name, S, H, KVH, D, bs, max_len) in enumerate(REGIMES):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, tables, lengths = make_case(torch, S, H, KVH, D, bs, max_len, dtype, 100 + ri)
+            case = make_case(torch, S, H, KVH, D, bs, max_len, dtype, 100 + ri)
+            q, k, v, tables, lengths = case
+            reset_launch_counts()
             o, m, l = paged_decode_attention(q, k, v, tables, lengths, return_stats=True)
             torch.cuda.synchronize()
+            # what this call launched, as the wrapper counted it at the launch
+            (splits,) = splits_launched
+            dev_launches = sum(device_launches.values())
             po, pm, pl = paged_decode_attention_plain(q, k, v, tables, lengths, return_stats=True)
             err_o = (o.float() - po.float()).abs().max().item()
             err_m = (m - pm).abs().max().item()
@@ -275,25 +348,51 @@ def phase_kernels(card: str) -> dict:
                       and torch.allclose(l, pl, rtol=1e-3, atol=0))
                 tol = "o atol 2e-2, m/l rtol 1e-3"
             dt = "fp32" if dtype == torch.float32 else "bf16"
-            print(f"kernel vs plain [{name}, {dt}]: max|do| {err_o:.3e} max|dm| {err_m:.3e} "
-                  f"max|dl| {err_l:.3e} ({tol}) {'ok' if ok else 'MISMATCH'}")
+            print(f"kernel vs plain [{name}, {dt}, {splits} splits, {dev_launches} device "
+                  f"launches]: max|do| {err_o:.3e} "
+                  f"max|dm| {err_m:.3e} max|dl| {err_l:.3e} ({tol}) "
+                  f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 fail(f"paged_decode_attention disagrees with its plain version: {name} {dt}")
             if dtype != torch.bfloat16:
                 continue
             lens_np = lengths.cpu().numpy()
-            launches0 = paged_decode_attention.launches
-            ms = time_ms(torch, lambda: paged_decode_attention(q, k, v, tables, lengths))
-            paged_decode_attention.launches = launches0  # timing launches are not the path's
-            plain_ms = time_ms(torch, lambda: paged_decode_attention_plain(q, k, v, tables, lengths),
-                               reps=20, warmup=2)
-            lib_ms = time_ms(torch, sdpa_library(torch, q, k, v, tables, lengths))
             b_ms, b_by, nbytes, flops = bound(S, H, KVH, D, bs, lens_np, 2, rate)
-            print(f"  time [{name}, bf16]: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-                  f"{nbytes / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms, "
-                  f"library (SDPA enable_gqa on pre-gathered K/V, gather not timed) {lib_ms:.4f} ms")
-            result[name] = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=lib_ms, S=S, H=H, KVH=KVH, D=D,
+            live_kv = 2 * int(lens_np.sum()) * KVH * D * 2
+            n_sets = min(MAX_SETS, max(4, -(-int(COLD_BYTES) // live_kv)))
+            sets = timing_sets(torch, case, n_sets, 1000 + ri)
+            cold = n_sets * live_kv > 100e6
+            kern = [lambda a=a: paged_decode_attention(*a) for a in sets]
+            ms = time_many(torch, kern)
+            graph_ms = time_graph(torch, kern)
+            sweep = {}
+            if ri in SWEEP:
+                for n in sorted({*SWEEP_SPLITS, splits}):
+                    sweep[n] = time_graph(torch, [lambda a=a, n=n: paged_decode_attention(
+                        *a, num_splits=n) for a in sets])
+                print(f"  splits [{name}, bf16, graph-replayed ms; the plan is {splits}]: "
+                      + ", ".join(f"{n}: {t:.4f}" for n, t in sweep.items()))
+            plain_ms = time_many(torch, [lambda a=a: paged_decode_attention_plain(*a)
+                                         for a in sets[:4]], calls=50, reps=1)
+            lib_ms = time_many(torch, [sdpa_library(torch, *a) for a in sets[:4]])
+            del sets, kern
+            torch.cuda.empty_cache()
+            share = b_ms / ms
+            print(f"  time [{name}, bf16, {splits} splits, {dev_launches} device "
+                  f"launches per call]: kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s, "
+                  f"{share:.1%} of the bytes bound), graph-replayed {graph_ms:.4f} ms "
+                  f"({b_ms / graph_ms:.1%}), bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB "
+                  f"at {rate / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms, library (SDPA "
+                  f"enable_gqa on pre-gathered K/V, gather not timed) {lib_ms:.4f} ms; "
+                  f"{TIMED_CALLS}+ calls per event pair over {n_sets} input sets, "
+                  f"{n_sets * live_kv / 1e6:.0f} MB of live K/V "
+                  f"({'exceeds' if cold else 'does not exceed'} 100 MB: "
+                  f"{'cold' if cold else 'warm'} L2)")
+            result[name] = dict(max_abs_err=err_o, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by, bound_share=share,
+                                library_ms=lib_ms, splits=splits,
+                                device_launches_per_call=dev_launches, split_sweep_graph_ms=sweep,
+                                tb_s=nbytes / ms / 1e9, cold_l2=cold, S=S, H=H, KVH=KVH, D=D,
                                 live_tokens=int(lens_np.sum()))
     return result
 
@@ -337,9 +436,111 @@ def _stream(port: int, path: str, body: dict, t_sent: list, i: int) -> dict:
     return out
 
 
+def _wait_until(cond, threads, timeout_s: float = 300.0) -> None:
+    """Poll ``cond`` until it holds, every request thread has ended, or the
+    time runs out."""
+    deadline = time.perf_counter() + timeout_s
+    while not cond() and any(t.is_alive() for t in threads):
+        if time.perf_counter() > deadline:
+            fail("profile: the decode dispatches did not advance")
+        time.sleep(0.002)
+
+
+def device_intervals_us(trace_path: str):
+    """(kernel events, every device event) of a chrome trace from
+    torch.profiler: dicts with name, ts and dur in µs."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    dev = [e for e in events if e.get("ph") == "X" and "dur" in e
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return [e for e in dev if e.get("cat") == "kernel"], dev
+
+
+def profile_decode(port: int, bodies: list, core) -> dict:
+    """torch.profiler (CPU and CUDA) over PROFILE_DISPATCHES steady decode
+    dispatches of a second wave of the same requests, PROFILE_TOKENS long.
+    Prints the top device kernels, the paged decode kernels' share of device
+    time, their device events per wrapper call in the window, and the
+    device's idle share of the window (host clock); prints "not measured"
+    when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    bodies = [(path, dict(body, max_tokens=PROFILE_TOKENS)) for path, body in bodies]
+    results = [None] * len(bodies)
+    t_sent = [0.0] * len(bodies)
+
+    def run_one(i):
+        results[i] = _stream(port, bodies[i][0], bodies[i][1], t_sent, i)
+
+    threads = [threading.Thread(target=run_one, args=(i,)) for i in range(len(bodies))]
+    d0 = core.decode_dispatches
+    for t in threads:
+        t.start()
+    _wait_until(lambda: core.decode_dispatches >= d0 + 2, threads)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        d1, s1 = core.decode_dispatches, core.decode_steps_total
+        c1 = paged_decode_attention.launches
+        _wait_until(lambda: core.decode_dispatches >= d1 + PROFILE_DISPATCHES, threads)
+        d2, s2 = core.decode_dispatches, core.decode_steps_total
+        calls = paged_decode_attention.launches - c1
+        window_us = (time.perf_counter() - t0) * 1e6
+    for t in threads:
+        t.join(600)
+    for i, r in enumerate(results):
+        if r is None or r["status"] != 200 or not r.get("done"):
+            fail(f"profile wave: request {i} did not complete")
+    steps = s2 - s1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "decode_trace.json")
+        prof.export_chrome_trace(path)
+        kernels, dev = device_intervals_us(path)
+    if not kernels or steps == 0:
+        print(f"profile: device time not measured (the profiler recorded {len(kernels)} "
+              f"kernels over {steps} decode steps)")
+        return {"measured": False}
+    busy, end = 0.0, -1.0
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in kernels:
+        tot, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (tot + e["dur"], n + 1)
+    dev_us = sum(e["dur"] for e in dev)
+    paged_us = sum(e["dur"] for e in kernels if "paged_decode" in e["name"])
+    events = {k: sum(1 for e in kernels if k in e["name"])
+              for k in ("paged_decode_split_kernel", "paged_decode_merge_kernel")}
+    idle = max(0.0, 1.0 - busy / window_us)
+    print(f"profile: {d2 - d1} decode dispatches, {steps} steps, {window_us / 1e3:.1f} ms "
+          f"window (host clock); device busy {busy / 1e3:.2f} ms, idle share "
+          f"{idle:.3f}; {len(kernels)} kernels = {len(kernels) / steps:.0f} per decode step, "
+          f"{busy / steps / 1e3:.3f} ms device time per step")
+    print(f"profile: paged_decode kernels {paged_us / 1e3:.3f} ms = "
+          f"{paged_us / max(dev_us, 1e-9):.3f} of device time; device events "
+          + ", ".join(f"{k} {n} ({n / max(calls, 1):.3f} per call)" for k, n in events.items())
+          + f" over {calls} wrapper calls in the window")
+    for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  device {tot / 1e3:9.3f} ms  {n:6d} x  {tot / max(dev_us, 1e-9):6.3f}  "
+              f"{name[:100]}")
+    return {"measured": True, "steps": steps, "window_ms": window_us / 1e3,
+            "device_busy_ms": busy / 1e3, "idle_share": idle,
+            "paged_decode_share": paged_us / max(dev_us, 1e-9),
+            "kernels_per_step": len(kernels) / steps, "wrapper_calls": calls,
+            "device_events": events}
+
+
 def phase_serve(card: str, model_dir: str) -> dict:
     from dynamo_tpu_torch.cli.run import build_engine, build_parser, run_http
-    from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
+    from dynamo_tpu_torch.ops.paged_attention import (
+        device_launches,
+        paged_decode_attention,
+        reset_launch_counts,
+        splits_launched,
+    )
 
     port = _free_port()
     flags = build_parser().parse_args([
@@ -382,7 +583,7 @@ def phase_serve(card: str, model_dir: str) -> dict:
                 bodies.append(("/v1/completions", dict(common, prompt=text)))
         results = [None] * N_REQUESTS
         t_sent = [0.0] * N_REQUESTS
-        paged_decode_attention.launches = 0
+        reset_launch_counts()
         steps0 = core.decode_steps_total
         t_start = time.perf_counter()
 
@@ -396,7 +597,11 @@ def phase_serve(card: str, model_dir: str) -> dict:
             t.join(600)
         wall = time.perf_counter() - t_start
         launches = paged_decode_attention.launches
+        kernel_launches = dict(device_launches)
+        splits = dict(splits_launched)
         steps = core.decode_steps_total - steps0
+        ttfts = list(core.recent_ttft_s)[-N_REQUESTS:]
+        profile = profile_decode(port, bodies, core)
     finally:
         loop.call_soon_threadsafe(task_box[0].cancel)
         th.join(30)
@@ -413,18 +618,25 @@ def phase_serve(card: str, model_dir: str) -> dict:
     L = LLAMA3_8B["layers"]
     print(f"serve: {N_REQUESTS} streams (4 chat, 4 completions) HTTP 200, finish_reason "
           f"{sorted(set(r['finish'] for r in results))}, {MAX_TOKENS} completion tokens each")
+    per_call = sum(kernel_launches.values()) / max(launches, 1)
     print(f"serve: paged_decode_attention launches {launches} over {steps} decode steps "
-          f"x {L} layers = {steps * L}")
+          f"x {L} layers = {steps * L} ({launches / max(steps, 1):.0f} per step); device "
+          f"launches " + ", ".join(f"{k} {n}" for k, n in kernel_launches.items())
+          + f" ({per_call:.3f} per call); split counts launched {splits} (splits: calls)")
     if steps == 0 or launches < L * steps:
         fail(f"paged_decode_attention ran {launches} times, expected >= {L} x {steps}")
-    ttfts = list(core.recent_ttft_s)[-N_REQUESTS:]
+    for k, n in kernel_launches.items():
+        if n < L * steps:
+            fail(f"{k} launched {n} times on the main path, expected >= {L} x {steps}")
     first = min(t_sent) + min(ttfts)
     decode_tok_s = N_REQUESTS * (MAX_TOKENS - 1) / (max(r["end"] for r in results) - first)
     ttft_p50 = statistics.median(ttfts) * 1e3
     print(f"serve: TTFT p50 {ttft_p50:.1f} ms (engine enqueue -> first token), decode "
           f"{decode_tok_s:.1f} tok/s over {N_REQUESTS} lanes, wall {wall:.2f} s, on {card}")
-    return {"launches": launches, "core": core, "ttft_p50_ms": ttft_p50,
-            "decode_tok_s": decode_tok_s}
+    return {"launches": launches, "kernel_launches": kernel_launches,
+            "device_launches_per_call": per_call, "splits": splits, "core": core,
+            "ttft_p50_ms": ttft_p50,
+            "decode_tok_s": decode_tok_s, "profile": profile}
 
 
 # -- phase 5 --------------------------------------------------------------------
@@ -511,8 +723,14 @@ def main() -> int:
         "bound_ms": main_regime["bound_ms"],
         "bound_by": main_regime["bound_by"],
         "library_ms": main_regime["library_ms"],
+        "bound_share": main_regime["bound_share"],
+        # both kernels' launches on the main path, as the wrapper counted them
+        "device_launches": served["kernel_launches"],
+        "device_launches_per_call": served["device_launches_per_call"],
+        "splits": served["splits"],
         "regimes": [dict(name=k, **v) for k, v in kern.items()],
-    }], "serve": {"ttft_p50_ms": served["ttft_p50_ms"], "decode_tok_s": served["decode_tok_s"]},
+    }], "serve": {"ttft_p50_ms": served["ttft_p50_ms"], "decode_tok_s": served["decode_tok_s"],
+                  "profile": served["profile"]},
         "card": card, "seconds": time.perf_counter() - t0}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,29 @@
-"""Paged flash-decode attention: the CUDA kernel's wrapper, build and plain version.
+"""Paged flash-decode attention: the CUDA kernels' wrapper, build and plain versions.
 
 ``paged_decode_attention`` keeps the signature and layout of the JAX package's
 Pallas kernels (``dynamo_tpu/ops/pallas/paged_attention.py``:
 ``paged_attention_decode_v4``, ``_v2`` and v1 ``paged_attention_decode``, one
 function under three TPU schedules). On a CUDA tensor it launches the
-hand-written kernel in ``csrc/paged_attention.cu`` or raises; on a CPU tensor
-it runs :func:`paged_decode_attention_plain`, which the tests hold against the
-JAX kernels in interpret mode.
+hand-written kernels in ``csrc/paged_attention.cu`` (a split-KV pass, then a
+merge) or raises; on a CPU tensor it runs
+:func:`paged_decode_attention_plain`, which the tests hold against the JAX
+kernels in interpret mode. :func:`paged_decode_split_plain` is the two
+kernels' arithmetic in PyTorch, for the tests of the split algebra.
 
-The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
+The split count is planned on the host from shapes alone
+(:func:`plan_splits`): the wrapper never reads ``lengths``, so it never
+waits for the card and a CUDA graph can capture it.
+
+The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/`` under the repository root (a name keyed by the
 source's hash, so an edited source never loads a stale library) and bound
-with ``ctypes``; it launches on PyTorch's current stream and never
-synchronises.
+with ``ctypes``; they launch on PyTorch's current stream and never
+synchronise.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -24,6 +31,7 @@ import shutil
 import subprocess
 import threading
 import time
+from functools import lru_cache
 from pathlib import Path
 from typing import Optional
 
@@ -34,9 +42,28 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LOG2E = 1.4426950408889634
+# keys per shared-memory tile of the split kernel (csrc: Geo<T, D>::TK)
+TILE_KEYS = {torch.float32: 32, torch.bfloat16: 64}
+BLOCKS_PER_SM = 4  # the planner's target of split-kernel blocks per SM
+MIN_SPLIT_TILES = 2  # tiles of the longest context per split, at the least
 
 _lib = None
 _lib_lock = threading.Lock()
+_Launched = ctypes.c_int * 3  # the C entry's report: split, merge launches; splits
+
+# Kernels launched on the card by the wrapper, by __global__ name, as the C
+# entry reports them, and the split counts the split kernel ran with
+# (splits -> launches). ``paged_decode_attention.launches`` counts calls.
+device_launches = {"paged_decode_split_kernel": 0, "paged_decode_merge_kernel": 0}
+splits_launched: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    """Zero the wrapper's call count and the device launch counts."""
+    paged_decode_attention.launches = 0
+    for name in device_launches:
+        device_launches[name] = 0
+    splits_launched.clear()
 
 
 def _nvcc() -> str:
@@ -54,15 +81,17 @@ def build(verbose: bool = False) -> dict:
 
     Returns ``{"path", "seconds", "log"}``: the library, the compile time
     (0 when an up-to-date library was found) and ``-Xptxas -v``'s report
-    of registers and spills."""
+    of registers and spills, kept beside the library when it was built."""
     global _lib
     with _lib_lock:
         src = _SRC.read_bytes()
         tag = hashlib.sha256(src).hexdigest()[:12]
         out = BUILD_DIR / f"libpaged_attention_{tag}.so"
+        log_path = out.with_suffix(".ptxas.txt")
         t0 = time.perf_counter()
-        log = ""
-        if not out.exists():
+        if out.exists():
+            log = log_path.read_text() if log_path.exists() else ""
+        else:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [
@@ -74,6 +103,7 @@ def build(verbose: bool = False) -> dict:
             log = res.stdout + res.stderr
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+            log_path.write_text(log)
             os.replace(tmp, out)
             if verbose:
                 print(log)
@@ -81,8 +111,8 @@ def build(verbose: bool = False) -> dict:
         if _lib is None:
             lib = ctypes.CDLL(str(out))
             fn = lib.paged_decode_attention_launch
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
             ]
             fn.restype = ctypes.c_int
             _lib = lib
@@ -114,6 +144,30 @@ def _check(q, k_cache, v_cache, block_tables, lengths) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def plan_splits(num_lanes: int, num_heads: int, num_kv_heads: int, max_blocks: int,
+                block_size: int, dtype: torch.dtype, num_sms: int) -> int:
+    """Splits of each lane's context for the split kernel, from shapes alone.
+
+    The grid has ``num_lanes · num_kv_heads · ceil(G / 16)`` blocks per
+    split; the plan aims at ``BLOCKS_PER_SM · num_sms`` blocks in all, and
+    never at more splits than the table has pages or than leave each split
+    ``MIN_SPLIT_TILES`` tiles of the longest context the table holds.
+    Lengths are not an argument: on the card they are split evenly among
+    the planned splits, and a split past a lane's length exits at once."""
+    groups = -(-(num_heads // num_kv_heads) // 16)
+    blocks = max(1, num_lanes * num_kv_heads * groups)
+    want = -(-BLOCKS_PER_SM * num_sms // blocks)
+    max_tiles = -(-max_blocks * block_size // TILE_KEYS[dtype])
+    return max(1, min(want, max_tiles // MIN_SPLIT_TILES, max_blocks))
+
+
+@lru_cache(maxsize=None)
+def _planned_splits(s: int, h: int, kvh: int, mb: int, bs: int, dtype: torch.dtype,
+                    index: int) -> int:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return plan_splits(s, h, kvh, mb, bs, dtype, sms)
+
+
 def paged_decode_attention(
     q: torch.Tensor,  # [S, H, D] one query token per lane
     k_cache: torch.Tensor,  # [N, bs, KVH, D]
@@ -123,40 +177,63 @@ def paged_decode_attention(
     *,
     scale: Optional[float] = None,
     return_stats: bool = False,
+    num_splits: Optional[int] = None,
 ):
     """Flash decode over paged KV. Returns [S, H, D] in q's dtype; with
     ``return_stats`` also the softmax row max ``m`` (clamped to >= -1e30)
     and denominator ``l``, [S, H] float32 each, for merging with context
-    outside the pool (the engine's decode window)."""
-    if q.device.type == "cpu":
+    outside the pool (the engine's decode window). ``num_splits`` forces the
+    kernel's split count (``None`` lets :func:`plan_splits` choose it); it
+    changes only the order of the sums, and the CPU path ignores it."""
+    if num_splits is not None and (not isinstance(num_splits, int) or num_splits < 1):
+        raise ValueError(f"num_splits must be a positive int, got {num_splits!r}")
+    dev = q.device
+    if dev.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache, v_cache, block_tables, lengths, scale=scale,
             return_stats=return_stats,
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"paged_decode_attention: unsupported device {dev}")
     _check(q, k_cache, v_cache, block_tables, lengths)
     if _lib is None:
         build()
     s, h, d = q.shape
     _, bs, kvh, _ = k_cache.shape
+    mb = block_tables.shape[1]
     if scale is None:
         scale = d ** -0.5
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if num_splits is None:
+        num_splits = _planned_splits(s, h, kvh, mb, bs, k_cache.dtype, index)
     o = torch.empty_like(q)
-    m = torch.empty((s, h), dtype=torch.float32, device=q.device)
-    l = torch.empty((s, h), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # m, l, then the per-split numerators [S, H, NS, D] and stabilizer, max
+    # and l [S, H, NS]: one allocation
+    stats = torch.empty((2 + num_splits * (d + 3), s, h), dtype=torch.float32, device=dev)
+    m_ptr = stats.data_ptr()
+    l_ptr = m_ptr + s * h * 4
+    # the raw handle of PyTorch's current stream on q's device (what
+    # torch.cuda.current_stream(dev).cuda_stream returns, without building
+    # a Stream object once per layer per decode step)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    launched = _Launched()
     err = _lib.paged_decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        m.data_ptr(), l.data_ptr(), s, h, kvh, d, bs, block_tables.shape[1],
-        float(scale), _DTYPES[k_cache.dtype], stream,
+        m_ptr, l_ptr, l_ptr + s * h * 4,
+        s, h, kvh, d, bs, mb, num_splits, float(scale), _DTYPES[k_cache.dtype], stream,
+        launched,
     )
+    device_launches["paged_decode_split_kernel"] += launched[0]
+    device_launches["paged_decode_merge_kernel"] += launched[1]
+    if launched[0]:
+        splits_launched[launched[2]] += 1
     if err != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"paged_decode_attention launch failed: cudaError {err} "
+                           f"({num_splits} splits)")
     paged_decode_attention.launches += 1
     if return_stats:
-        return o, m, l
+        return o, stats[0], stats[1]
     return o
 
 
@@ -204,6 +281,72 @@ def paged_decode_attention_plain(
     pv = torch.einsum("sngt,stnd->sngd", p.to(cdt).float(), v.float())
     o = pv / torch.where(l_st > 0, l_st, torch.ones_like(l_st))[..., None]
     l = torch.where(l_st > 0, l_st * torch.exp2(st - m * LOG2E), torch.zeros_like(l_st))
+    o = o.reshape(s, h, d).to(q.dtype)
+    if return_stats:
+        return o, m.reshape(s, h), l.reshape(s, h)
+    return o
+
+
+def paged_decode_split_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    num_splits: int,
+    *,
+    scale: Optional[float] = None,
+    return_stats: bool = False,
+    tile_keys: Optional[int] = None,
+):
+    """The two kernels' arithmetic in plain PyTorch: each lane's live tokens
+    cut into ``num_splits`` equal runs of whole tiles (``tile_keys`` keys,
+    by default the kernel's tile for the dtype); per run an integer
+    stabilizer st_i, max, l and the numerator with p rounded to the cache
+    dtype against st_i; then the merge, rescaling run i by 2^(st_i − st_max).
+    For the tests: it equals :func:`paged_decode_attention_plain` up to fp32
+    round-off, which is the split algebra the kernels rely on."""
+    s, h, d = q.shape
+    _, bs, kvh, _ = k_cache.shape
+    mb = block_tables.shape[1]
+    g = h // kvh
+    if scale is None:
+        scale = d ** -0.5
+    cdt = k_cache.dtype
+    tk = tile_keys or TILE_KEYS.get(cdt, 64)
+    lengths = lengths.to(torch.int64).clamp(0, mb * bs)
+    n_pages = (lengths + bs - 1) // bs
+    live_block = torch.arange(mb, device=q.device)[None, :] < n_pages[:, None]
+    tables = torch.where(live_block, block_tables.to(torch.int64), 0)
+    k = k_cache[tables].reshape(s, mb * bs, kvh, d).float()
+    v = v_cache[tables].reshape(s, mb * bs, kvh, d)
+    pos = torch.arange(mb * bs, device=q.device)[None, :]
+    live = pos < lengths[:, None]  # [S, T]
+    v = torch.where(live[:, :, None, None], v, torch.zeros((), dtype=cdt, device=q.device))
+    qg = q.to(cdt).float().reshape(s, kvh, g, d)
+    scores = torch.einsum("sngd,stnd->sngt", qg, k) * scale
+    # the split of each token: run i covers tiles [i·per, (i+1)·per) of its lane
+    per_split = (((lengths + tk - 1) // tk) + num_splits - 1) // num_splits  # [S]
+    split_of = pos // (per_split[:, None].clamp(min=1) * tk)  # [S, T]
+    sts, mxs, ls, nums = [], [], [], []
+    for i in range(num_splits):
+        mask = live & (split_of == i)
+        sc = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+        mx = sc.amax(dim=-1).clamp(min=-1e30)
+        st = torch.ceil(mx * LOG2E)
+        p = torch.exp2(sc * LOG2E - st[..., None])
+        ls.append(p.sum(dim=-1))
+        nums.append(torch.einsum("sngt,stnd->sngd", p.to(cdt).float(), v.float()))
+        sts.append(st)
+        mxs.append(mx)
+    st_all, l_all = torch.stack(sts), torch.stack(ls)
+    st_max = st_all.amax(dim=0)
+    m = torch.stack(mxs).amax(dim=0)
+    a = torch.where(l_all > 0, torch.exp2(st_all - st_max), torch.zeros_like(l_all))
+    l_st = (a * l_all).sum(dim=0)
+    num = (a[..., None] * torch.stack(nums)).sum(dim=0)
+    o = num / torch.where(l_st > 0, l_st, torch.ones_like(l_st))[..., None]
+    l = torch.where(l_st > 0, l_st * torch.exp2(st_max - m * LOG2E), torch.zeros_like(l_st))
     o = o.reshape(s, h, d).to(q.dtype)
     if return_stats:
         return o, m.reshape(s, h), l.reshape(s, h)

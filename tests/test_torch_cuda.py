@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.ops.paged_attention import (
+    HEAD_DIMS,
+    device_launches,
     paged_decode_attention,
     paged_decode_attention_plain,
+    splits_launched,
 )
 
 pytestmark = pytest.mark.cuda
@@ -38,6 +41,55 @@ def _case(S, H, KVH, D, bs, max_len, dtype, seed, device):
     return to(q), to(k), to(v), to(tables, torch.int32), to(lengths, torch.int32)
 
 
+def _hard_case(H, KVH, D, bs, lengths, dtype, seed, device):
+    """Lanes of the given lengths (0-length and multiples of bs included),
+    table entries past each lane's live pages out of range, and NaN in the
+    dead slots of each lane's last page."""
+    rng = np.random.default_rng(seed)
+    S = len(lengths)
+    mb = max(1, -(-max(lengths) // bs))
+    n_blocks = S * mb + 5
+    perm = rng.permutation(n_blocks)[: S * mb].reshape(S, mb)
+    tables = perm.astype(np.int32)
+    k = rng.standard_normal((n_blocks, bs, KVH, D), dtype=np.float32)
+    v = rng.standard_normal((n_blocks, bs, KVH, D), dtype=np.float32)
+    for s, n in enumerate(lengths):
+        n_pages = -(-n // bs)
+        tables[s, n_pages:] = 1 << 30
+        if n % bs:
+            k[perm[s, n_pages - 1], n % bs:] = np.nan
+            v[perm[s, n_pages - 1], n % bs:] = np.nan
+    q = rng.standard_normal((S, H, D), dtype=np.float32)
+    to = lambda a, dt=dtype: torch.from_numpy(a).to(device, dt)  # noqa: E731
+    return (to(q), to(k), to(v), to(tables, torch.int32),
+            to(np.asarray(lengths, np.int32), torch.int32))
+
+
+def _assert_matches_plain(args, dtype, num_splits=None):
+    before = paged_decode_attention.launches
+    kernels_before = dict(device_launches)
+    splits_before = sum(splits_launched.values())
+    o, m, l = paged_decode_attention(*args, return_stats=True, num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    # every call launches the split kernel and the merge, once each
+    assert all(device_launches[k] == n + 1 for k, n in kernels_before.items())
+    assert sum(splits_launched.values()) == splits_before + 1
+    if num_splits is not None:
+        assert splits_launched[num_splits] >= 1
+    po, pm, pl = paged_decode_attention_plain(*args, return_stats=True)
+    assert torch.isfinite(o.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=0)
+        torch.testing.assert_close(m, pm, atol=1e-5, rtol=0)
+        torch.testing.assert_close(l, pl, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=0)
+        torch.testing.assert_close(m, pm, atol=0, rtol=1e-3)
+        torch.testing.assert_close(l, pl, atol=0, rtol=1e-3)
+    return o, m, l
+
+
 @pytest.mark.parametrize("S,H,KVH,D,bs,max_len", [
     (8, 32, 8, 128, 16, 512),  # llama3-8b heads
     (32, 32, 8, 128, 16, 128),  # many lanes
@@ -48,19 +100,47 @@ def _case(S, H, KVH, D, bs, max_len, dtype, seed, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda, S, H, KVH, D, bs, max_len, dtype):
     args = _case(S, H, KVH, D, bs, max_len, dtype, 0, cuda)
+    _assert_matches_plain(args, dtype)
+
+
+# a 0-length lane, lengths that are multiples of bs (16), a one-token lane,
+# and lanes that end mid-page
+HARD_LENGTHS = [0, 48, 1, 300, 160, 17]
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 7, None])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_splits_and_head_dims(cuda, num_splits, D, dtype):
+    args = _hard_case(8, 2, D, 16, HARD_LENGTHS, dtype, D, cuda)
+    o, m, l = _assert_matches_plain(args, dtype, num_splits=num_splits)
+    assert (o[0] == 0).all() and (m[0] == -1e30).all() and (l[0] == 0).all()
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("num_splits", [1, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_gqa_groups(cuda, G, num_splits, dtype):
+    KVH = 1 if G == 32 else 2  # G = 32 is MQA at 32 heads
+    args = _hard_case(G * KVH, KVH, 128, 16, HARD_LENGTHS, dtype, G, cuda)
+    _assert_matches_plain(args, dtype, num_splits=num_splits)
+
+
+def test_kernel_more_splits_than_pages(cuda):
+    # 40 splits over lanes of at most 19 pages: most splits are empty
+    args = _hard_case(8, 2, 64, 16, HARD_LENGTHS, torch.bfloat16, 3, cuda)
+    _assert_matches_plain(args, torch.bfloat16, num_splits=40)
+
+
+def test_refused_launch_raises(cuda):
+    # 70000 splits exceed the grid's z limit (65535): the launch is refused
+    args = _hard_case(2, 1, 16, 16, [5], torch.float32, 4, cuda)
     before = paged_decode_attention.launches
-    o, m, l = paged_decode_attention(*args, return_stats=True)
-    torch.cuda.synchronize()
-    assert paged_decode_attention.launches == before + 1
-    po, pm, pl = paged_decode_attention_plain(*args, return_stats=True)
-    if dtype == torch.float32:
-        torch.testing.assert_close(o, po, atol=1e-5, rtol=0)
-        torch.testing.assert_close(m, pm, atol=1e-5, rtol=0)
-        torch.testing.assert_close(l, pl, atol=1e-5, rtol=1e-5)
-    else:
-        torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=0)
-        torch.testing.assert_close(m, pm, atol=0, rtol=1e-3)
-        torch.testing.assert_close(l, pl, atol=0, rtol=1e-3)
+    kernels_before = dict(device_launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        paged_decode_attention(*args, num_splits=70000)
+    assert paged_decode_attention.launches == before
+    assert device_launches == kernels_before
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -69,6 +149,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         paged_decode_attention(q.half(), k.half(), v.half(), t, n)
     with pytest.raises(ValueError):
         paged_decode_attention(q, k, v, t.long(), n)
+    with pytest.raises(ValueError):
+        paged_decode_attention(q, k, v, t, n, num_splits=0)
     with pytest.raises(ValueError):
         paged_decode_attention(q[:, :, :8].contiguous(), k[..., :8].contiguous(),
                                v[..., :8].contiguous(), t, n)  # D=8 has no kernel

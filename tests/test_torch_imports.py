@@ -1,5 +1,5 @@
-"""Import hygiene of the port: ``dynamo_tpu_torch/`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, their imports are the standard
+"""Import hygiene of the port: ``dynamo_tpu_torch/``, ``chip_smoke.py`` and
+``chip_ab.py`` import neither JAX nor the JAX package, their imports are the standard
 library, torch, numpy and jinja2 only, and the launcher builds the engine
 and answers a request with JAX, the JAX package and the JAX path's other
 dependencies made unimportable."""
@@ -23,7 +23,7 @@ BLOCKED = ["jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "tokenizers", "
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_ab.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "dynamo_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out

@@ -5,7 +5,14 @@ against the three Pallas decode kernels (v1, v2, v4) in interpret mode with
 softmax stats, at fp32 and atol 1e-5 (the kernels' own parity bound in
 tests/test_pallas_attention.py). ``write_kv_to_pages`` and the eager
 ``paged_attention`` are held against their jnp counterparts.
+
+``paged_decode_split_plain`` (the split and merge kernels' arithmetic) is
+held against the unsplit plain version at fp32 to 1e-6, and against the v2
+and v4 kernels on inputs whose garbage table entries and NaN dead slots only
+the port sees; ``plan_splits`` is checked to be a function of shapes alone.
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +31,8 @@ from dynamo_tpu_torch.ops.attention import paged_attention, write_kv_to_pages
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_decode_split_plain,
+    plan_splits,
 )
 
 ATOL = 1e-5
@@ -152,3 +161,94 @@ def test_eager_paged_attention_matches_jnp(t):
     want = jax_paged_attention(*map(jnp.asarray, (q, kc, vc, tables, pos)), use_pallas=False)
     got = paged_attention(*map(torch.from_numpy, (q, kc, vc, tables, pos)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def _poison(tables, k, v, lengths, bs):
+    """Copies with every table entry past a lane's live pages out of range
+    and NaN in the dead slots of each lane's last page."""
+    tables, k, v = tables.copy(), k.copy(), v.copy()
+    for s, n in enumerate(lengths):
+        n_pages = -(-int(n) // bs)
+        if n % bs:
+            k[tables[s, n_pages - 1], n % bs:] = np.nan
+            v[tables[s, n_pages - 1], n % bs:] = np.nan
+        tables[s, n_pages:] = 1 << 30
+    return tables, k, v
+
+
+# 0-length lane, a page-aligned lane, ragged lanes; 12 pages of 4 = 48 slots
+SPLIT_LENGTHS = [0, 16, 45, 7]
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 3, 40])  # 40 > any lane's pages
+@pytest.mark.parametrize("tile_keys", [4, 8, 32])
+def test_split_plain_equals_unsplit(num_splits, tile_keys):
+    q, k, v, tables, lengths = _case(11, 4, 8, 2, 16, 4, 12, SPLIT_LENGTHS)
+    args = [torch.from_numpy(x) for x in (q, k, v, tables, lengths)]
+    want = paged_decode_attention_plain(*args, return_stats=True)
+    got = paged_decode_split_plain(*args, num_splits, return_stats=True, tile_keys=tile_keys)
+    torch.testing.assert_close(got[0], want[0], atol=1e-6, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=1e-6, rtol=1e-6)
+    o, m, l = got
+    assert (o[0] == 0).all() and (m[0] == -1e30).all() and (l[0] == 0).all()
+
+
+def test_cpu_wrapper_runs_the_plain_version_whatever_the_split_count():
+    q, k, v, tables, lengths = _case(12, 4, 8, 2, 16, 4, 12, SPLIT_LENGTHS)
+    args = [torch.from_numpy(x) for x in (q, k, v, tables, lengths)]
+    got = paged_decode_attention(*args, return_stats=True, num_splits=3)
+    want = paged_decode_attention_plain(*args, return_stats=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    with pytest.raises(ValueError):
+        paged_decode_attention(*args, num_splits=0)
+
+
+@pytest.mark.parametrize("num_splits", [2, 3])
+def test_split_plain_matches_v2_kernel_on_poisoned_inputs(num_splits):
+    lengths = [0, 5, 32, 12]
+    q, k, v, tables, lens = _case(5, 4, 8, 2, 32, 8, 4, lengths)
+    want = paged_attention_decode_v2(
+        *map(jnp.asarray, (q, k, v, tables, lens)), pages_per_chunk=2, interpret=True,
+        return_stats=True,
+    )
+    pt, pk, pv = _poison(tables, k, v, lengths, 8)
+    got = paged_decode_split_plain(*map(torch.from_numpy, (q, pk, pv, pt, lens)), num_splits,
+                                   return_stats=True, tile_keys=8)
+    for g in got:
+        assert torch.isfinite(g).all()
+    _close([g.numpy() for g in got], want)
+
+
+@pytest.mark.parametrize("num_splits", [2, 5])
+def test_split_plain_matches_v4_kernel_on_poisoned_inputs(num_splits):
+    # v4's fused-lane geometry, KVH·D = 2·64 = 128, as in the v4 test above
+    lengths = [0, 29]
+    s, h, kvh, d, bs, mb = 2, 8, 2, 64, 8, 4
+    q, k, v, tables, lens = _case(9, s, h, kvh, d, bs, mb, lengths)
+    plan = v4_plan(s, bs, kvh, d, 4, mb)
+    want = paged_attention_decode_v4(
+        *map(jnp.asarray, (q, k, v, tables, lens)), pages_per_chunk=plan, interpret=True,
+        return_stats=True,
+    )
+    pt, pk, pv = _poison(tables, k, v, lengths, bs)
+    got = paged_decode_split_plain(*map(torch.from_numpy, (q, pk, pv, pt, lens)), num_splits,
+                                   return_stats=True, tile_keys=8)
+    for g in got:
+        assert torch.isfinite(g).all()
+    _close([g.numpy() for g in got], want)
+
+
+def test_plan_splits_is_a_function_of_shapes():
+    assert "lengths" not in inspect.signature(plan_splits).parameters
+    for dtype in (torch.bfloat16, torch.float32):
+        for lanes in (1, 2, 8, 64, 512):
+            for heads, kv_heads in ((32, 8), (4, 2), (32, 1), (8, 8)):
+                for mb, bs in ((1, 16), (3, 16), (128, 16), (16, 128)):
+                    n = plan_splits(lanes, heads, kv_heads, mb, bs, dtype, 132)
+                    assert 1 <= n <= mb
+                    assert n == plan_splits(lanes, heads, kv_heads, mb, bs, dtype, 132)
+    # one lane at long context gets many splits, a full grid gets none
+    assert plan_splits(1, 32, 8, 128, 16, torch.bfloat16, 132) > 8
+    assert plan_splits(512, 32, 8, 128, 16, torch.bfloat16, 132) == 1
