@@ -6,37 +6,57 @@ card, ``nvcc`` and nothing of JAX. Phases, in order; any failure exits
 non-zero:
 
 1. device: prints the card's name and power limit (nvidia-smi);
-2. build: compiles every kernel of the path from ``dynamo_tpu_torch/csrc``;
-3. kernels: holds each kernel against its plain PyTorch version on the card,
-   in every regime the JAX kernels covered and with one lane, and times
-   kernel, plain version and the library call beside it over runs of many
-   calls cycling through inputs larger than L2; at two shapes it also times
-   the kernel at split counts around the planner's;
-4. serve: starts ``dynamo_tpu_torch.cli.run``'s HTTP server in this process
+2. build: compiles every kernel of the path from ``dynamo_tpu_torch/csrc``,
+   one ``nvcc`` per source, all started together;
+3. kernels: holds the paged decode kernels against their plain PyTorch
+   version on the card, in every regime the JAX kernels covered and with one
+   lane, and times kernel, plain version and the library call beside it over
+   runs of many calls cycling through inputs larger than L2; at two shapes
+   it also times the kernel at split counts around the planner's;
+4. int8 kernel: holds ``int8_weight_matmul`` against its plain version at
+   the llama3-8b projection shapes (M = 1 and 8, and M = 1024 for an
+   ``"int8-all"`` prefill chunk) and times it beside the plain version and
+   bf16 ``torch.matmul`` on the same activations;
+5. load: writes a llama3-8b-width checkpoint cut to 2 layers (bf16, HF
+   names, two ``*.safetensors`` files), serves it through
+   ``cli.run.build_engine``, checks every parameter on the card bit for bit
+   against what was written, and answers 2 streaming requests over HTTP;
+6. serve: starts ``dynamo_tpu_torch.cli.run``'s HTTP server in this process
    on a llama3-8b-width model with random weights, answers 8 concurrent
-   streaming requests, and checks the launch counts of both kernels (as the
-   wrapper counts them where it launches them); then profiles a few steady
-   decode dispatches of a second wave of requests and counts the kernels'
-   device events per wrapper call;
-5. decode parity: one full-width ``forward_window`` step through the kernel
-   and through its plain version;
-6. prints the kernels' JSON line and, last, the device JSON line.
+   streaming requests, and checks the launch counts of both paged kernels
+   (as the wrapper counts them where it launches them); then profiles a few
+   steady decode dispatches of a second wave of requests and counts the
+   kernels' device events per wrapper call;
+7. decode parity: one full-width ``forward_window`` step through the paged
+   kernel and through its plain version;
+8. int8 serve: the same model and requests behind an
+   ``EngineConfig(quantize="int8")`` engine (the bf16 engine closed first);
+   checks 225 int8 launches per decode step (7 per layer, 32 layers, and the
+   LM head) and the paged kernels' launches, and profiles it alike;
+9. int8 parity: one full-width ``forward_window`` step of the int8 tree,
+   and one ``forward_chunk`` as the ``"int8-all"`` mode runs it, through the
+   int8 kernel and through its plain version;
+10. prints the kernels' JSON line and, last, the device JSON line.
+Each phase prints its seconds.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import http.client
 import json
 import os
 import re
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from contextlib import contextmanager, nullcontext
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -92,10 +112,10 @@ def byte_level_tokenizer_json() -> dict:
     }
 
 
-def write_model_dir(path: str) -> str:
+def write_model_dir(path: str, num_layers: int = LLAMA3_8B["layers"]) -> str:
     """config.json at llama3-8b width (context 2048), the byte-level
     tokenizer and a chat template; no weight files (random weights)."""
-    c = LLAMA3_8B
+    c = dict(LLAMA3_8B, layers=num_layers)
     config = {
         "architectures": ["LlamaForCausalLM"], "model_type": "llama",
         "vocab_size": c["vocab"], "hidden_size": c["hidden"],
@@ -139,23 +159,42 @@ def phase_device() -> str:
     return line
 
 
-def phase_build() -> None:
-    from dynamo_tpu_torch.ops.paged_attention import build
+def _kernel_label(ln: str) -> str:
+    """A readable name for ptxas's mangled entry name (template arguments
+    included)."""
+    m = re.search(r"(paged_decode_\w+?_kernel)I(13__nv_bfloat16|f)E?(?:Li(\d+)E)?", ln)
+    if m:
+        return (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}"
+                + (f", D={m.group(3)}>" if m.group(3) else ">"))
+    m = re.search(r"(w8a16_kernel)ILi(\d+)ELi(\d+)E(13__nv_bfloat16|f)E", ln)
+    if m:
+        return f"{m.group(1)}<MT={m.group(2)}, U={m.group(3)}, out={'fp32' if m.group(4) == 'f' else 'bf16'}>"
+    m = re.search(r"(w8f32_kernel)I(13__nv_bfloat16|f)E", ln)
+    if m:
+        return f"{m.group(1)}<out={'fp32' if m.group(2) == 'f' else 'bf16'}>"
+    return ln.split("'")[1] if "'" in ln else ln.strip()
 
-    info = build()
-    print(f"build: paged_attention.cu in {info['seconds']:.2f} s -> {info['path']}")
-    # -Xptxas -v: "Compiling entry function '<mangled>'", then its spills,
-    # then its registers; the mangled name carries the template arguments
-    name, spills = "?", ""
-    for ln in info["log"].splitlines():
-        if "Compiling entry function" in ln:
-            m = re.search(r"(paged_decode_\w+?_kernel)I(13__nv_bfloat16|f)E?(?:Li(\d+)E)?", ln)
-            name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}"
-                    + (f", D={m.group(3)}>" if m.group(3) else ">")) if m else ln.split("'")[1]
-        elif "spill" in ln:
-            spills = ln.strip()
-        elif "registers" in ln:
-            print(f"  ptxas: {name}: {ln.split(':', 1)[-1].strip()}; {spills}")
+
+def phase_build() -> None:
+    from dynamo_tpu_torch.ops import int8_matmul, paged_attention
+    from dynamo_tpu_torch.ops.build import build_all
+
+    t0 = time.perf_counter()
+    infos = build_all([paged_attention.LIBRARY, int8_matmul.LIBRARY])
+    print(f"build: {len(infos)} sources, one nvcc each in parallel, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for src, info in infos.items():
+        print(f"build: {src}.cu in {info['seconds']:.2f} s -> {info['path']}")
+        # -Xptxas -v: "Compiling entry function '<mangled>'", then its
+        # spills, then its registers
+        name, spills = "?", ""
+        for ln in info["log"].splitlines():
+            if "Compiling entry function" in ln:
+                name = _kernel_label(ln)
+            elif "spill" in ln:
+                spills = ln.strip()
+            elif "registers" in ln:
+                print(f"  ptxas: {name}: {ln.split(':', 1)[-1].strip()}; {spills}")
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -397,7 +436,108 @@ def phase_kernels(card: str) -> dict:
     return result
 
 
-# -- phase 4 --------------------------------------------------------------------
+# -- phase 4: the int8 kernel ----------------------------------------------------
+
+# llama3-8b's int8 products (K, N, out dtype) and how many a decode step runs
+INT8_SHAPES = [
+    ("wq, wo: 4096->4096", 4096, 4096, "bf16", 2 * LLAMA3_8B["layers"]),
+    ("wk, wv: 4096->1024", 4096, 1024, "bf16", 2 * LLAMA3_8B["layers"]),
+    ("w_gate, w_up: 4096->14336", 4096, 14336, "bf16", 2 * LLAMA3_8B["layers"]),
+    ("w_down: 14336->4096", 14336, 4096, "bf16", LLAMA3_8B["layers"]),
+    ("lm_head: 4096->128256", 4096, 128256, "fp32", 1),
+]
+INT8_LAUNCHES_PER_STEP = sum(n for *_, n in INT8_SHAPES)  # 7 per layer x 32 + 1 = 225
+# (x dtype, max|d| / max|ref| allowed): a bf16 product may differ by one
+# bf16 ulp of an element where kernel and plain version sum in other orders;
+# with fp32 activations only the order of the fp32 sums differs
+INT8_TOL = {"bf16": 1e-2, "fp32": 1e-5}
+
+
+def int8_bound(M, N, K, out_bytes, rate):
+    """(bound_ms, bound_by) of one product: x, q, s read once and out
+    written once at the HBM rate, or 2·M·N·K operations at the bf16 peak."""
+    nbytes = M * K * 2 + N * K + N * 4 + M * N * out_bytes
+    t_bytes, t_ops = nbytes / rate, 2 * M * N * K / BF16_PEAK
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_int8_kernel(card: str) -> dict:
+    import torch
+
+    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul, int8_weight_matmul_plain
+
+    rate = hbm_rate(card)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = [(name, K, N, out, M, "bf16") for name, K, N, out, _ in INT8_SHAPES for M in (1, 8)]
+    cases += [("w_gate, w_up: 4096->14336 (int8-all prefill chunk)", 4096, 14336, "bf16", 1024,
+               "bf16"),
+              ("wq, wo: 4096->4096 (fp32 activations)", 4096, 4096, "fp32", 8, "fp32")]
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    result = []
+    for name, K, N, out, M, xdt in cases:
+        out_dtype = dt[out]
+        n_sets = min(MAX_SETS, max(1, -(-int(COLD_BYTES) // (N * K))))
+        qs = [torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+              for _ in range(n_sets)]
+        ss = [torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4 for _ in range(n_sets)]
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dt[xdt])
+        before = int8_weight_matmul.launches
+        got = int8_weight_matmul(x, qs[0], ss[0], out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        if int8_weight_matmul.launches != before + 1:
+            fail(f"int8_weight_matmul [{name}, M={M}] did not count its launch")
+        ref = int8_weight_matmul_plain(x, qs[0], ss[0], out_dtype=out_dtype).float()
+        err = (got.float() - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-30)
+        ok = bool(torch.isfinite(got.float()).all()) and rel <= INT8_TOL[xdt]
+        print(f"int8 kernel vs plain [{name}, M={M}, x {xdt}, out {out}]: max|d| {err:.3e}, "
+              f"max|d|/max|ref| {rel:.3e} (limit {INT8_TOL[xdt]:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"int8_weight_matmul disagrees with its plain version: {name} M={M}")
+        row = dict(name=name, M=M, K=K, N=N, x=xdt, out=out, max_abs_err=err, rel_err=rel)
+        if xdt == "bf16":
+            b_ms, b_by = int8_bound(M, N, K, 4 if out == "fp32" else 2, rate)
+            kern = [lambda q=q, s_=s_: int8_weight_matmul(x, q, s_, out_dtype=out_dtype)
+                    for q, s_ in zip(qs, ss)]
+            ms = time_many(torch, kern)
+            graph_ms = time_graph(torch, kern)
+            plain_ms = time_many(torch, [lambda: int8_weight_matmul_plain(
+                x, qs[0], ss[0], out_dtype=out_dtype)], calls=8 if N * K > 1e8 else 30, reps=1)
+            del kern, qs, ss
+            # the library yardstick: the bf16 engine's product, x @ w with w
+            # [K, N] bf16, cycled through as many bytes
+            n_lib = min(MAX_SETS, max(1, -(-int(COLD_BYTES) // (2 * N * K))))
+            ws = [torch.randn((K, N), generator=gen, device="cuda").bfloat16()
+                  for _ in range(n_lib)]
+            lib_ms = time_many(torch, [lambda w=w: torch.matmul(x, w) for w in ws])
+            del ws
+            torch.cuda.empty_cache()
+            print(f"  time [{name}, M={M}]: kernel {ms:.4f} ms ({b_ms / ms:.1%} of the "
+                  f"{b_by} bound), graph-replayed {graph_ms:.4f} ms ({b_ms / graph_ms:.1%}), "
+                  f"bound {b_ms:.4f} ms, plain {plain_ms:.4f} ms, library (bf16 torch.matmul, "
+                  f"[{K}, {N}] bf16 weight) {lib_ms:.4f} ms; {n_sets} weight sets "
+                  f"({n_sets * N * K / 1e6:.0f} MB int8)")
+            row.update(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                       cold_l2=n_sets * N * K > 100e6)
+        result.append(row)
+    # one decode step at M = 8: 225 launches over the five shapes
+    per_step = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for name, K, N, out, count in INT8_SHAPES:
+        (row,) = [r for r in result if r["name"] == name and r["M"] == 8 and r["x"] == "bf16"]
+        for key in per_step:
+            per_step[key] += count * row[key]
+    per_step["bound_share"] = per_step["bound_ms"] / per_step["ms"]
+    per_step["bound_share_graph"] = per_step["bound_ms"] / per_step["graph_ms"]
+    print(f"int8 decode step (M=8, {INT8_LAUNCHES_PER_STEP} launches): kernel "
+          f"{per_step['ms']:.3f} ms ({per_step['bound_share']:.1%} of the bound), "
+          f"graph-replayed {per_step['graph_ms']:.3f} ms ({per_step['bound_share_graph']:.1%}), "
+          f"bound {per_step['bound_ms']:.3f} ms, bf16 torch.matmul {per_step['library_ms']:.3f} ms, "
+          f"plain {per_step['plain_ms']:.3f} ms, on {card}")
+    return {"cases": result, "per_step": per_step}
+
+
+# -- the HTTP pipeline (phases 5, 6 and 8) ---------------------------------------
 
 def _free_port() -> int:
     with socket.socket() as s:
@@ -456,15 +596,36 @@ def device_intervals_us(trace_path: str):
     return [e for e in dev if e.get("cat") == "kernel"], dev
 
 
+# names of the port's kernels in a device trace, by wrapper
+TRACE_KERNELS = {"paged_decode_attention": ("paged_decode_split_kernel",
+                                            "paged_decode_merge_kernel"),
+                 "int8_weight_matmul": ("w8a16_kernel", "w8f32_kernel")}
+
+
+def warm_profiler() -> float:
+    """Start and stop torch.profiler once on a small CUDA op, before any
+    engine thread launches work: its first start takes seconds (CUPTI), which
+    would otherwise eat the profiled window. Returns those seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(8, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def profile_decode(port: int, bodies: list, core) -> dict:
     """torch.profiler (CPU and CUDA) over PROFILE_DISPATCHES steady decode
     dispatches of a second wave of the same requests, PROFILE_TOKENS long.
-    Prints the top device kernels, the paged decode kernels' share of device
-    time, their device events per wrapper call in the window, and the
-    device's idle share of the window (host clock); prints "not measured"
-    when the profiler records no device activity."""
+    Prints the top device kernels, each port kernel's share of device time,
+    the paged decode kernels' device events per wrapper call in the window,
+    and the device's idle share of the window (host clock); prints "not
+    measured" when the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
+    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul
     from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
 
     bodies = [(path, dict(body, max_tokens=PROFILE_TOKENS)) for path, body in bodies]
@@ -482,10 +643,11 @@ def profile_decode(port: int, bodies: list, core) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         d1, s1 = core.decode_dispatches, core.decode_steps_total
-        c1 = paged_decode_attention.launches
+        c1, i1 = paged_decode_attention.launches, int8_weight_matmul.launches
         _wait_until(lambda: core.decode_dispatches >= d1 + PROFILE_DISPATCHES, threads)
         d2, s2 = core.decode_dispatches, core.decode_steps_total
         calls = paged_decode_attention.launches - c1
+        int8_calls = int8_weight_matmul.launches - i1
         window_us = (time.perf_counter() - t0) * 1e6
     for t in threads:
         t.join(600)
@@ -511,46 +673,37 @@ def profile_decode(port: int, bodies: list, core) -> dict:
         tot, n = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (tot + e["dur"], n + 1)
     dev_us = sum(e["dur"] for e in dev)
-    paged_us = sum(e["dur"] for e in kernels if "paged_decode" in e["name"])
+    shares = {w: sum(e["dur"] for e in kernels if any(k in e["name"] for k in names))
+              / max(dev_us, 1e-9) for w, names in TRACE_KERNELS.items()}
     events = {k: sum(1 for e in kernels if k in e["name"])
-              for k in ("paged_decode_split_kernel", "paged_decode_merge_kernel")}
+              for names in TRACE_KERNELS.values() for k in names}
     idle = max(0.0, 1.0 - busy / window_us)
     print(f"profile: {d2 - d1} decode dispatches, {steps} steps, {window_us / 1e3:.1f} ms "
           f"window (host clock); device busy {busy / 1e3:.2f} ms, idle share "
           f"{idle:.3f}; {len(kernels)} kernels = {len(kernels) / steps:.0f} per decode step, "
           f"{busy / steps / 1e3:.3f} ms device time per step")
-    print(f"profile: paged_decode kernels {paged_us / 1e3:.3f} ms = "
-          f"{paged_us / max(dev_us, 1e-9):.3f} of device time; device events "
-          + ", ".join(f"{k} {n} ({n / max(calls, 1):.3f} per call)" for k, n in events.items())
-          + f" over {calls} wrapper calls in the window")
+    print("profile: share of device time " + ", ".join(f"{w} {v:.3f}" for w, v in shares.items())
+          + "; device events " + ", ".join(f"{k} {n}" for k, n in events.items() if n)
+          + f" over {calls} paged and {int8_calls} int8 wrapper calls in the window "
+          f"({events['paged_decode_split_kernel'] / max(calls, 1):.3f} split and "
+          f"{events['paged_decode_merge_kernel'] / max(calls, 1):.3f} merge events per paged call)")
     for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  device {tot / 1e3:9.3f} ms  {n:6d} x  {tot / max(dev_us, 1e-9):6.3f}  "
               f"{name[:100]}")
     return {"measured": True, "steps": steps, "window_ms": window_us / 1e3,
             "device_busy_ms": busy / 1e3, "idle_share": idle,
-            "paged_decode_share": paged_us / max(dev_us, 1e-9),
+            "paged_decode_share": shares["paged_decode_attention"],
+            "int8_matmul_share": shares["int8_weight_matmul"],
+            "device_ms_per_step": busy / steps / 1e3,
             "kernels_per_step": len(kernels) / steps, "wrapper_calls": calls,
-            "device_events": events}
+            "int8_wrapper_calls": int8_calls, "device_events": events}
 
 
-def phase_serve(card: str, model_dir: str) -> dict:
-    from dynamo_tpu_torch.cli.run import build_engine, build_parser, run_http
-    from dynamo_tpu_torch.ops.paged_attention import (
-        device_launches,
-        paged_decode_attention,
-        reset_launch_counts,
-        splits_launched,
-    )
+@contextmanager
+def http_server(chat, comp, name, flags):
+    """``cli.run.run_http`` on a thread of its own; yields its port."""
+    from dynamo_tpu_torch.cli.run import run_http
 
-    port = _free_port()
-    flags = build_parser().parse_args([
-        "--model-path", model_dir, "--host", "127.0.0.1", "--port", str(port),
-        "--max-batch-size", str(N_REQUESTS),
-    ])
-    t0 = time.perf_counter()
-    chat, comp, name, core = build_engine("torch", flags)
-    print(f"serve: engine built and warmed up in {time.perf_counter() - t0:.1f} s "
-          f"(llama3-8b width, bf16 random weights, {core.num_blocks} KV blocks)")
     loop = asyncio.new_event_loop()
     ready = threading.Event()
     task_box = []
@@ -569,43 +722,48 @@ def phase_serve(card: str, model_dir: str) -> dict:
     if not ready.wait(60):
         fail("server did not start")
     try:
-        words = ("the paged pool serves every lane of the batch while the decode window "
-                 "holds the newest keys and values ").split()
-        bodies = []
-        for i in range(N_REQUESTS):
-            text = " ".join(words[(i * 3 + j) % len(words)] for j in range(12 + 9 * i))
-            common = {"model": name, "stream": True, "max_tokens": MAX_TOKENS,
-                      "nvext": {"ignore_eos": True}, "stream_options": {"include_usage": True}}
-            if i % 2 == 0:
-                bodies.append(("/v1/chat/completions",
-                               dict(common, messages=[{"role": "user", "content": text}])))
-            else:
-                bodies.append(("/v1/completions", dict(common, prompt=text)))
-        results = [None] * N_REQUESTS
-        t_sent = [0.0] * N_REQUESTS
-        reset_launch_counts()
-        steps0 = core.decode_steps_total
-        t_start = time.perf_counter()
-
-        def run_one(i):
-            results[i] = _stream(port, bodies[i][0], bodies[i][1], t_sent, i)
-
-        threads = [threading.Thread(target=run_one, args=(i,)) for i in range(N_REQUESTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(600)
-        wall = time.perf_counter() - t_start
-        launches = paged_decode_attention.launches
-        kernel_launches = dict(device_launches)
-        splits = dict(splits_launched)
-        steps = core.decode_steps_total - steps0
-        ttfts = list(core.recent_ttft_s)[-N_REQUESTS:]
-        profile = profile_decode(port, bodies, core)
+        yield flags.port
     finally:
         loop.call_soon_threadsafe(task_box[0].cancel)
         th.join(30)
         loop.close()
+
+
+def request_bodies(name: str, n: int, max_tokens: int) -> list:
+    """n streaming requests, chat and completions in turns, prompts of
+    growing length."""
+    words = ("the paged pool serves every lane of the batch while the decode window "
+             "holds the newest keys and values ").split()
+    bodies = []
+    for i in range(n):
+        text = " ".join(words[(i * 3 + j) % len(words)] for j in range(12 + 9 * i))
+        common = {"model": name, "stream": True, "max_tokens": max_tokens,
+                  "nvext": {"ignore_eos": True}, "stream_options": {"include_usage": True}}
+        if i % 2 == 0:
+            bodies.append(("/v1/chat/completions",
+                           dict(common, messages=[{"role": "user", "content": text}])))
+        else:
+            bodies.append(("/v1/completions", dict(common, prompt=text)))
+    return bodies
+
+
+def run_streams(port: int, bodies: list, max_tokens: int):
+    """Send every request at once; (results, send times, wall seconds).
+    Fails unless each stream ends with a finish reason, [DONE] and
+    ``max_tokens`` completion tokens."""
+    results = [None] * len(bodies)
+    t_sent = [0.0] * len(bodies)
+
+    def run_one(i):
+        results[i] = _stream(port, bodies[i][0], bodies[i][1], t_sent, i)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run_one, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
     for i, r in enumerate(results):
         if r is None:
             fail(f"request {i} did not complete")
@@ -613,16 +771,51 @@ def phase_serve(card: str, model_dir: str) -> dict:
             fail(f"request {i}: HTTP {r['status']} {r.get('error', '')[:300]}")
         if not r["finish"] or not r.get("done"):
             fail(f"request {i}: stream ended without finish_reason/[DONE]")
-        if not r["usage"] or r["usage"]["completion_tokens"] != MAX_TOKENS:
-            fail(f"request {i}: usage {r['usage']}, expected {MAX_TOKENS} completion tokens")
+        if not r["usage"] or r["usage"]["completion_tokens"] != max_tokens:
+            fail(f"request {i}: usage {r['usage']}, expected {max_tokens} completion tokens")
+    return results, t_sent, wall
+
+
+def reset_all_counts() -> None:
+    from dynamo_tpu_torch.ops import int8_matmul, paged_attention
+
+    paged_attention.reset_launch_counts()
+    int8_matmul.reset_launch_counts()
+
+
+def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dict:
+    """Answer N_REQUESTS concurrent streams through the HTTP pipeline with
+    every launch count set to 0 just before and read just after, then
+    profile a second wave."""
+    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul
+    from dynamo_tpu_torch.ops.paged_attention import (
+        device_launches,
+        paged_decode_attention,
+        splits_launched,
+    )
+
+    with http_server(chat, comp, name, flags) as port:
+        bodies = request_bodies(name, N_REQUESTS, MAX_TOKENS)
+        reset_all_counts()
+        steps0 = core.decode_steps_total
+        results, t_sent, wall = run_streams(port, bodies, MAX_TOKENS)
+        launches = paged_decode_attention.launches
+        kernel_launches = dict(device_launches)
+        splits = dict(splits_launched)
+        int8_launches = int8_weight_matmul.launches
+        steps = core.decode_steps_total - steps0
+        ttfts = list(core.recent_ttft_s)[-N_REQUESTS:]
+        profile = profile_decode(port, bodies, core)
     L = LLAMA3_8B["layers"]
-    print(f"serve: {N_REQUESTS} streams (4 chat, 4 completions) HTTP 200, finish_reason "
+    print(f"{label}: {N_REQUESTS} streams (4 chat, 4 completions) HTTP 200, finish_reason "
           f"{sorted(set(r['finish'] for r in results))}, {MAX_TOKENS} completion tokens each")
     per_call = sum(kernel_launches.values()) / max(launches, 1)
-    print(f"serve: paged_decode_attention launches {launches} over {steps} decode steps "
+    print(f"{label}: paged_decode_attention launches {launches} over {steps} decode steps "
           f"x {L} layers = {steps * L} ({launches / max(steps, 1):.0f} per step); device "
           f"launches " + ", ".join(f"{k} {n}" for k, n in kernel_launches.items())
-          + f" ({per_call:.3f} per call); split counts launched {splits} (splits: calls)")
+          + f" ({per_call:.3f} per call); split counts launched {splits} (splits: calls); "
+          f"int8_weight_matmul launches {int8_launches} "
+          f"({int8_launches / max(steps, 1):.1f} per decode step)")
     if steps == 0 or launches < L * steps:
         fail(f"paged_decode_attention ran {launches} times, expected >= {L} x {steps}")
     for k, n in kernel_launches.items():
@@ -631,27 +824,169 @@ def phase_serve(card: str, model_dir: str) -> dict:
     first = min(t_sent) + min(ttfts)
     decode_tok_s = N_REQUESTS * (MAX_TOKENS - 1) / (max(r["end"] for r in results) - first)
     ttft_p50 = statistics.median(ttfts) * 1e3
-    print(f"serve: TTFT p50 {ttft_p50:.1f} ms (engine enqueue -> first token), decode "
+    print(f"{label}: TTFT p50 {ttft_p50:.1f} ms (engine enqueue -> first token), decode "
           f"{decode_tok_s:.1f} tok/s over {N_REQUESTS} lanes, wall {wall:.2f} s, on {card}")
     return {"launches": launches, "kernel_launches": kernel_launches,
-            "device_launches_per_call": per_call, "splits": splits, "core": core,
-            "ttft_p50_ms": ttft_p50,
-            "decode_tok_s": decode_tok_s, "profile": profile}
+            "device_launches_per_call": per_call, "splits": splits,
+            "int8_launches": int8_launches, "decode_steps": steps,
+            "ttft_p50_ms": ttft_p50, "decode_tok_s": decode_tok_s, "profile": profile}
 
 
-# -- phase 5 --------------------------------------------------------------------
+# -- phase 5: load a checkpoint ---------------------------------------------------
 
-def phase_parity(core) -> None:
-    import numpy as np
+LOAD_LAYERS = 2  # the checkpoint's depth: llama3-8b widths, ~3 GB of bf16
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """bf16 CPU tensors in the safetensors layout: a little-endian u64 header
+    length, a JSON header (dtype, shape, data_offsets), the raw buffers.
+    Returns the bytes written."""
     import torch
 
-    from dynamo_tpu_torch.models.llama import forward_chunk, forward_window, make_kv_cache
-    from dynamo_tpu_torch.ops.paged_attention import (
-        paged_decode_attention,
-        paged_decode_attention_plain,
-    )
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 2
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.int16).numpy().data)
+    return 8 + len(raw) + offset
 
-    cfg = core.model_config
+
+def hf_checkpoint(torch, seed: int) -> dict:
+    """Random bf16 weights on the card under the HF llama names, at
+    llama3-8b widths and LOAD_LAYERS layers."""
+    c = LLAMA3_8B
+    E, F, V = c["hidden"], c["ffn"], c["vocab"]
+    q, kv = c["heads"] * c["head_dim"], c["kv_heads"] * c["head_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") / shape[-1] ** 0.5).bfloat16()
+
+    t = {"model.embed_tokens.weight": w(V, E)}
+    for i in range(LOAD_LAYERS):
+        p = f"model.layers.{i}."
+        t.update({
+            p + "input_layernorm.weight": 1 + w(E) * 4, p + "post_attention_layernorm.weight":
+            1 + w(E) * 4, p + "self_attn.q_proj.weight": w(q, E),
+            p + "self_attn.k_proj.weight": w(kv, E), p + "self_attn.v_proj.weight": w(kv, E),
+            p + "self_attn.o_proj.weight": w(E, q), p + "mlp.gate_proj.weight": w(F, E),
+            p + "mlp.up_proj.weight": w(F, E), p + "mlp.down_proj.weight": w(E, F),
+        })
+    t["model.norm.weight"] = 1 + w(E) * 4
+    t["lm_head.weight"] = w(V, E)
+    return t
+
+
+def phase_load(card: str, path: str) -> dict:
+    import torch
+
+    from dynamo_tpu_torch.cli.run import build_engine, build_parser
+    from dynamo_tpu_torch.engine_torch.weights import config_from_card, load_params
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    write_model_dir(path, num_layers=LOAD_LAYERS)
+    tensors = hf_checkpoint(torch, 31)
+    names = list(tensors)
+    split = names.index("model.layers.1.input_layernorm.weight")
+    t0 = time.perf_counter()
+    nbytes = 0
+    for i, part in enumerate((names[:split], names[split:])):
+        nbytes += write_safetensors(os.path.join(path, f"model-0000{i + 1}-of-00002.safetensors"),
+                                    {n: tensors[n].cpu() for n in part})
+    write_s = time.perf_counter() - t0
+    # the loader alone, timed: the files were just written, so this reads
+    # the host's page cache, not the disk
+    hf_card = ModelDeploymentCard.from_local_path(path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = load_params(hf_card, config_from_card(hf_card), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del timed
+    port = _free_port()
+    flags = build_parser().parse_args(["--model-path", path, "--host", "127.0.0.1", "--port",
+                                       str(port), "--max-batch-size", "2"])
+    t0 = time.perf_counter()
+    chat, comp, name, core = build_engine("torch", flags)
+    build_s = time.perf_counter() - t0
+    try:
+        p, lp = core.params, core.params.layers
+        pairs = [(p.embed, "model.embed_tokens.weight", False),
+                 (p.final_norm, "model.norm.weight", False), (p.lm_head, "lm_head.weight", True)]
+        hf = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+              "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+              "w_down": "mlp.down_proj"}
+        for i in range(LOAD_LAYERS):
+            pre = f"model.layers.{i}."
+            pairs += [(lp["attn_norm"][i], pre + "input_layernorm.weight", False),
+                      (lp["mlp_norm"][i], pre + "post_attention_layernorm.weight", False)]
+            pairs += [(lp[k][i], f"{pre}{v}.weight", True) for k, v in hf.items()]
+        if len(pairs) != len(tensors):
+            fail(f"load: {len(pairs)} parameters checked, {len(tensors)} written")
+        for got, hname, transpose in pairs:
+            want = tensors[hname].T if transpose else tensors[hname]
+            # matrices bf16 as written; norms fp32, which bf16 converts into exactly
+            if got.shape != want.shape or not torch.equal(got, want.to(got.dtype)):
+                fail(f"load: {hname} differs on the card from what was written")
+        print(f"load: {len(pairs)} parameters bit-equal on the card to the {len(tensors)} "
+              f"tensors written (llama3-8b widths, {LOAD_LAYERS} layers, bf16, 2 files)")
+        with http_server(chat, comp, name, flags) as port:
+            run_streams(port, request_bodies(name, 2, 8), 8)
+        print("load: 2 streaming requests served over HTTP from the loaded checkpoint")
+    finally:
+        core.close()
+    print(f"load: {nbytes / 1e9:.3f} GB written in {write_s:.2f} s; load_params to the card in "
+          f"{load_s:.2f} s = {nbytes / load_s / 1e9:.2f} GB/s (files in the page cache); "
+          f"build_engine (load, kernels, warmup) {build_s:.2f} s; on {card}")
+    return {"gb": nbytes / 1e9, "load_s": load_s, "gb_s": nbytes / load_s / 1e9,
+            "write_s": write_s, "build_engine_s": build_s}
+
+
+# -- phase 6/7: serve bf16 --------------------------------------------------------
+
+def phase_serve(card: str, model_dir: str) -> dict:
+    from dynamo_tpu_torch.cli.run import build_engine, build_parser
+
+    port = _free_port()
+    flags = build_parser().parse_args([
+        "--model-path", model_dir, "--host", "127.0.0.1", "--port", str(port),
+        "--max-batch-size", str(N_REQUESTS),
+    ])
+    t0 = time.perf_counter()
+    chat, comp, name, core = build_engine("torch", flags)
+    print(f"serve: engine built and warmed up in {time.perf_counter() - t0:.1f} s "
+          f"(llama3-8b width, bf16 random weights, {core.num_blocks} KV blocks)")
+    served = serve_and_count(card, "serve", core, chat, comp, name, flags)
+    served.update(core=core, flags=flags, name=name)
+    return served
+
+
+def _parity(label: str, a, b, limit: float = 2e-2) -> float:
+    diff = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    rel = diff / max(scale, 1e-30)
+    print(f"{label}: max|dlogits| {diff:.4e}, max|logits| {scale:.4e}, ratio {rel:.3e} "
+          f"(limit {limit:g}), greedy agreement {agree:.3f}")
+    if not rel <= limit:
+        fail(label)
+    return rel
+
+
+def parity_case(torch, cfg, params):
+    """8 lanes of 100-500 prompt tokens prefilled into a fresh pool with
+    ``params`` (bf16 chunks), and the token at each lane's next position."""
+    import numpy as np
+
+    from dynamo_tpu_torch.models.llama import forward_chunk, make_kv_cache
+
     S, bs, per_lane = 8, 16, 32  # 32 pages = 512 tokens of room per lane
     rng = np.random.default_rng(7)
     lens = rng.integers(100, 500, size=S)
@@ -664,28 +999,140 @@ def phase_parity(core) -> None:
         for c0 in range(0, int(lens.max()), 128):
             pos = torch.arange(c0, c0 + 128, device="cuda")[None, :].repeat(S, 1)
             pos = torch.where(pos < torch.from_numpy(lens).cuda()[:, None], pos, -1)
-            forward_chunk(core.params, cfg, toks[:, c0:c0 + 128], pos.int(), cache, tables,
+            forward_chunk(params, cfg, toks[:, c0:c0 + 128], pos.int(), cache, tables,
                           hidden_only=True, with_history=c0 > 0)
-        base = torch.from_numpy(lens).cuda().int()
-        nxt = toks[torch.arange(S), base.long()].int()  # the token at position base
-        shape = (cfg.num_layers, S, 1, cfg.num_kv_heads, cfg.head_dim)
-        outs = []
-        for fn in (paged_decode_attention, paged_decode_attention_plain):
-            wk = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
-            wv = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
-            logits, _, _ = forward_window(core.params, cfg, nxt, base, cache, tables, base,
-                                          wk, wv, 0, decode_attention=fn)
-            outs.append(logits.float())
+    base = torch.from_numpy(lens).cuda().int()
+    nxt = toks[torch.arange(S), base.long()].int()  # the token at position base
+    return cache, tables, base, nxt, toks, lens
+
+
+def window_logits(torch, cfg, params, case, decode_attention):
+    from dynamo_tpu_torch.models.llama import forward_window
+
+    cache, tables, base, nxt, _, _ = case
+    shape = (cfg.num_layers, len(base), 1, cfg.num_kv_heads, cfg.head_dim)
+    wk = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+    wv = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+    with torch.no_grad():
+        logits, _, _ = forward_window(params, cfg, nxt, base, cache, tables, base, wk, wv, 0,
+                                      decode_attention=decode_attention)
+    torch.cuda.synchronize()
+    return logits.float()
+
+
+def phase_parity(core) -> float:
+    import torch
+
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    cfg = core.model_config
+    case = parity_case(torch, cfg, core.params)
+    outs = [window_logits(torch, cfg, core.params, case, fn)
+            for fn in (paged_decode_attention, paged_decode_attention_plain)]
+    lens = case[5]
+    return _parity(f"decode parity (forward_window, llama3-8b width, 8 lanes, lengths "
+                   f"{int(lens.min())}-{int(lens.max())})", outs[0], outs[1])
+
+
+# -- phase 8/9: serve and check int8 ------------------------------------------------
+
+def phase_int8_serve(card: str, served: dict) -> dict:
+    """The bf16 engine's weights behind a quantize="int8" engine with the
+    same configuration and the same HTTP pipeline; the bf16 engine is
+    closed first."""
+    import torch
+
+    from dynamo_tpu_torch.cli.run import make_pipelines
+    from dynamo_tpu_torch.engine_torch.engine import TorchServingEngine
+
+    old = served.pop("core")
+    old.close()
+    params, cfg, ecfg = old.params, old.model_config, old.config
+    del old
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    core = TorchServingEngine(cfg, params, dataclasses.replace(ecfg, quantize="int8"),
+                              device="cuda")
+    quant_s = time.perf_counter() - t0
+    core.warmup()
+    flags = served["flags"]
+    flags.port = _free_port()
+    chat, comp = make_pipelines(core_card(flags), core)
+    print(f"int8 serve: weights quantized in {quant_s:.1f} s, engine warmed up in "
+          f"{time.perf_counter() - t0:.1f} s (llama3-8b width, quantize=\"int8\": bf16 prefill, "
+          f"int8 decode); {torch.cuda.memory_allocated() / 1e9:.1f} GB allocated on the card")
+    out = serve_and_count(card, "int8 serve", core, chat, comp, served["name"], flags)
+    prof = [d["profile"] for d in (served, out)]
+    print("int8 serve beside bf16 serve (same requests, same run): decode "
+          f"{out['decode_tok_s']:.1f} vs {served['decode_tok_s']:.1f} tok/s, TTFT p50 "
+          f"{out['ttft_p50_ms']:.1f} vs {served['ttft_p50_ms']:.1f} ms"
+          + ("; profiled decode step: device "
+             f"{prof[1]['device_ms_per_step']:.3f} vs {prof[0]['device_ms_per_step']:.3f} ms, "
+             f"idle share {prof[1]['idle_share']:.3f} vs {prof[0]['idle_share']:.3f}, "
+             f"int8_weight_matmul {prof[1]['int8_matmul_share']:.3f} of device time"
+             if all(p["measured"] for p in prof) else ""))
+    want = INT8_LAUNCHES_PER_STEP * out["decode_steps"]
+    if out["int8_launches"] != want or want == 0:
+        fail(f"int8_weight_matmul launched {out['int8_launches']} times on the main path, "
+             f"expected {INT8_LAUNCHES_PER_STEP} x {out['decode_steps']} decode steps = {want}")
+    out["core"] = core
+    return out
+
+
+def core_card(flags):
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    return ModelDeploymentCard.from_local_path(flags.model_path, flags.model_name)
+
+
+@contextmanager
+def plain_int8():
+    """Route the model's int8 products through the plain version."""
+    import dynamo_tpu_torch.models.llama as llama
+    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul, int8_weight_matmul_plain
+
+    llama.int8_weight_matmul = int8_weight_matmul_plain
+    try:
+        yield
+    finally:
+        llama.int8_weight_matmul = int8_weight_matmul
+
+
+def phase_int8_parity(core) -> dict:
+    import torch
+
+    from dynamo_tpu_torch.models.llama import forward_chunk, make_kv_cache
+    from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    cfg, qp = core.model_config, core.params_decode
+    case = parity_case(torch, cfg, core.params)
+    kern = window_logits(torch, cfg, qp, case, paged_decode_attention)
+    with plain_int8():
+        plain = window_logits(torch, cfg, qp, case, paged_decode_attention)
+    lens = case[5]
+    window = _parity(f"int8 decode parity (forward_window of the int8 tree, kernel vs plain "
+                     f"int8 products, llama3-8b width, 8 lanes, lengths "
+                     f"{int(lens.min())}-{int(lens.max())})", kern, plain)
+    del kern, plain
+    # one "int8-all" prefill chunk: 8 lanes x 128 tokens from position 0
+    toks = case[4][:, :128].contiguous()
+    pos = torch.arange(128, device="cuda", dtype=torch.int32)[None, :].repeat(8, 1)
+    tables = case[1]
+    outs = []
+    for ctx in (nullcontext(), plain_int8()):
+        cache = make_kv_cache(cfg, tables.numel(), 16, device="cuda")
+        with torch.no_grad(), ctx:
+            logits, _ = forward_chunk(qp, cfg, toks, pos, cache, tables, with_history=False)
         torch.cuda.synchronize()
-    diff = (outs[0] - outs[1]).abs().max().item()
-    scale = outs[1].abs().max().item()
-    agree = (outs[0].argmax(-1) == outs[1].argmax(-1)).float().mean().item()
-    rel = diff / max(scale, 1e-30)
-    print(f"decode parity (forward_window, llama3-8b width, {S} lanes, lengths "
-          f"{int(lens.min())}-{int(lens.max())}): max|dlogits| {diff:.4e}, max|logits| "
-          f"{scale:.4e}, ratio {rel:.3e} (limit 2e-2), greedy agreement {agree:.3f}")
-    if not np.isfinite(rel) or rel > 2e-2:
-        fail("full-width decode parity")
+        outs.append(logits[:, -16:].float())
+        del cache, logits
+    chunk = _parity("int8-all chunk parity (forward_chunk of the int8 tree, 8 lanes x 128 "
+                    "tokens, kernel vs plain int8 products; logits of the last 16 positions)",
+                    outs[0], outs[1])
+    return {"window_ratio": window, "chunk_ratio": chunk}
 
 
 def main() -> int:
@@ -703,14 +1150,33 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    card = phase_device()
-    phase_build()
-    kern = phase_kernels(card)
+    seconds = {}
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        print(f"phase {label}: {seconds[label]:.1f} s")
+        return out
+
+    card = timed("device", phase_device)
+    print(f"profiler: first start and stop in {warm_profiler():.1f} s")
+    timed("build", phase_build)
+    kern = timed("kernels", phase_kernels, card)
+    int8k = timed("int8 kernel", phase_int8_kernel, card)
     with tempfile.TemporaryDirectory() as tmp:
-        served = phase_serve(card, write_model_dir(os.path.join(tmp, "llama3-8b-random")))
-    phase_parity(served["core"])
-    served["core"].close()
+        loaded = timed("load", phase_load, card, os.path.join(tmp, "llama3-8b-2-layers"))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        served = timed("serve", phase_serve, card,
+                       write_model_dir(os.path.join(tmp, "llama3-8b-random")))
+        parity = timed("parity", phase_parity, served["core"])
+        int8s = timed("int8 serve", phase_int8_serve, card, served)
+    int8p = timed("int8 parity", phase_int8_parity, int8s["core"])
+    int8s.pop("core").close()
     main_regime = kern[REGIMES[0][0]]
+    step = int8k["per_step"]
+    decode_cases = [c for c in int8k["cases"] if c["M"] in (1, 8) and c["x"] == "bf16"]
     line = {"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -728,9 +1194,33 @@ def main() -> int:
         "device_launches": served["kernel_launches"],
         "device_launches_per_call": served["device_launches_per_call"],
         "splits": served["splits"],
+        "launches_int8_serve": int8s["launches"],
         "regimes": [dict(name=k, **v) for k, v in kern.items()],
+    }, {
+        "name": "int8_weight_matmul",
+        "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "dynamo_tpu/models/llama.py:255 (matw, and lm_head :456: XLA's fused "
+                    "int8 convert-dot, no Pallas kernel)",
+        "launches": int8s["int8_launches"],
+        # one decode step at M = 8: the 225 launches over the five shapes
+        "unit": f"one decode step, M=8, {INT8_LAUNCHES_PER_STEP} launches",
+        "max_abs_err": max(c["max_abs_err"] for c in decode_cases),
+        "ms": step["ms"],
+        "graph_ms": step["graph_ms"],
+        "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": step["library_ms"],
+        "bound_share": step["bound_share"],
+        "launches_per_decode_step": INT8_LAUNCHES_PER_STEP,
+        "decode_steps": int8s["decode_steps"],
+        "cases": int8k["cases"],
     }], "serve": {"ttft_p50_ms": served["ttft_p50_ms"], "decode_tok_s": served["decode_tok_s"],
-                  "profile": served["profile"]},
+                  "profile": served["profile"], "parity_ratio": parity},
+        "int8_serve": {"ttft_p50_ms": int8s["ttft_p50_ms"], "decode_tok_s": int8s["decode_tok_s"],
+                       "profile": int8s["profile"], **int8p},
+        "load": loaded, "phase_seconds": seconds,
         "card": card, "seconds": time.perf_counter() - t0}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Launcher: ``python -m dynamo_tpu_torch.cli.run in=http out=torch --model-path DIR``.
 
 Serves the model in ``DIR`` (an HF-layout directory: config.json,
-tokenizer.json, tokenizer_config.json) through the OpenAI HTTP frontend and
+tokenizer.json, tokenizer_config.json, and its weights as ``*.safetensors``
+files) or in a single ``.gguf`` file through the OpenAI HTTP frontend and
 the torch engine. The engine runs on CUDA unless ``--device cpu`` is given;
 without a card and without ``--device cpu`` it raises. A directory without
 weight files gets random weights (``--seed``).
@@ -45,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dynamo-run-torch", description="dynamo_tpu_torch launcher (in=http out=torch)"
     )
-    p.add_argument("--model-path", default=None, help="HF-layout model directory")
+    p.add_argument("--model-path", default=None,
+                   help="HF-layout model directory, or a .gguf file")
     p.add_argument("--model-name", default=None, help="served model name")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
@@ -79,6 +81,12 @@ def build_engine(out_spec: str, flags: argparse.Namespace):
         device=flags.device,
     )
     core.warmup()
+    chat, completions = make_pipelines(card, core)
+    return chat, completions, flags.model_name or card.display_name, core
+
+
+def make_pipelines(card: ModelDeploymentCard, core):
+    """(chat, completions) pipelines: preprocessor → detokenizer → ``core``."""
     pre = OpenAIPreprocessor(card)
 
     def pipeline(chat: bool):
@@ -89,7 +97,7 @@ def build_engine(out_spec: str, flags: argparse.Namespace):
             .link_engine(core)
         )
 
-    return pipeline(True), pipeline(False), flags.model_name or card.display_name, core
+    return pipeline(True), pipeline(False)
 
 
 def make_service(chat_engine, completions_engine, model_name: str,

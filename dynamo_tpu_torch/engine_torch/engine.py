@@ -21,8 +21,13 @@ Counterpart of the main path of the JAX package's ``engine_jax/engine.py``:
   reach requesters through ``loop.call_soon_threadsafe`` into per-request
   asyncio queues.
 
+- **Weight-only int8** (``EngineConfig.quantize``, the JAX modes):
+  ``"int8"`` decodes from an int8 copy of the weights (``params_decode``)
+  and prefills from the bf16 ones (``params``); ``"int8-all"`` keeps only
+  the int8 tree for both. Int8 products go through the W8A16 kernel.
+
 Not in this engine yet (later slices, ROADMAP.md): speculative verify, int8
-weights and KV, the host KV tier, disaggregated prefill, live migration,
+KV, the host KV tier, disaggregated prefill, live migration,
 integrity, QoS, profiling/straggler hooks, meshes.
 """
 
@@ -49,8 +54,10 @@ from ..models.llama import (
     forward_window,
     lm_head,
     make_kv_cache,
+    quantize_params_int8,
 )
-from ..ops.paged_attention import build as build_kernels
+from ..ops import int8_matmul, paged_attention
+from ..ops.build import build_all
 from ..ops.paged_attention import paged_decode_attention
 from ..runtime.annotated import Annotated
 from ..runtime.engine import AsyncEngine, Context
@@ -97,6 +104,11 @@ class EngineConfig:
     top_logprobs: int = 20
     # idle engine: wait up to this long for an admission wave to land
     admission_window: float = 0.02
+    # weight-only quantization (models/llama.py quantize_params_int8):
+    # "int8" decodes from an int8 copy and prefills from the bf16 weights
+    # (1.5x weight residency); "int8-all" keeps only int8 for both phases
+    # (the fit mode); None serves the weights as given
+    quantize: Optional[str] = None
 
     def resolve_num_blocks(self) -> int:
         if self.num_kv_blocks is not None:
@@ -230,6 +242,19 @@ class TorchServingEngine(AsyncEngine):
         self.model_config = model_config
         self.config = engine_config
         self.device = resolve_device(str(device))
+        if engine_config.quantize == "int8-all":
+            # int8 for both phases and the bf16 tree dropped; a tree that is
+            # already quantized is taken as it is
+            if not params.int8:
+                params = quantize_params_int8(params, model_config)
+        elif engine_config.quantize == "int8":
+            # hybrid: decode reads the int8 copy (the weights are the decode
+            # bytes), prefill keeps the bf16 weights
+            self.params_decode = quantize_params_int8(params, model_config)
+        elif engine_config.quantize:
+            raise ValueError(f"unknown quantize mode {engine_config.quantize!r}")
+        if engine_config.quantize != "int8":
+            self.params_decode = params
         self.params = params
         self.num_blocks = engine_config.resolve_num_blocks()
         self.allocator = BlockAllocator(
@@ -315,7 +340,7 @@ class TorchServingEngine(AsyncEngine):
             outs, lps, tids, tlps = [], [], [], []
             for k in range(k_steps):
                 logits, wk, wv = forward_window(
-                    self.params, cfg, toks, pos, self.cache, tables, base, wk, wv, k,
+                    self.params_decode, cfg, toks, pos, self.cache, tables, base, wk, wv, k,
                 )
                 sampled_from = (
                     apply_penalties(logits, counts, freqp, presp) if with_pen else logits
@@ -435,7 +460,10 @@ class TorchServingEngine(AsyncEngine):
         S, C, MB = cfg.max_slots, cfg.prefill_chunk, cfg.max_blocks_per_seq
         timings: Dict[str, float] = {}
         if self.device.type == "cuda":
-            timings["kernel_build"] = build_kernels()["seconds"]
+            libs = [paged_attention.LIBRARY]
+            if self.params.int8 or self.params_decode.int8:
+                libs.append(int8_matmul.LIBRARY)
+            timings["kernel_build"] = max(b["seconds"] for b in build_all(libs).values())
         tables = self._put(np.zeros((S, MB), np.int32))
         neg = self._put(np.full((S,), -1, np.int32))
         samp = self._sampling_args()

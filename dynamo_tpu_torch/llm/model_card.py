@@ -3,8 +3,8 @@
 Captures what a frontend/preprocessor needs to serve a model (tokenizer,
 chat template, context length, special tokens) plus a content checksum.
 Counterpart of the JAX package's ``llm/model_card.py`` for local HF-layout
-directories; the checksum is computed the same way, so both packages give a
-model directory the same ``mdcsum``.
+directories and single ``.gguf`` files; the checksum is computed the same
+way, so both packages give a model directory the same ``mdcsum``.
 """
 
 from __future__ import annotations
@@ -28,10 +28,27 @@ class ModelDeploymentCard:
     eos_token_ids: list[int] = field(default_factory=list)
     model_config: dict[str, Any] = field(default_factory=dict)
     mdcsum: Optional[str] = None
+    gguf_path: Optional[str] = None  # set when the model came from a .gguf
+
+    @classmethod
+    def from_gguf(cls, path: str, display_name: Optional[str] = None) -> "ModelDeploymentCard":
+        """Build from a single .gguf file: config and tokenizer are extracted
+        to a sidecar HF-layout directory (``<path>.hf``); weights load
+        straight from the GGUF."""
+        from .gguf import extract_model_dir
+
+        hf_dir = extract_model_dir(path)
+        name = display_name or os.path.basename(path).removesuffix(".gguf")
+        card = cls.from_local_path(hf_dir, name)
+        card.gguf_path = path
+        return card
 
     @classmethod
     def from_local_path(cls, path: str, display_name: Optional[str] = None) -> "ModelDeploymentCard":
-        """Build from an HF-layout model directory (config.json + tokenizer files)."""
+        """Build from an HF-layout model directory (config.json + tokenizer
+        files) or a single .gguf file."""
+        if path.endswith(".gguf"):
+            return cls.from_gguf(path, display_name)
         if not os.path.isdir(path):
             raise FileNotFoundError(f"model directory {path!r} not found")
         name = display_name or os.path.basename(os.path.normpath(path))

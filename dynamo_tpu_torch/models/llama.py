@@ -6,6 +6,17 @@ an ``nn.Module`` (:class:`LlamaParams`) that holds the same stacked
 (``engine_torch/weights.py``). The layer loop is a Python loop over the
 stacked leading axis (the JAX package scans it).
 
+Weight-only int8 (the JAX ``quantize_params_int8``, ``matw``, int8
+``embed_lookup`` and ``lm_head``): :func:`quantize_params_int8` gives a
+:class:`LlamaParams` whose matrices are :class:`Int8Weight` pairs, ``q`` int8
+and ``s`` fp32 per output channel. **Layout:** ``q`` is ``[..., out, in]``
+with K contiguous, the transpose of the JAX ``[in, out]`` ``q`` (and of the
+port's own bf16 matrices): the natural operand of a small-M kernel, and the
+layout of the embedding ``[V, E]``, so the tied LM head (per-row scales) is
+one more weight of the same kind. ``engine_torch/weights.py`` transposes a
+JAX int8 tree on the way in. Every int8 product goes through
+``ops/int8_matmul.py`` (the CUDA kernel on the card).
+
 The KV cache is ``{"k": [L, N, bs, KVH, D], "v": ...}`` (the JAX layout) and
 is updated in place. Decode history always goes through the paged flash-decode
 kernel (``ops/paged_attention.py``); the JAX package's dense history tier is
@@ -16,12 +27,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..ops.attention import gather_pages, paged_attention, write_kv_to_pages
+from ..ops.int8_matmul import int8_weight_matmul
 from ..ops.paged_attention import paged_decode_attention
 
 KVCache = Dict[str, torch.Tensor]  # {"k": [L,N,bs,KVH,D], "v": ...}
@@ -81,51 +93,89 @@ LLAMA_PRESETS: Dict[str, LlamaConfig] = {
 
 # -- params ------------------------------------------------------------------
 
-def param_shapes(c: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
-    """name → (shape, stored in fp32); ``layers.*`` are stacked over L."""
-    L, E, F = c.num_layers, c.hidden_size, c.intermediate_size
-    shapes = {
-        "embed": ((c.vocab_size, E), False),
-        "final_norm": ((E,), True),
-        "layers.attn_norm": ((L, E), True),
-        "layers.wq": ((L, E, c.q_dim), False),
-        "layers.wk": ((L, E, c.kv_dim), False),
-        "layers.wv": ((L, E, c.kv_dim), False),
-        "layers.wo": ((L, c.q_dim, E), False),
-        "layers.mlp_norm": ((L, E), True),
-        "layers.w_gate": ((L, E, F), False),
-        "layers.w_up": ((L, E, F), False),
-        "layers.w_down": ((L, F, E), False),
+class Int8Weight(NamedTuple):
+    """A weight-only int8 matrix: ``q`` [..., out, in] int8 (K contiguous)
+    and ``s`` [..., out] fp32, the absmax/127 scale of each output channel."""
+
+    q: torch.Tensor
+    s: torch.Tensor
+
+
+Weight = Union[torch.Tensor, Int8Weight]
+# the dense matrices of a layer, quantized by quantize_params_int8
+INT8_MATS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def param_shapes(c: LlamaConfig, int8: bool = False
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """name → (shape, dtype); ``layers.*`` are stacked over L. With ``int8``
+    each matrix ``name`` is ``name_q`` [..., out, in] int8 plus ``name_s``
+    [..., out] fp32 (the embedding per row, the LM head per vocab entry)."""
+    L, E, F, V = c.num_layers, c.hidden_size, c.intermediate_size, c.vocab_size
+    f32 = torch.float32
+    mats = {
+        "embed": (V, E),
+        "layers.wq": (L, E, c.q_dim),
+        "layers.wk": (L, E, c.kv_dim),
+        "layers.wv": (L, E, c.kv_dim),
+        "layers.wo": (L, c.q_dim, E),
+        "layers.w_gate": (L, E, F),
+        "layers.w_up": (L, E, F),
+        "layers.w_down": (L, F, E),
     }
-    if c.qkv_bias:
-        shapes["layers.bq"] = ((L, c.q_dim), True)
-        shapes["layers.bk"] = ((L, c.kv_dim), True)
-        shapes["layers.bv"] = ((L, c.kv_dim), True)
     if not c.tie_embeddings:
-        shapes["lm_head"] = ((E, c.vocab_size), False)
+        mats["lm_head"] = (E, V)
+    shapes = {"final_norm": ((E,), f32), "layers.attn_norm": ((L, E), f32),
+              "layers.mlp_norm": ((L, E), f32)}
+    for name, shape in mats.items():
+        if not int8:
+            shapes[name] = (shape, c.dtype)
+        elif name == "embed":
+            shapes["embed_q"], shapes["embed_s"] = (shape, torch.int8), ((V,), f32)
+        else:  # [..., in, out] -> q [..., out, in], s [..., out]
+            out_in = shape[:-2] + (shape[-1], shape[-2])
+            shapes[f"{name}_q"], shapes[f"{name}_s"] = (out_in, torch.int8), (out_in[:-1], f32)
+    if c.qkv_bias:
+        shapes["layers.bq"] = ((L, c.q_dim), f32)
+        shapes["layers.bk"] = ((L, c.kv_dim), f32)
+        shapes["layers.bv"] = ((L, c.kv_dim), f32)
     return shapes
 
 
 class LlamaParams(nn.Module):
     """The stacked parameter set: ``embed``, ``final_norm``, ``lm_head``
     (untied) and ``layers[name]`` with a leading layer axis. Norm weights
-    and biases are fp32, matrices the config dtype (the JAX dtypes)."""
+    and biases are fp32, matrices the config dtype (the JAX dtypes), or
+    int8 pairs when ``int8`` (see :func:`param_shapes`)."""
 
-    def __init__(self, config: LlamaConfig, device: torch.device):
+    def __init__(self, config: LlamaConfig, device: torch.device, int8: bool = False):
         super().__init__()
         self.config = config
+        self.int8 = int8
         self.layers = nn.ParameterDict()
-        for name, (shape, f32) in param_shapes(config).items():
-            dt = torch.float32 if f32 else config.dtype
+        for name, (shape, dt) in param_shapes(config, int8).items():
             p = nn.Parameter(torch.empty(shape, dtype=dt, device=device), requires_grad=False)
             if name.startswith("layers."):
                 self.layers[name[len("layers."):]] = p
             else:
                 self.register_parameter(name, p)
+        self._layer_mats = INT8_MATS if int8 else ()
+        self._layer_plain = [k for k in self.layers
+                             if not (int8 and k[:-2] in INT8_MATS)]
 
-    def layer(self, i: int) -> Dict[str, torch.Tensor]:
-        """One layer's tensors (leading axis removed): views, no copies."""
-        return {k: v[i] for k, v in self.layers.items()}
+    def weight(self, name: str) -> Weight:
+        """``embed`` or ``lm_head``: a tensor, or an :class:`Int8Weight`."""
+        if self.int8:
+            return Int8Weight(getattr(self, f"{name}_q"), getattr(self, f"{name}_s"))
+        return getattr(self, name)
+
+    def layer(self, i: int) -> Dict[str, Weight]:
+        """One layer's tensors (leading axis removed): views, no copies;
+        an int8 matrix is an :class:`Int8Weight` of views."""
+        lp: Dict[str, Weight] = {k: self.layers[k][i] for k in self._layer_plain}
+        for k in self._layer_mats:
+            lp[k] = Int8Weight(self.layers[f"{k}_q"][i], self.layers[f"{k}_s"][i])
+        return lp
 
 
 def init_params(config: LlamaConfig, seed: int = 0, device="cpu") -> LlamaParams:
@@ -164,7 +214,55 @@ def make_kv_cache(
     }
 
 
+def _quantize(w: torch.Tensor, contract_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absmax/127 int8 along ``contract_dim``: (q in w's layout, s)."""
+    wf = w.float()
+    s = (wf.abs().amax(dim=contract_dim) / 127.0).clamp(min=1e-12)
+    q = torch.round(wf / s.unsqueeze(contract_dim))  # half to even, as jnp.round
+    return q.clamp(-127, 127).to(torch.int8), s
+
+
+def quantize_params_int8(params: LlamaParams, config: LlamaConfig) -> LlamaParams:
+    """Every dense matrix to int8 with per-output-channel absmax/127 scales
+    (``max(absmax / 127, 1e-12)``, ``q = clip(round(w / s), -127, 127)``),
+    the embedding per row; norms and biases are shared with ``params``.
+    The JAX ``quantize_params_int8`` in the port's ``[out, in]`` layout.
+    Works one layer at a time on the params' device."""
+    if params.int8:
+        raise ValueError("params are already quantized")
+    dev = params.final_norm.device
+    out = LlamaParams(config, dev, int8=True)
+    with torch.no_grad():
+        out.final_norm = params.final_norm
+        for k, v in params.layers.items():
+            if k not in INT8_MATS:
+                out.layers[k] = v
+        q, s = _quantize(params.embed, 1)
+        out.embed_q.copy_(q)
+        out.embed_s.copy_(s)
+        if not config.tie_embeddings:
+            q, s = _quantize(params.lm_head, 0)
+            out.lm_head_q.copy_(q.T)
+            out.lm_head_s.copy_(s)
+        del q, s
+        for name in INT8_MATS:
+            for i in range(config.num_layers):
+                q, s = _quantize(params.layers[name][i], 0)
+                out.layers[f"{name}_q"][i].copy_(q.T)
+                out.layers[f"{name}_s"][i].copy_(s)
+    return out
+
+
 # -- math --------------------------------------------------------------------
+
+def matw(x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """``x @ w`` for a plain ``[in, out]`` matrix; for an
+    :class:`Int8Weight` the W8A16 product in x's dtype (the JAX ``matw``:
+    the product rounded to x's dtype, times the fp32 scales, rounded
+    again), through the int8 kernel on the card."""
+    if isinstance(w, Int8Weight):
+        return int8_weight_matmul(x.contiguous(), w.q, w.s)
+    return x @ w
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
@@ -185,7 +283,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def embed_lookup(params: LlamaParams, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens.clamp(min=0).long()]
+    """Embedding-table gather; an int8 table dequantizes its rows (fp32
+    product, then the config dtype)."""
+    rows = tokens.clamp(min=0).long()
+    e = params.weight("embed")
+    if isinstance(e, Int8Weight):
+        return (e.q[rows].float() * e.s[rows][..., None]).to(params.config.dtype)
+    return e[rows]
 
 
 def project_qkv(
@@ -195,7 +299,7 @@ def project_qkv(
     """Pre-norm, Q/K/V projections (+ qwen2 biases), head reshape, rope."""
     b, t = positions.shape
     x = rms_norm(hidden, lp["attn_norm"], c.rms_norm_eps)
-    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    q, k, v = matw(x, lp["wq"]), matw(x, lp["wk"]), matw(x, lp["wv"])
     if c.qkv_bias:
         q = q + lp["bq"].to(q.dtype)
         k = k + lp["bk"].to(k.dtype)
@@ -211,13 +315,19 @@ def project_qkv(
 def mlp_block(lp: Dict[str, torch.Tensor], c: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
     """Post-norm dense silu-gated FFN plus residual."""
     x = rms_norm(hidden, lp["mlp_norm"], c.rms_norm_eps)
-    gate = torch.nn.functional.silu((x @ lp["w_gate"]).float()).to(x.dtype)
-    return hidden + (gate * (x @ lp["w_up"])) @ lp["w_down"]
+    gate = torch.nn.functional.silu(matw(x, lp["w_gate"]).float()).to(x.dtype)
+    return hidden + matw(gate * matw(x, lp["w_up"]), lp["w_down"])
 
 
 def lm_head(params: LlamaParams, config: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
-    """Project final hidden states to vocabulary logits (float32)."""
-    head = params.embed.T if config.tie_embeddings else params.lm_head
+    """Project final hidden states to vocabulary logits (float32). An int8
+    head (tied: the per-row embedding) is the W8A16 product with an fp32
+    epilogue: ``float(round(h @ q.T)) * s``."""
+    head = params.weight("embed" if config.tie_embeddings else "lm_head")
+    if isinstance(head, Int8Weight):
+        return int8_weight_matmul(h.contiguous(), head.q, head.s, out_dtype=torch.float32)
+    if config.tie_embeddings:
+        head = head.T
     return (h @ head).float()
 
 
@@ -247,7 +357,7 @@ def decoder_layer(
     q, k, v = project_qkv(lp, c, hidden, positions)
     write_kv_to_pages(k_page, v_page, k, v, positions, block_tables)
     attn = paged_attention(q, k_page, v_page, block_tables, positions)
-    hidden = hidden + attn.reshape(b, t, c.q_dim) @ lp["wo"]
+    hidden = hidden + matw(attn.reshape(b, t, c.q_dim), lp["wo"])
     return mlp_block(lp, c, hidden)
 
 
@@ -347,7 +457,7 @@ def forward_chunk(
             den = l.transpose(1, 2)[..., None]
             attn = torch.where(den > 0, num / den.clamp(min=1e-30), torch.zeros_like(num))
         write_kv_to_pages(k_page, v_page, k, v, positions, block_tables)
-        h = h + attn.to(h.dtype).reshape(b, t, c.q_dim) @ lp["wo"]
+        h = h + matw(attn.to(h.dtype).reshape(b, t, c.q_dim), lp["wo"])
         h = mlp_block(lp, c, h)
     h = rms_norm(h, params.final_norm, c.rms_norm_eps)
     if hidden_only:
@@ -429,7 +539,7 @@ def forward_window(
             c, q, kv_cache["k"][i], kv_cache["v"][i], block_tables, base,
             wk, wv, wslot, decode_attention,
         )
-        h = h + attn.reshape(b, 1, c.q_dim) @ lp["wo"]
+        h = h + matw(attn.reshape(b, 1, c.q_dim), lp["wo"])
         h = mlp_block(lp, c, h)
     h = rms_norm(h, params.final_norm, c.rms_norm_eps)
     return lm_head(params, c, h)[:, 0], window_k, window_v

@@ -1,4 +1,4 @@
-"""Paged flash-decode attention: the CUDA kernels' wrapper, build and plain versions.
+"""Paged flash-decode attention: the CUDA kernels' wrapper and plain versions.
 
 ``paged_decode_attention`` keeps the signature and layout of the JAX package's
 Pallas kernels (``dynamo_tpu/ops/pallas/paged_attention.py``:
@@ -14,31 +14,22 @@ The split count is planned on the host from shapes alone
 (:func:`plan_splits`): the wrapper never reads ``lengths``, so it never
 waits for the card and a CUDA graph can capture it.
 
-The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
-``build/torch_kernels/`` under the repository root (a name keyed by the
-source's hash, so an edited source never loads a stale library) and bound
-with ``ctypes``; they launch on PyTorch's current stream and never
-synchronise.
+The kernels are built at first use with ``nvcc`` for ``sm_90a``
+(``ops/build.py``) and bound with ``ctypes``; they launch on PyTorch's
+current stream and never synchronise.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from functools import lru_cache
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+from .build import KernelLibrary
+
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LOG2E = 1.4426950408889634
@@ -47,8 +38,6 @@ TILE_KEYS = {torch.float32: 32, torch.bfloat16: 64}
 BLOCKS_PER_SM = 4  # the planner's target of split-kernel blocks per SM
 MIN_SPLIT_TILES = 2  # tiles of the longest context per split, at the least
 
-_lib = None
-_lib_lock = threading.Lock()
 _Launched = ctypes.c_int * 3  # the C entry's report: split, merge launches; splits
 
 # Kernels launched on the card by the wrapper, by __global__ name, as the C
@@ -66,57 +55,15 @@ def reset_launch_counts() -> None:
     splits_launched.clear()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the paged decode kernel cannot be built")
+def _bind(lib) -> None:
+    fn = lib.paged_decode_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+    ]
+    fn.restype = ctypes.c_int
 
 
-def build(verbose: bool = False) -> dict:
-    """Compile the kernel library (if not built yet) and load it.
-
-    Returns ``{"path", "seconds", "log"}``: the library, the compile time
-    (0 when an up-to-date library was found) and ``-Xptxas -v``'s report
-    of registers and spills, kept beside the library when it was built."""
-    global _lib
-    with _lib_lock:
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:12]
-        out = BUILD_DIR / f"libpaged_attention_{tag}.so"
-        log_path = out.with_suffix(".ptxas.txt")
-        t0 = time.perf_counter()
-        if out.exists():
-            log = log_path.read_text() if log_path.exists() else ""
-        else:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                "-o", str(tmp), str(_SRC),
-            ]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-            log_path.write_text(log)
-            os.replace(tmp, out)
-            if verbose:
-                print(log)
-        seconds = time.perf_counter() - t0
-        if _lib is None:
-            lib = ctypes.CDLL(str(out))
-            fn = lib.paged_decode_attention_launch
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return {"path": str(out), "seconds": seconds, "log": log}
+LIBRARY = KernelLibrary("paged_attention", _bind)
 
 
 def _check(q, k_cache, v_cache, block_tables, lengths) -> None:
@@ -196,8 +143,7 @@ def paged_decode_attention(
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {dev}")
     _check(q, k_cache, v_cache, block_tables, lengths)
-    if _lib is None:
-        build()
+    lib = LIBRARY.load()
     s, h, d = q.shape
     _, bs, kvh, _ = k_cache.shape
     mb = block_tables.shape[1]
@@ -217,7 +163,7 @@ def paged_decode_attention(
     # a Stream object once per layer per decode step)
     stream = torch._C._cuda_getCurrentRawStream(index)
     launched = _Launched()
-    err = _lib.paged_decode_attention_launch(
+    err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
         m_ptr, l_ptr, l_ptr + s * h * 4,

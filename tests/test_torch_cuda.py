@@ -154,3 +154,136 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         paged_decode_attention(q[:, :, :8].contiguous(), k[..., :8].contiguous(),
                                v[..., :8].contiguous(), t, n)  # D=8 has no kernel
+
+
+# -- int8_weight_matmul ----------------------------------------------------------
+
+from dynamo_tpu_torch.models.llama import LLAMA_PRESETS, Int8Weight, LlamaParams, lm_head  # noqa: E402
+from dynamo_tpu_torch.ops import int8_matmul  # noqa: E402
+from dynamo_tpu_torch.ops.build import KernelLibrary  # noqa: E402
+from dynamo_tpu_torch.ops.int8_matmul import (  # noqa: E402
+    int8_weight_matmul,
+    int8_weight_matmul_plain,
+)
+
+
+def _int8_shapes():
+    """(K, N) of every projection of the llama-family presets, and their LM
+    heads (E -> V; the tied head is the same [V, E] weight)."""
+    shapes = set()
+    for name, c in LLAMA_PRESETS.items():
+        if name == "tiny":
+            continue
+        E, F = c.hidden_size, c.intermediate_size
+        shapes |= {(E, c.q_dim), (E, c.kv_dim), (c.q_dim, E), (E, F), (F, E),
+                   (E, c.vocab_size)}
+    return sorted(shapes)
+
+
+INT8_M = [1, 2, 8, 9, 16, 33, 1024]
+# (x dtype, out dtype) and the tolerance on max|Δ| / max|ref|: bf16 outputs
+# may differ by one bf16 ulp where the two sum in other orders
+INT8_DTYPES = [
+    (torch.bfloat16, torch.bfloat16, 1e-2),
+    (torch.bfloat16, torch.float32, 1e-2),
+    (torch.float32, torch.float32, 1e-5),
+    (torch.float32, torch.bfloat16, 1e-2),
+]
+_weights = {}
+
+
+def _int8_weight(k, n):
+    if (k, n) not in _weights:
+        gen = torch.Generator(device="cuda").manual_seed(k * 7 + n)
+        q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand(n, generator=gen, device="cuda") * 1e-2 + 1e-4
+        _weights.clear()  # keep one weight on the card at a time
+        _weights[(k, n)] = (q, s)
+    return _weights[(k, n)]
+
+
+def _check_int8(x, q, s, out_dtype, tol):
+    before = int8_weight_matmul.launches
+    got = int8_weight_matmul(x, q, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert int8_weight_matmul.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == x.shape[:-1] + (q.shape[0],)
+    ref = int8_weight_matmul_plain(x, q, s, out_dtype=out_dtype).float()
+    assert torch.isfinite(got.float()).all()
+    rel = (got.float() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+    assert rel <= tol, rel
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype,tol", INT8_DTYPES,
+                         ids=["bf16-bf16", "bf16-fp32", "fp32-fp32", "fp32-bf16"])
+@pytest.mark.parametrize("M", INT8_M)
+@pytest.mark.parametrize("K,N", _int8_shapes())
+def test_int8_kernel_matches_plain(cuda, K, N, M, x_dtype, out_dtype, tol):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, s = _int8_weight(K, N)
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
+    _check_int8(x, q, s, out_dtype, tol)
+
+
+def test_int8_kernel_leading_dims_and_layer_views(cuda):
+    # [B, T, K] activations and a layer's view of a stacked [L, N, K] weight
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randint(-127, 128, (3, 1024, 4096), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(3, 1024, generator=gen, device="cuda")
+    x = torch.randn((2, 5, 4096), generator=gen, device="cuda").bfloat16()
+    _check_int8(x, q[2], s[2], torch.bfloat16, 1e-2)
+
+
+def test_int8_tied_head(cuda):
+    """lm_head of a tied int8 model: the per-row embedding [V, E] through the
+    kernel with an fp32 epilogue (llama3.2-1b widths)."""
+    c = LLAMA_PRESETS["llama3.2-1b"]
+    params = LlamaParams(c, torch.device("cuda"), int8=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        params.embed_q.copy_(torch.randint(-127, 128, params.embed_q.shape, generator=gen,
+                                           device="cuda", dtype=torch.int8))
+        params.embed_s.copy_(torch.rand(c.vocab_size, generator=gen, device="cuda") * 1e-2)
+    h = torch.randn((8, c.hidden_size), generator=gen, device="cuda").bfloat16()
+    before = int8_weight_matmul.launches
+    got = lm_head(params, c, h)
+    torch.cuda.synchronize()
+    assert int8_weight_matmul.launches == before + 1 and got.dtype == torch.float32
+    w = params.weight("embed")
+    assert isinstance(w, Int8Weight)
+    ref = int8_weight_matmul_plain(h, w.q, w.s, out_dtype=torch.float32)
+    rel = (got - ref).abs().max().item() / ref.abs().max().item()
+    assert rel <= 1e-2, rel
+
+
+def test_int8_kernel_refuses_what_it_does_not_take(cuda):
+    before = int8_weight_matmul.launches
+    x = torch.randn((8, 128), device="cuda").bfloat16()
+    s = torch.ones(24, device="cuda")
+    with pytest.raises(ValueError, match="tiles"):  # N = 24 is not a multiple of 16
+        int8_weight_matmul(x, torch.zeros((24, 128), dtype=torch.int8, device="cuda"), s)
+    with pytest.raises(ValueError, match="tiles"):  # K = 96 is not a multiple of 64
+        int8_weight_matmul(x[:, :96].contiguous(),
+                           torch.zeros((32, 96), dtype=torch.int8, device="cuda"), s[:16].repeat(2))
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_weight_matmul(x, torch.zeros((128, 32), dtype=torch.int8, device="cuda").T,
+                           torch.ones(32, device="cuda"))
+    with pytest.raises(ValueError):
+        int8_weight_matmul(x.half(), torch.zeros((32, 128), dtype=torch.int8, device="cuda"),
+                           torch.ones(32, device="cuda"))
+    assert int8_weight_matmul.launches == before
+
+
+def test_int8_build_failure_raises_and_runs_no_plain_version(cuda, tmp_path, monkeypatch):
+    broken = tmp_path / "broken.cu"
+    broken.write_text('extern "C" int int8_weight_matmul_launch( { not C++ }\n')
+    monkeypatch.setattr(int8_matmul, "LIBRARY",
+                        KernelLibrary("int8_matmul_broken", int8_matmul._bind, source=broken))
+    before = int8_weight_matmul.launches
+    x = torch.randn((8, 128), device="cuda").bfloat16()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        int8_weight_matmul(x, torch.zeros((32, 128), dtype=torch.int8, device="cuda"),
+                           torch.ones(32, device="cuda"))
+    assert int8_weight_matmul.launches == before

@@ -2,7 +2,9 @@
 ``chip_ab.py`` import neither JAX nor the JAX package, their imports are the standard
 library, torch, numpy and jinja2 only, and the launcher builds the engine
 and answers a request with JAX, the JAX package and the JAX path's other
-dependencies made unimportable."""
+dependencies (the ``safetensors`` package among them) made unimportable:
+from a directory without weights, a directory of ``*.safetensors`` files
+and a ``.gguf`` file."""
 
 import ast
 import asyncio
@@ -53,7 +55,43 @@ def test_port_imports_only_stdlib_torch_numpy_jinja2():
     assert not bad, bad
 
 
-def test_launcher_serves_with_jax_path_dependencies_blocked(model_dir):
+# the modules of the weight path from disk to the card
+WEIGHT_PATH_MODULES = ["dynamo_tpu_torch.engine_torch.safetensors", "dynamo_tpu_torch.llm.gguf",
+                       "dynamo_tpu_torch.ops.int8_matmul"]
+
+
+@pytest.mark.parametrize("module", WEIGHT_PATH_MODULES)
+def test_weight_path_module_imports_only_the_allowed(module):
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    assert path in _port_files()
+    tops = {m.split(".")[0] for m in _absolute_imports(path)}
+    assert not tops & set(BLOCKED), tops & set(BLOCKED)
+    assert tops <= set(sys.stdlib_module_names) | ALLOWED_THIRD_PARTY | {"dynamo_tpu_torch"}
+
+
+def test_weight_path_modules_load_with_jax_path_dependencies_blocked():
+    script = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import importlib
+        for mod in {WEIGHT_PATH_MODULES!r}:
+            importlib.import_module(mod)
+        loaded = {{m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}}
+        assert not loaded & set({BLOCKED!r}), loaded & set({BLOCKED!r})
+        print("IMPORTED")
+    """)
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "IMPORTED" in res.stdout
+
+
+def _serve_blocked(model_path, embed_row=None):
+    """Build the launcher's engine on ``model_path`` in a fresh interpreter
+    with the BLOCKED modules unimportable, answer one chat request, and (when
+    given) check row 1 of the embedding against ``embed_row``."""
     script = textwrap.dedent(f"""
         import sys
         for name in {BLOCKED!r}:
@@ -63,8 +101,10 @@ def test_launcher_serves_with_jax_path_dependencies_blocked(model_dir):
         from dynamo_tpu_torch.cli.run import build_engine, build_parser
         from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
         from dynamo_tpu_torch.runtime.engine import Context
-        flags = build_parser().parse_args(["--model-path", {model_dir!r}, "--device", "cpu"])
+        flags = build_parser().parse_args(["--model-path", {model_path!r}, "--device", "cpu"])
         chat, comp, name, core = build_engine("torch", flags)
+        if {embed_row!r} is not None:
+            assert core.params.embed[1, :4].float().tolist() == {embed_row!r}
 
         async def go():
             req = ChatCompletionRequest.from_dict({{"model": name, "max_tokens": 4,
@@ -82,6 +122,28 @@ def test_launcher_serves_with_jax_path_dependencies_blocked(model_dir):
                          timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "SERVED" in res.stdout
+
+
+def test_launcher_serves_with_jax_path_dependencies_blocked(model_dir):
+    _serve_blocked(model_dir)
+
+
+@pytest.mark.parametrize("kind", ["safetensors", "gguf"])
+def test_launcher_serves_weight_files_with_jax_path_dependencies_blocked(kind, tmp_path):
+    from tests.fixtures import build_model_dir
+    from tests.torch_checkpoints import hf_tensors, write_safetensors, write_tiny_gguf
+    from dynamo_tpu_torch.engine_torch.weights import config_from_card
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    path = build_model_dir(str(tmp_path / "tiny"))
+    cfg = config_from_card(ModelDeploymentCard.from_local_path(path))
+    tensors = hf_tensors(cfg, 5)
+    if kind == "safetensors":
+        write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    else:
+        path = write_tiny_gguf(str(tmp_path / "tiny.gguf"), cfg, tensors)
+    row = torch.from_numpy(tensors["model.embed_tokens.weight"][1, :4]).bfloat16()
+    _serve_blocked(path, row.float().tolist())
 
 
 def test_launcher_refuses_cpu_fallback_without_a_card(model_dir):
