@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time the paged decode kernel of several checkouts in turns, on one card.
+"""Time the kernels of several checkouts in turns, on one card.
 
-    python3 chip_ab.py ROOT [ROOT ...]
+    python3 chip_ab.py [--kernels paged,int8] ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
 For each ROOT in the order given, a fresh process imports that checkout's
-``dynamo_tpu_torch``, builds its kernel into the checkout's own ``build/``,
-and times ``paged_decode_attention`` in every regime of ``chip_smoke.py``
-(bf16, the wrapper's own split plan) the way ``chip_smoke.py`` times it:
-runs of many calls between one event pair, cycling through input sets whose
-live K/V exceeds L2, and the same run replayed from a CUDA graph. Give the
-roots as A B B A to see the spread between turns. Prints one line per run
-and regime, then one JSON line with every number.
+``dynamo_tpu_torch``, builds its kernels into the checkout's own ``build/``,
+and times them the way ``chip_smoke.py`` does: runs of many calls between
+one event pair, cycling through inputs larger than L2, and the same run
+replayed from a CUDA graph.
+
+- ``paged``: ``paged_decode_attention`` in every regime of
+  ``chip_smoke.py`` (bf16, the wrapper's own split plan);
+- ``int8``: ``int8_weight_matmul`` at each llama3-8b shape of
+  ``chip_smoke.py``'s phase 4 at M = 1, 8 and 1024 (bf16 activations, the
+  wrapper's own plan).
+
+Both by default. Give the roots as A B B A to see the spread between turns.
+Prints one line per run and case, then one JSON line with every number.
 """
 
 from __future__ import annotations
@@ -26,10 +32,14 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def worker(root: str) -> dict:
+INT8_M = (1, 8, 1024)
+
+
+def worker(root: str, kernels: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
+    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul
     from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
 
     # this checkout's chip_smoke.py (regimes, inputs, timing), not the root's
@@ -40,6 +50,20 @@ def worker(root: str) -> dict:
     card = cs.phase_device()
     rate = cs.hbm_rate(card)
     out = {"root": root, "card": card, "regimes": {}}
+    if "int8" in kernels:
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
+        for name, K, N, o, _ in cs.INT8_SHAPES:
+            for M in INT8_M:
+                x, qs, ss = cs.int8_inputs(torch, gen, K, N, M, torch.bfloat16)
+                ms, graph_ms = cs.time_int8(torch, int8_weight_matmul, x, qs, ss, dt[o])
+                b_ms = cs.int8_bound(M, N, K, 4 if o == "fp32" else 2, rate)[0]
+                out["regimes"][f"int8 {name}, M={M}"] = {"ms": ms, "graph_ms": graph_ms,
+                                                         "bound_ms": b_ms}
+                del x, qs, ss
+                torch.cuda.empty_cache()
+    if "paged" not in kernels:
+        return out
     for ri, (name, S, H, KVH, D, bs, max_len) in enumerate(cs.REGIMES):
         case = cs.make_case(torch, S, H, KVH, D, bs, max_len, torch.bfloat16, 100 + ri)
         lens = case[4].cpu().numpy()
@@ -57,10 +81,13 @@ def worker(root: str) -> dict:
 
 
 def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] == "--worker":
-        print(json.dumps(worker(argv[1])))
+    if len(argv) >= 3 and argv[0] == "--worker":
+        print(json.dumps(worker(argv[1], argv[2])))
         return 0
-    if not argv:
+    kernels = "paged,int8"
+    if len(argv) >= 2 and argv[0] == "--kernels":
+        kernels, argv = argv[1], argv[2:]
+    if not argv or not set(kernels.split(",")) <= {"paged", "int8"}:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
@@ -68,8 +95,8 @@ def main(argv) -> int:
         if not os.path.isdir(os.path.join(root, "dynamo_tpu_torch")):
             print(f"chip_ab: {root} holds no dynamo_tpu_torch/", file=sys.stderr)
             return 2
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
-                             capture_output=True, text=True)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
+                              kernels], capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout[-3000:], res.stderr[-3000:], file=sys.stderr)
             print(f"chip_ab: the run of {root} failed ({res.returncode})", file=sys.stderr)

@@ -14,9 +14,12 @@ non-zero:
    runs of many calls cycling through inputs larger than L2; at two shapes
    it also times the kernel at split counts around the planner's;
 4. int8 kernel: holds ``int8_weight_matmul`` against its plain version at
-   the llama3-8b projection shapes (M = 1 and 8, and M = 1024 for an
-   ``"int8-all"`` prefill chunk) and times it beside the plain version and
-   bf16 ``torch.matmul`` on the same activations;
+   the llama3-8b projection shapes (M = 1 and 8, and M = 64, 256 and 1024
+   = an ``"int8-all"`` prefill chunk for 4096->14336), prints each shape's
+   plan (kernel, block, splits) and checks that the call launched it, times
+   it eager and graph-replayed beside the plain version and bf16
+   ``torch.matmul`` on the same activations (eager and graph-replayed), and
+   times both kernels forced on either side of the planner's threshold;
 5. load: writes a llama3-8b-width checkpoint cut to 2 layers (bf16, HF
    names, two ``*.safetensors`` files), serves it through
    ``cli.run.build_engine``, checks every parameter on the card bit for bit
@@ -34,8 +37,9 @@ non-zero:
    checks 225 int8 launches per decode step (7 per layer, 32 layers, and the
    LM head) and the paged kernels' launches, and profiles it alike;
 9. int8 parity: one full-width ``forward_window`` step of the int8 tree,
-   and one ``forward_chunk`` as the ``"int8-all"`` mode runs it, through the
-   int8 kernel and through its plain version;
+   and one ``forward_chunk`` as the ``"int8-all"`` mode runs it (225
+   products of 1024 rows, all on the tile kernel), through the int8
+   kernels and through their plain version;
 10. prints the kernels' JSON line and, last, the device JSON line.
 Each phase prints its seconds.
 """
@@ -166,9 +170,13 @@ def _kernel_label(ln: str) -> str:
     if m:
         return (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}"
                 + (f", D={m.group(3)}>" if m.group(3) else ">"))
-    m = re.search(r"(w8a16_kernel)ILi(\d+)ELi(\d+)E(13__nv_bfloat16|f)E", ln)
+    m = re.search(r"(w8a16_splitk_kernel)ILi(\d+)ELi(\d+)E(13__nv_bfloat16|f)E", ln)
     if m:
-        return f"{m.group(1)}<MT={m.group(2)}, U={m.group(3)}, out={'fp32' if m.group(4) == 'f' else 'bf16'}>"
+        return (f"{m.group(1)}<rows={16 * int(m.group(2))}, MT={m.group(3)}, "
+                f"out={'fp32' if m.group(4) == 'f' else 'bf16'}>")
+    m = re.search(r"(w8a16_tile_kernel)ILi(\d+)E(13__nv_bfloat16|f)E", ln)
+    if m:
+        return f"{m.group(1)}<BN={m.group(2)}, out={'fp32' if m.group(3) == 'f' else 'bf16'}>"
     m = re.search(r"(w8f32_kernel)I(13__nv_bfloat16|f)E", ln)
     if m:
         return f"{m.group(1)}<out={'fp32' if m.group(2) == 'f' else 'bf16'}>"
@@ -189,7 +197,9 @@ def phase_build() -> None:
         # spills, then its registers
         name, spills = "?", ""
         for ln in info["log"].splitlines():
-            if "Compiling entry function" in ln:
+            if "warning" in ln:
+                print(f"  ptxas: {ln.strip()}")
+            elif "Compiling entry function" in ln:
                 name = _kernel_label(ln)
             elif "spill" in ln:
                 spills = ln.strip()
@@ -447,6 +457,12 @@ INT8_SHAPES = [
     ("lm_head: 4096->128256", 4096, 128256, "fp32", 1),
 ]
 INT8_LAUNCHES_PER_STEP = sum(n for *_, n in INT8_SHAPES)  # 7 per layer x 32 + 1 = 225
+INT8_DECODE_M = (1, 8)  # a lone user, the slice's 8 lanes
+# prefill rows of one shape: up to an "int8-all" chunk of 8 lanes x 128 tokens
+INT8_PREFILL = ("w_gate, w_up: 4096->14336", 4096, 14336, (64, 256, 1024))
+# both kernels forced at these M, to place the planner's choice between them
+INT8_SWEEP_SHAPES = ((4096, 14336), (4096, 4096))
+INT8_SWEEP_M = (32, 64, 128, 256, 512)
 # (x dtype, max|d| / max|ref| allowed): a bf16 product may differ by one
 # bf16 ulp of an element where kernel and plain version sum in other orders;
 # with fp32 activations only the order of the fp32 sums differs
@@ -461,80 +477,130 @@ def int8_bound(M, N, K, out_bytes, rate):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def plan_label(plan) -> str:
+    return (f"{plan.path} kernel, {plan.rows} weight rows x {plan.lanes} lanes per block, "
+            f"{plan.splits} splits, {plan.blocks} blocks")
+
+
+def int8_inputs(torch, gen, K, N, M, xdt):
+    """x [M, K] and as many int8 weights [N, K] with scales as make 120 MB
+    or more (cycled through, they are not in L2)."""
+    n_sets = min(MAX_SETS, max(1, -(-int(COLD_BYTES) // (N * K))))
+    qs = [torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+          for _ in range(n_sets)]
+    ss = [torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4 for _ in range(n_sets)]
+    x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
+    return x, qs, ss
+
+
+def time_int8(torch, fn, x, qs, ss, out_dtype, **kw):
+    """(eager ms, graph-replayed ms) of ``fn`` cycling through the weights."""
+    calls = [lambda q=q, s_=s_: fn(x, q, s_, out_dtype=out_dtype, **kw) for q, s_ in zip(qs, ss)]
+    return time_many(torch, calls), time_graph(torch, calls)
+
+
 def phase_int8_kernel(card: str) -> dict:
     import torch
 
-    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul, int8_weight_matmul_plain
+    from dynamo_tpu_torch.ops.int8_matmul import (
+        int8_weight_matmul,
+        int8_weight_matmul_plain,
+        plan_int8,
+    )
 
     rate = hbm_rate(card)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(8)
-    cases = [(name, K, N, out, M, "bf16") for name, K, N, out, _ in INT8_SHAPES for M in (1, 8)]
-    cases += [("w_gate, w_up: 4096->14336 (int8-all prefill chunk)", 4096, 14336, "bf16", 1024,
-               "bf16"),
-              ("wq, wo: 4096->4096 (fp32 activations)", 4096, 4096, "fp32", 8, "fp32")]
+    cases = [(name, K, N, out, M, "bf16") for name, K, N, out, _ in INT8_SHAPES
+             for M in INT8_DECODE_M]
+    cases += [(f"{INT8_PREFILL[0]} ({'int8-all prefill chunk' if M == 1024 else 'prefill'})",
+               INT8_PREFILL[1], INT8_PREFILL[2], "bf16", M, "bf16") for M in INT8_PREFILL[3]]
+    cases += [("wq, wo: 4096->4096 (fp32 activations)", 4096, 4096, "fp32", 8, "fp32")]
     dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
     result = []
     for name, K, N, out, M, xdt in cases:
         out_dtype = dt[out]
-        n_sets = min(MAX_SETS, max(1, -(-int(COLD_BYTES) // (N * K))))
-        qs = [torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
-              for _ in range(n_sets)]
-        ss = [torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4 for _ in range(n_sets)]
-        x = torch.randn((M, K), generator=gen, device="cuda").to(dt[xdt])
+        x, qs, ss = int8_inputs(torch, gen, K, N, M, dt[xdt])
+        plan = plan_int8(M, N, K, sms)
         before = int8_weight_matmul.launches
         got = int8_weight_matmul(x, qs[0], ss[0], out_dtype=out_dtype)
         torch.cuda.synchronize()
         if int8_weight_matmul.launches != before + 1:
             fail(f"int8_weight_matmul [{name}, M={M}] did not count its launch")
+        kernel, blocks, splits = int8_weight_matmul.last_launch
         ref = int8_weight_matmul_plain(x, qs[0], ss[0], out_dtype=out_dtype).float()
         err = (got.float() - ref).abs().max().item()
         rel = err / max(ref.abs().max().item(), 1e-30)
         ok = bool(torch.isfinite(got.float()).all()) and rel <= INT8_TOL[xdt]
-        print(f"int8 kernel vs plain [{name}, M={M}, x {xdt}, out {out}]: max|d| {err:.3e}, "
-              f"max|d|/max|ref| {rel:.3e} (limit {INT8_TOL[xdt]:g}) {'ok' if ok else 'MISMATCH'}")
+        print(f"int8 kernel vs plain [{name}, M={M}, x {xdt}, out {out}; {kernel}, {blocks} "
+              f"blocks, {splits} splits]: max|d| {err:.3e}, max|d|/max|ref| {rel:.3e} (limit "
+              f"{INT8_TOL[xdt]:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"int8_weight_matmul disagrees with its plain version: {name} M={M}")
-        row = dict(name=name, M=M, K=K, N=N, x=xdt, out=out, max_abs_err=err, rel_err=rel)
+        if xdt == "bf16" and (kernel != f"w8a16_{plan.path}_kernel"
+                              or (blocks, splits) != (plan.blocks, plan.splits)):
+            fail(f"int8_weight_matmul [{name}, M={M}] launched {kernel} ({blocks} blocks, "
+                 f"{splits} splits), not its plan: {plan}")
+        row = dict(name=name, M=M, K=K, N=N, x=xdt, out=out, max_abs_err=err, rel_err=rel,
+                   kernel=kernel, blocks=blocks, splits=splits)
         if xdt == "bf16":
+            print(f"  plan [{name}, M={M}]: {plan_label(plan)}")
             b_ms, b_by = int8_bound(M, N, K, 4 if out == "fp32" else 2, rate)
-            kern = [lambda q=q, s_=s_: int8_weight_matmul(x, q, s_, out_dtype=out_dtype)
-                    for q, s_ in zip(qs, ss)]
-            ms = time_many(torch, kern)
-            graph_ms = time_graph(torch, kern)
+            ms, graph_ms = time_int8(torch, int8_weight_matmul, x, qs, ss, out_dtype)
             plain_ms = time_many(torch, [lambda: int8_weight_matmul_plain(
                 x, qs[0], ss[0], out_dtype=out_dtype)], calls=8 if N * K > 1e8 else 30, reps=1)
-            del kern, qs, ss
+            cold = len(qs) * N * K > 100e6
+            del qs, ss
             # the library yardstick: the bf16 engine's product, x @ w with w
             # [K, N] bf16, cycled through as many bytes
             n_lib = min(MAX_SETS, max(1, -(-int(COLD_BYTES) // (2 * N * K))))
             ws = [torch.randn((K, N), generator=gen, device="cuda").bfloat16()
                   for _ in range(n_lib)]
-            lib_ms = time_many(torch, [lambda w=w: torch.matmul(x, w) for w in ws])
-            del ws
+            lib = [lambda w=w: torch.matmul(x, w) for w in ws]
+            lib_ms, lib_graph_ms = time_many(torch, lib), time_graph(torch, lib)
+            del ws, lib
             torch.cuda.empty_cache()
             print(f"  time [{name}, M={M}]: kernel {ms:.4f} ms ({b_ms / ms:.1%} of the "
                   f"{b_by} bound), graph-replayed {graph_ms:.4f} ms ({b_ms / graph_ms:.1%}), "
-                  f"bound {b_ms:.4f} ms, plain {plain_ms:.4f} ms, library (bf16 torch.matmul, "
-                  f"[{K}, {N}] bf16 weight) {lib_ms:.4f} ms; {n_sets} weight sets "
-                  f"({n_sets * N * K / 1e6:.0f} MB int8)")
+                  f"eager - graph {1e3 * (ms - graph_ms):.1f} us, bound {b_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library (bf16 torch.matmul, [{K}, {N}] bf16 weight) "
+                  f"{lib_ms:.4f} ms, graph-replayed {lib_graph_ms:.4f} ms")
             row.update(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
-                       cold_l2=n_sets * N * K > 100e6)
+                       library_graph_ms=lib_graph_ms, bound_ms=b_ms, bound_by=b_by,
+                       bound_share=b_ms / ms, bound_share_graph=b_ms / graph_ms, cold_l2=cold,
+                       plan=dataclasses.asdict(plan))
         result.append(row)
+        torch.cuda.empty_cache()
+    # both kernels forced on either side of the planner's threshold
+    sweep = []
+    for K, N in INT8_SWEEP_SHAPES:
+        for M in INT8_SWEEP_M:
+            x, qs, ss = int8_inputs(torch, gen, K, N, M, torch.bfloat16)
+            times = {path: time_int8(torch, int8_weight_matmul, x, qs, ss, torch.bfloat16,
+                                     plan=plan_int8(M, N, K, sms, path=path))[1]
+                     for path in ("splitk", "tile")}
+            del x, qs, ss
+            sweep.append(dict(K=K, N=N, M=M, **{f"{p}_graph_ms": t for p, t in times.items()}))
+            print(f"  kernels forced [{K}->{N}, M={M}, graph-replayed]: split-K "
+                  f"{times['splitk']:.4f} ms, tile {times['tile']:.4f} ms (the plan takes "
+                  f"{plan_int8(M, N, K, sms).path})")
+    torch.cuda.empty_cache()
     # one decode step at M = 8: 225 launches over the five shapes
-    per_step = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")
+    per_step = {key: 0.0 for key in keys}
     for name, K, N, out, count in INT8_SHAPES:
         (row,) = [r for r in result if r["name"] == name and r["M"] == 8 and r["x"] == "bf16"]
-        for key in per_step:
+        for key in keys:
             per_step[key] += count * row[key]
     per_step["bound_share"] = per_step["bound_ms"] / per_step["ms"]
     per_step["bound_share_graph"] = per_step["bound_ms"] / per_step["graph_ms"]
     print(f"int8 decode step (M=8, {INT8_LAUNCHES_PER_STEP} launches): kernel "
           f"{per_step['ms']:.3f} ms ({per_step['bound_share']:.1%} of the bound), "
           f"graph-replayed {per_step['graph_ms']:.3f} ms ({per_step['bound_share_graph']:.1%}), "
-          f"bound {per_step['bound_ms']:.3f} ms, bf16 torch.matmul {per_step['library_ms']:.3f} ms, "
-          f"plain {per_step['plain_ms']:.3f} ms, on {card}")
-    return {"cases": result, "per_step": per_step}
+          f"bound {per_step['bound_ms']:.3f} ms, bf16 torch.matmul {per_step['library_ms']:.3f} ms "
+          f"(graph-replayed {per_step['library_graph_ms']:.3f} ms), plain "
+          f"{per_step['plain_ms']:.3f} ms, on {card}")
+    return {"cases": result, "per_step": per_step, "sweep": sweep}
 
 
 # -- the HTTP pipeline (phases 5, 6 and 8) ---------------------------------------
@@ -599,7 +665,8 @@ def device_intervals_us(trace_path: str):
 # names of the port's kernels in a device trace, by wrapper
 TRACE_KERNELS = {"paged_decode_attention": ("paged_decode_split_kernel",
                                             "paged_decode_merge_kernel"),
-                 "int8_weight_matmul": ("w8a16_kernel", "w8f32_kernel")}
+                 "int8_weight_matmul": ("w8a16_tile_kernel", "w8a16_splitk_kernel",
+                                        "w8f32_kernel")}
 
 
 def warm_profiler() -> float:
@@ -787,6 +854,7 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
     """Answer N_REQUESTS concurrent streams through the HTTP pipeline with
     every launch count set to 0 just before and read just after, then
     profile a second wave."""
+    from dynamo_tpu_torch.ops import int8_matmul
     from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul
     from dynamo_tpu_torch.ops.paged_attention import (
         device_launches,
@@ -803,6 +871,7 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
         kernel_launches = dict(device_launches)
         splits = dict(splits_launched)
         int8_launches = int8_weight_matmul.launches
+        int8_kernels = {k: n for k, n in int8_matmul.device_launches.items() if n}
         steps = core.decode_steps_total - steps0
         ttfts = list(core.recent_ttft_s)[-N_REQUESTS:]
         profile = profile_decode(port, bodies, core)
@@ -815,7 +884,8 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
           f"launches " + ", ".join(f"{k} {n}" for k, n in kernel_launches.items())
           + f" ({per_call:.3f} per call); split counts launched {splits} (splits: calls); "
           f"int8_weight_matmul launches {int8_launches} "
-          f"({int8_launches / max(steps, 1):.1f} per decode step)")
+          f"({int8_launches / max(steps, 1):.1f} per decode step; device launches "
+          f"{int8_kernels})")
     if steps == 0 or launches < L * steps:
         fail(f"paged_decode_attention ran {launches} times, expected >= {L} x {steps}")
     for k, n in kernel_launches.items():
@@ -828,7 +898,8 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
           f"{decode_tok_s:.1f} tok/s over {N_REQUESTS} lanes, wall {wall:.2f} s, on {card}")
     return {"launches": launches, "kernel_launches": kernel_launches,
             "device_launches_per_call": per_call, "splits": splits,
-            "int8_launches": int8_launches, "decode_steps": steps,
+            "int8_launches": int8_launches, "int8_kernel_launches": int8_kernels,
+            "decode_steps": steps,
             "ttft_p50_ms": ttft_p50, "decode_tok_s": decode_tok_s, "profile": profile}
 
 
@@ -1078,6 +1149,10 @@ def phase_int8_serve(card: str, served: dict) -> dict:
     if out["int8_launches"] != want or want == 0:
         fail(f"int8_weight_matmul launched {out['int8_launches']} times on the main path, "
              f"expected {INT8_LAUNCHES_PER_STEP} x {out['decode_steps']} decode steps = {want}")
+    # decode runs 8 lanes: every product on the split-K kernel
+    if out["int8_kernel_launches"] != {"w8a16_splitk_kernel": want}:
+        fail(f"int8 decode device launches {out['int8_kernel_launches']}, expected "
+             f"w8a16_splitk_kernel {want}")
     out["core"] = core
     return out
 
@@ -1105,6 +1180,7 @@ def phase_int8_parity(core) -> dict:
     import torch
 
     from dynamo_tpu_torch.models.llama import forward_chunk, make_kv_cache
+    from dynamo_tpu_torch.ops.int8_matmul import device_launches
     from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
 
     cfg, qp = core.model_config, core.params_decode
@@ -1124,15 +1200,24 @@ def phase_int8_parity(core) -> dict:
     outs = []
     for ctx in (nullcontext(), plain_int8()):
         cache = make_kv_cache(cfg, tables.numel(), 16, device="cuda")
+        reset_all_counts()
         with torch.no_grad(), ctx:
             logits, _ = forward_chunk(qp, cfg, toks, pos, cache, tables, with_history=False)
         torch.cuda.synchronize()
+        if not outs:  # the kernel's run: every product is a 1024-row one, on the tile kernel
+            chunk_launches = dict(device_launches)
         outs.append(logits[:, -16:].float())
         del cache, logits
+    print("int8-all chunk: int8 device launches "
+          + ", ".join(f"{k} {n}" for k, n in chunk_launches.items())
+          + f" ({INT8_LAUNCHES_PER_STEP} products of 1024 rows: 7 per layer and the LM head)")
+    if chunk_launches != {"w8a16_tile_kernel": INT8_LAUNCHES_PER_STEP, "w8a16_splitk_kernel": 0,
+                          "w8f32_kernel": 0}:
+        fail(f"the int8-all chunk's products did not all run on the tile kernel: {chunk_launches}")
     chunk = _parity("int8-all chunk parity (forward_chunk of the int8 tree, 8 lanes x 128 "
                     "tokens, kernel vs plain int8 products; logits of the last 16 positions)",
                     outs[0], outs[1])
-    return {"window_ratio": window, "chunk_ratio": chunk}
+    return {"window_ratio": window, "chunk_ratio": chunk, "chunk_launches": chunk_launches}
 
 
 def main() -> int:
@@ -1177,6 +1262,7 @@ def main() -> int:
     main_regime = kern[REGIMES[0][0]]
     step = int8k["per_step"]
     decode_cases = [c for c in int8k["cases"] if c["M"] in (1, 8) and c["x"] == "bf16"]
+    (chunk_case,) = [c for c in int8k["cases"] if c["M"] == 1024]
     line = {"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1212,10 +1298,16 @@ def main() -> int:
         "bound_ms": step["bound_ms"],
         "bound_by": "bytes",
         "library_ms": step["library_ms"],
+        "library_graph_ms": step["library_graph_ms"],
         "bound_share": step["bound_share"],
         "launches_per_decode_step": INT8_LAUNCHES_PER_STEP,
         "decode_steps": int8s["decode_steps"],
+        # each kernel's launches: decode (phase 8) and the int8-all chunk (phase 9)
+        "device_launches": int8s["int8_kernel_launches"],
+        "device_launches_int8_all_chunk": int8p["chunk_launches"],
+        "prefill_chunk": chunk_case,
         "cases": int8k["cases"],
+        "kernel_sweep": int8k["sweep"],
     }], "serve": {"ttft_p50_ms": served["ttft_p50_ms"], "decode_tok_s": served["decode_tok_s"],
                   "profile": served["profile"], "parity_ratio": parity},
         "int8_serve": {"ttft_p50_ms": int8s["ttft_p50_ms"], "decode_tok_s": int8s["decode_tok_s"],

@@ -1,4 +1,4 @@
-"""Int8-weight x bf16-activation matmul (W8A16): the CUDA kernel's wrapper and plain version.
+"""Int8-weight x bf16-activation matmul (W8A16): the CUDA kernels' wrapper and plain versions.
 
 :func:`int8_weight_matmul` computes the weight-only int8 product of the JAX
 package's ``models/llama.py`` (``matw`` and the int8 branch of ``lm_head``):
@@ -9,33 +9,142 @@ package's ``models/llama.py`` (``matw`` and the int8 branch of ``lm_head``):
 with ``x`` [..., K], ``q`` [N, K] int8 (K contiguous: the port's layout,
 the transpose of the JAX ``[in, out]``), ``s`` [N] fp32 and ``out``
 [..., N] in x's dtype or fp32. On TPU XLA fuses the int8 convert into the
-dot; on the card it is the hand-written kernel in ``csrc/int8_matmul.cu``
-(built at first use, ``ops/build.py``). On a CUDA tensor the wrapper
-launches it or raises: a shape it does not tile raises, it never runs the
-plain version. On a CPU tensor it runs :func:`int8_weight_matmul_plain`.
+dot; on the card it is one of the hand-written kernels in
+``csrc/int8_matmul.cu`` (built at first use, ``ops/build.py``), chosen by
+:func:`plan_int8` from the shapes alone: a ``wgmma`` tile kernel for prefill
+chunks and a split-K kernel over a ``cp.async`` ring for decode. On a CUDA
+tensor the wrapper launches one of them or raises: a shape it does not tile
+raises, it never runs the plain version. On a CPU tensor it runs
+:func:`int8_weight_matmul_plain`. :func:`int8_weight_matmul_splitk_plain`
+is the split-K kernel's order of sums in PyTorch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from functools import lru_cache
+from typing import Dict, Optional
 
 import torch
 
 from .build import KernelLibrary
 
-N_TILE = 16  # weight rows per block (csrc: kRows)
+N_TILE = 16  # N must be a multiple of this (one mma's weight rows)
 K_TILE = 64  # K per chunk (csrc: kChunk)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the plan (mirrors csrc: kBM and the widths of the tile kernel, GeoB of the
+# split-K kernel). The wgmma tile kernel from TILE_MIN_M rows of x on, where
+# its grid keeps at least a quarter of the SMs busy (both kernels forced on
+# the card: PERF.md)
+TILE_MIN_M, TILE_MIN_SM_SHARE = 17, 0.25
+TILE_LANES = 128
+TILE_ROWS = (256, 224, 128)  # the tile kernel's widths (wgmma's N), widest first
+# the split-K kernel's weight rows per block (4 or 1 row groups of 16) and
+# the 64-wide chunks of K in each stage of its ring
+SPLITK_ROWS = {64: 4, 16: 8}
+SPLITK_MAX_LANES = 64  # 8 lane tiles of 8
+BLOCKS_PER_SM = 1  # the split-K grid's target: blocks per SM (a split sweep on the card)
+MIN_SPLIT_CHUNKS = 4  # 64-wide chunks of K per split, at the least
+MAX_SPLITS = 16  # the splits of a tile are one thread block cluster (csrc: kMaxSplits)
+RING, MAX_SMEM = 4, 227 * 1024  # the split-K ring's stages; a block's shared memory
+_PATHS = {"tile": 1, "splitk": 2}
+_KERNELS = {1: "w8a16_tile_kernel", 2: "w8a16_splitk_kernel", 3: "w8f32_kernel"}
+_Launched = ctypes.c_int * 3  # the C entry's report: kernel, blocks, splits
+
+# Kernels launched on the card by the wrapper, by __global__ name, as the C
+# entry reports them. ``int8_weight_matmul.launches`` counts calls.
+device_launches: Dict[str, int] = {name: 0 for name in _KERNELS.values()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Plan:
+    """What one call launches: ``path`` "tile" (the wgmma kernel) or
+    "splitk"; each block covers ``rows`` weight rows and ``lanes`` rows of
+    x; ``splits`` splits of K (1 for "tile"); ``blocks`` in the grid."""
+
+    path: str
+    rows: int
+    lanes: int
+    splits: int
+    blocks: int
+
+
+def _splitk_lanes(m: int) -> int:
+    """Rows of x per split-K block: lane tiles of 8, 1, 2, 4 or 8 of them."""
+    for lanes in (8, 16, 32):
+        if m <= lanes:
+            return lanes
+    return SPLITK_MAX_LANES
+
+
+def plan_int8(m: int, n: int, k: int, sms: int, path: Optional[str] = None) -> Int8Plan:
+    """The launch for an [m, k] x [n, k] product, from shapes alone.
+
+    The tile kernel (a prefill chunk) from ``TILE_MIN_M`` rows of x on,
+    where its grid keeps ``TILE_MIN_SM_SHARE`` of the ``sms`` SMs busy:
+    output tiles of 128 rows of x by 256, 224 or 128 weight rows, the width
+    whose last round of tiles leaves the least idle (the cost of a round
+    taken as its width plus 32). Else (decode), the split-K kernel: tiles
+    of 64 or 16 weight rows and of up to 64 rows of x, and as many splits
+    of K's 64-wide chunks as bring the grid to about ``BLOCKS_PER_SM``
+    blocks on each SM without passing it (1 when the tiles alone fill
+    them), each split at least ``MIN_SPLIT_CHUNKS`` chunks long and at most
+    ``MAX_SPLITS`` of them. 64-row blocks share each row of x among more
+    weight rows; 16-row blocks are taken where they save enough splits (a
+    split sweep on the card). ``path`` forces a kernel."""
+    if path not in (None, "tile", "splitk"):
+        raise ValueError(f"unknown int8 path {path!r}")
+    tile = min((Int8Plan("tile", rows, TILE_LANES, 1, -(-m // TILE_LANES) * -(-n // rows))
+                for rows in TILE_ROWS), key=lambda p: -(-p.blocks // sms) * (p.rows + 32))
+    if path is None:
+        wide = m >= TILE_MIN_M and tile.blocks >= TILE_MIN_SM_SHARE * sms
+        path = "tile" if wide else "splitk"
+    if path == "tile":
+        return tile
+    lanes = _splitk_lanes(m)
+    chunks = k // K_TILE
+    plans = {}
+    for rows, per_stage in SPLITK_ROWS.items():
+        stage = rows * (per_stage * K_TILE + 16) + lanes * (per_stage * K_TILE * 2 + 16)
+        if RING * stage > MAX_SMEM:
+            continue
+        tiles = -(-n // rows) * -(-m // lanes)
+        splits = max(1, min(MAX_SPLITS, chunks // MIN_SPLIT_CHUNKS,
+                            BLOCKS_PER_SM * sms // tiles))
+        plans[rows] = Int8Plan("splitk", rows, lanes, splits, tiles * splits)
+    # 16-row blocks read x once per 16 weight rows: taken up to 8 lanes of x
+    # when they need fewer splits, else only when they need a quarter of them
+    wide, narrow = plans[64], plans.get(16)
+    if narrow and (narrow.splits * 4 <= wide.splits
+                   or m <= 8 and narrow.splits < wide.splits):
+        return narrow
+    return wide
+
+
+@lru_cache(maxsize=None)
+def _planned(m: int, n: int, k: int, index: int) -> Int8Plan:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return plan_int8(m, n, k, sms)
 
 
 def _bind(lib) -> None:
     fn = lib.int8_weight_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+    ]
     fn.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("int8_matmul", _bind)
+
+
+def reset_launch_counts() -> None:
+    """Zero the wrapper's call count and the device launch counts."""
+    int8_weight_matmul.launches = 0
+    for name in device_launches:
+        device_launches[name] = 0
 
 
 def _check(x, q, s, out_dtype) -> None:
@@ -61,9 +170,12 @@ def _check(x, q, s, out_dtype) -> None:
 
 
 def int8_weight_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
-                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                       out_dtype: Optional[torch.dtype] = None,
+                       plan: Optional[Int8Plan] = None) -> torch.Tensor:
     """``round(round(x @ q.T) * s)`` (see the module note), [..., N] in
-    ``out_dtype`` (default: x's dtype)."""
+    ``out_dtype`` (default: x's dtype). ``plan`` forces a launch (the tests
+    and the card's sweeps); by default :func:`plan_int8` chooses it. With
+    fp32 ``x`` the CUDA-core kernel runs whatever the plan."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return int8_weight_matmul_plain(x, q, s, out_dtype=out_dtype)
@@ -77,22 +189,27 @@ def int8_weight_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
     if m == 0:
         return out
     index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    if plan is None:
+        plan = _planned(m, n, k, index)
+    launched = _Launched()
     err = lib.int8_weight_matmul_launch(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k,
-        _DTYPES[x.dtype], _DTYPES[out_dtype], torch._C._cuda_getCurrentRawStream(index),
+        _DTYPES[x.dtype], _DTYPES[out_dtype], _PATHS.get(plan.path, 0), plan.splits, plan.rows,
+        torch._C._cuda_getCurrentRawStream(index), launched,
     )
+    if launched[0]:
+        device_launches[_KERNELS[launched[0]]] += 1
     if err != 0:
         raise RuntimeError(f"int8_weight_matmul launch failed: cudaError {err} "
-                           f"(M={m}, N={n}, K={k})")
+                           f"(M={m}, N={n}, K={k}, {plan})")
     int8_weight_matmul.launches += 1
+    int8_weight_matmul.last_launch = (_KERNELS[launched[0]], launched[1], launched[2])
     return out
 
 
 int8_weight_matmul.launches = 0
-
-
-def reset_launch_counts() -> None:
-    int8_weight_matmul.launches = 0
+# (kernel, blocks, splits) of the last launch, as the C entry reported it
+int8_weight_matmul.last_launch = None
 
 
 def int8_weight_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
@@ -102,3 +219,25 @@ def int8_weight_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, 
     out_dtype = out_dtype or x.dtype
     y = (x.float() @ q.float().T).to(x.dtype)
     return (y.float() * s).to(out_dtype)
+
+
+def int8_weight_matmul_splitk_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                                    splits: int, *,
+                                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The split-K kernel's arithmetic in plain PyTorch: K's 64-wide chunks
+    cut into ``splits`` runs as the kernel cuts them (run i takes chunks
+    [i·C/splits, (i+1)·C/splits)), an fp32 partial product per run, the
+    partials summed in split order, then the two roundings. For the tests:
+    it equals :func:`int8_weight_matmul_plain` up to fp32 round-off."""
+    out_dtype = out_dtype or x.dtype
+    k = q.shape[1]
+    chunks = k // K_TILE
+    if not 1 <= splits <= chunks or k % K_TILE:
+        raise ValueError(f"{splits} splits of K={k} in chunks of {K_TILE}")
+    xf, qf = x.float(), q.float()
+    y = None
+    for i in range(splits):
+        a, b = i * chunks // splits * K_TILE, (i + 1) * chunks // splits * K_TILE
+        part = xf[..., a:b] @ qf[:, a:b].T
+        y = part if y is None else y + part
+    return (y.to(x.dtype).float() * s).to(out_dtype)

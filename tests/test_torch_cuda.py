@@ -5,6 +5,8 @@ file imports no JAX, so it runs where the port runs:
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -164,23 +166,26 @@ from dynamo_tpu_torch.ops.build import KernelLibrary  # noqa: E402
 from dynamo_tpu_torch.ops.int8_matmul import (  # noqa: E402
     int8_weight_matmul,
     int8_weight_matmul_plain,
+    plan_int8,
 )
 
 
 def _int8_shapes():
-    """(K, N) of every projection of the llama-family presets, and their LM
-    heads (E -> V; the tied head is the same [V, E] weight)."""
+    """(K, N) of every projection of the llama-family presets, tiny
+    included, and their LM heads (E -> V; the tied head is the same [V, E]
+    weight)."""
     shapes = set()
-    for name, c in LLAMA_PRESETS.items():
-        if name == "tiny":
-            continue
+    for c in LLAMA_PRESETS.values():
         E, F = c.hidden_size, c.intermediate_size
         shapes |= {(E, c.q_dim), (E, c.kv_dim), (c.q_dim, E), (E, F), (F, E),
                    (E, c.vocab_size)}
     return sorted(shapes)
 
 
-INT8_M = [1, 2, 8, 9, 16, 33, 1024]
+# one lane to a prefill chunk: the lane tiles' edges (8, 16, 32, 64) and the
+# tile kernel's (128 rows of x; M = 1000 ends mid-tile), on either side of
+# the planner's choice between the kernels (TILE_MIN_M and the grid's size)
+INT8_M = [1, 7, 8, 9, 16, 17, 32, 33, 63, 64, 65, 128, 256, 1000, 1024]
 # (x dtype, out dtype) and the tolerance on max|Δ| / max|ref|: bf16 outputs
 # may differ by one bf16 ulp where the two sum in other orders
 INT8_DTYPES = [
@@ -202,16 +207,33 @@ def _int8_weight(k, n):
     return _weights[(k, n)]
 
 
-def _check_int8(x, q, s, out_dtype, tol):
+def _check_int8(x, q, s, out_dtype, tol, plan=None):
+    """One call against the plain version; the wrapper counts it once, under
+    the kernel the C entry reports, which is the plan's (the CUDA-core
+    kernel for fp32 x), with the plan's blocks and splits."""
     before = int8_weight_matmul.launches
-    got = int8_weight_matmul(x, q, s, out_dtype=out_dtype)
+    kernels_before = dict(int8_matmul.device_launches)
+    got = int8_weight_matmul(x, q, s, out_dtype=out_dtype, plan=plan)
     torch.cuda.synchronize()
     assert int8_weight_matmul.launches == before + 1
+    n, k = q.shape
+    m = x.numel() // k
+    if plan is None:
+        plan = plan_int8(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    kernel, blocks, splits = int8_weight_matmul.last_launch
+    if x.dtype == torch.float32:
+        assert kernel == "w8f32_kernel"
+    else:
+        assert kernel == f"w8a16_{plan.path}_kernel"
+        assert (blocks, splits) == (plan.blocks, plan.splits)
+    assert {k_: v - kernels_before[k_] for k_, v in int8_matmul.device_launches.items()} == {
+        k_: int(k_ == kernel) for k_ in kernels_before}
     assert got.dtype == out_dtype and got.shape == x.shape[:-1] + (q.shape[0],)
     ref = int8_weight_matmul_plain(x, q, s, out_dtype=out_dtype).float()
     assert torch.isfinite(got.float()).all()
     rel = (got.float() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
     assert rel <= tol, rel
+    return got
 
 
 @pytest.mark.parametrize("x_dtype,out_dtype,tol", INT8_DTYPES,
@@ -224,6 +246,76 @@ def test_int8_kernel_matches_plain(cuda, K, N, M, x_dtype, out_dtype, tol):
     gen = torch.Generator(device="cuda").manual_seed(M)
     x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
     _check_int8(x, q, s, out_dtype, tol)
+
+
+@pytest.mark.parametrize("path", ["tile", "splitk"])
+@pytest.mark.parametrize("M", [1, 8, 63, 64, 65, 128, 1000])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (4096, 1024), (14336, 4096), (64, 32)])
+def test_int8_both_kernels_at_every_m(cuda, K, N, M, path):
+    """Each kernel forced on either side of the planner's choice, bf16 in
+    and out."""
+    q, s = _int8_weight(K, N)
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    plan = plan_int8(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count,
+                     path=path)
+    _check_int8(x, q, s, torch.bfloat16, 1e-2, plan=plan)
+
+
+@pytest.mark.parametrize("rows", [128, 224, 256])
+@pytest.mark.parametrize("M,K,N", [(1000, 4096, 1024), (128, 14336, 4096), (200, 64, 32)])
+def test_int8_tile_widths(cuda, M, K, N, rows):
+    """The tile kernel at each of its widths, the weight's last tile ragged
+    (1024 = 4·224 + 128; N = 32 is under every width) and M mid-tile."""
+    q, s = _int8_weight(K, N)
+    x = torch.randn((M, K), device="cuda").bfloat16()
+    plan = plan_int8(M, N, K, 132, path="tile")
+    plan = dataclasses.replace(plan, rows=rows, blocks=-(-M // plan.lanes) * -(-N // rows))
+    _check_int8(x, q, s, torch.bfloat16, 1e-2, plan=plan)
+
+
+@pytest.mark.parametrize("M", [1, 8, 17])
+@pytest.mark.parametrize("rows", [64, 16])
+@pytest.mark.parametrize("splits", [1, 2, 5, 8, 9, 16])
+def test_int8_splitk_split_counts_and_block_widths(cuda, splits, rows, M):
+    # 5 splits of 64 chunks: uneven runs of 12 and 13 chunks; a tile's splits
+    # are one thread block cluster, of a non-portable size above 8, 16 at
+    # most; both block widths, with 1 lane tile of 8 and 1 of 32 (M = 17)
+    q, s = _int8_weight(4096, 1024)
+    x = torch.randn((M, 4096), device="cuda").bfloat16()
+    plan = plan_int8(M, 1024, 4096, 132, path="splitk")
+    plan = dataclasses.replace(plan, rows=rows, splits=splits,
+                               blocks=1024 // rows * -(-M // plan.lanes) * splits)
+    _check_int8(x, q, s, torch.bfloat16, 1e-2, plan=plan)
+
+
+@pytest.mark.parametrize("M", [8, 256, 1024])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (14336, 4096)])
+def test_int8_two_calls_are_bit_equal_and_a_graph_replays_them(cuda, K, N, M):
+    """No float atomics: the same inputs give the same bits twice (split-K
+    included: 8 and 2 splits at M = 8, 4 lane tiles at M = 256 for N =
+    1024), and a call captured in a CUDA graph and replayed gives the eager
+    call's bits."""
+    q, s = _int8_weight(K, N)
+    gen = torch.Generator(device="cuda").manual_seed(K + M)
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    a = _check_int8(x, q, s, torch.bfloat16, 1e-2)
+    b = int8_weight_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm the allocator on the capture stream
+        int8_weight_matmul(x, q, s)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c = int8_weight_matmul(x, q, s)
+    for _ in range(3):
+        c.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(a, c)
 
 
 def test_int8_kernel_leading_dims_and_layer_views(cuda):
@@ -274,6 +366,21 @@ def test_int8_kernel_refuses_what_it_does_not_take(cuda):
         int8_weight_matmul(x.half(), torch.zeros((32, 128), dtype=torch.int8, device="cuda"),
                            torch.ones(32, device="cuda"))
     assert int8_weight_matmul.launches == before
+
+
+def test_int8_launch_that_does_not_fit_raises(cuda):
+    # 16-row blocks with 8 lane tiles need 4 x 75 KB of ring: more shared
+    # memory than a block may have, so the C entry refuses the launch
+    q, s = _int8_weight(4096, 1024)
+    x = torch.randn((64, 4096), device="cuda").bfloat16()
+    plan = dataclasses.replace(plan_int8(64, 1024, 4096, 132, path="splitk"), rows=16,
+                               splits=1, blocks=64)
+    before = int8_weight_matmul.launches
+    kernels_before = dict(int8_matmul.device_launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        int8_weight_matmul(x, q, s, plan=plan)
+    assert int8_weight_matmul.launches == before
+    assert int8_matmul.device_launches == kernels_before
 
 
 def test_int8_build_failure_raises_and_runs_no_plain_version(cuda, tmp_path, monkeypatch):

@@ -28,7 +28,11 @@ from dynamo_tpu_torch.engine_torch.weights import params_from_numpy
 from dynamo_tpu_torch.llm.protocols import common as tcommon
 from dynamo_tpu_torch.models import llama as tl
 from dynamo_tpu_torch.ops import int8_matmul
-from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul, int8_weight_matmul_plain
+from dynamo_tpu_torch.ops.int8_matmul import (
+    int8_weight_matmul,
+    int8_weight_matmul_plain,
+    int8_weight_matmul_splitk_plain,
+)
 from dynamo_tpu_torch.runtime.engine import Context
 
 ATOL = 1e-5  # fp32 on both sides; sums in another order
@@ -98,28 +102,95 @@ def test_matw_embed_and_lm_head_int8_match_jax(quantized):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("m", [1, 8, 33])
-def test_plain_kernel_function_matches_jax_matw_in_bf16(m):
+def _within_one_bf16_ulp(got, want):
+    mag = np.maximum(np.abs(want), np.abs(got))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    assert (np.abs(got - want) <= ulp).all(), np.abs(got - want).max()
+
+
+# (m, splits): None is the plain version; an int the split-K kernel's order
+# of sums (int8_weight_matmul_splitk_plain) with that many splits of K = 256
+@pytest.mark.parametrize("m,splits", [(1, None), (8, None), (33, None), (1, 3), (8, 4), (33, 2)],
+                         ids=["1", "8", "33", "splitk3-1", "splitk4-8", "splitk2-33"])
+def test_plain_kernel_function_matches_jax_matw_in_bf16(m, splits):
     """bf16 activations, the int8 pair of a [K, N] weight: within one bf16
     ulp of the output (both round the product to bf16, scale in fp32 and
     round again; their sums run in other orders)."""
     rng = np.random.default_rng(m)
-    k, n = 128, 48
+    k, n = (128 if splits is None else 256), 48
     w = rng.normal(size=(k, n)).astype(np.float32)
     x = rng.normal(size=(m, k)).astype(np.float32)
     jw = jl.quantize_params_int8(
         {"embed": jnp.zeros((1, 1)), "layers": {"wq": jnp.asarray(w)}}, None
     )["layers"]["wq"]
     want = np.asarray(jl.matw(jnp.asarray(x, jnp.bfloat16), jw).astype(jnp.float32))
-    got = int8_weight_matmul_plain(
-        torch.from_numpy(x).bfloat16(), torch.from_numpy(np.asarray(jw["q"]).T.copy()),
-        torch.from_numpy(np.array(jw["s"])),
-    )
-    assert got.dtype == torch.bfloat16
-    got = got.float().numpy()
-    mag = np.maximum(np.abs(want), np.abs(got))
-    ulp = 2.0 ** (np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
-    assert (np.abs(got - want) <= ulp).all(), np.abs(got - want).max()
+    args = (torch.from_numpy(x).bfloat16(), torch.from_numpy(np.asarray(jw["q"]).T.copy()),
+            torch.from_numpy(np.array(jw["s"])))
+    plain = int8_weight_matmul_plain(*args)
+    assert plain.dtype == torch.bfloat16
+    if splits is not None:
+        got = int8_weight_matmul_splitk_plain(*args, splits)
+        assert got.dtype == torch.bfloat16
+        _within_one_bf16_ulp(got.float().numpy(), plain.float().numpy())
+    else:
+        got = plain
+    _within_one_bf16_ulp(got.float().numpy(), want)
+
+
+# (K, N) of every int8 product of the llama-family presets that the kernel
+# tiles, and M from one lane to a prefill chunk
+_PLAN_SHAPES = sorted({
+    (k, n) for c in tl.LLAMA_PRESETS.values()
+    for k, n in ((c.hidden_size, c.q_dim), (c.hidden_size, c.kv_dim), (c.q_dim, c.hidden_size),
+                 (c.hidden_size, c.intermediate_size), (c.intermediate_size, c.hidden_size),
+                 (c.hidden_size, c.vocab_size))
+})
+_PLAN_M = (1, 7, 8, 9, 16, 17, 32, 33, 63, 64, 65, 128, 256, 1000, 1024)
+
+
+def test_plan_int8_is_a_function_of_shapes_alone():
+    import inspect
+
+    assert list(inspect.signature(int8_matmul.plan_int8).parameters) == [
+        "m", "n", "k", "sms", "path"]
+    for k, n in _PLAN_SHAPES:
+        for m in _PLAN_M:
+            a, b = int8_matmul.plan_int8(m, n, k, 132), int8_matmul.plan_int8(m, n, k, 132)
+            assert a == b and hash(a) == hash(b)
+            tile = int8_matmul.plan_int8(m, n, k, 132, path="tile")
+            wide = tile.blocks >= int8_matmul.TILE_MIN_SM_SHARE * 132
+            assert a.path == ("tile" if m >= int8_matmul.TILE_MIN_M and wide else "splitk")
+    # an "int8-all" prefill chunk of 8 x 128 tokens: every llama3-8b product on the tile kernel
+    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)):
+        assert int8_matmul.plan_int8(1024, n, k, 132).path == "tile"
+
+
+def test_planned_splits_cut_k_into_nonempty_ranges():
+    for k, n in _PLAN_SHAPES:
+        chunks = k // int8_matmul.K_TILE
+        for m in _PLAN_M:
+            for path in ("tile", "splitk"):
+                p = int8_matmul.plan_int8(m, n, k, 132, path=path)
+                assert 1 <= p.splits <= min(chunks, int8_matmul.MAX_SPLITS)
+                bounds = [i * chunks // p.splits for i in range(p.splits + 1)]
+                assert bounds[0] == 0 and bounds[-1] == chunks
+                assert all(b > a for a, b in zip(bounds, bounds[1:]))
+                tiles = -(-n // p.rows) * -(-m // p.lanes)
+                assert p.blocks == tiles * p.splits and p.lanes >= min(m, 64)
+                if path == "splitk":  # the 4-stage ring fits a block's shared memory
+                    c = int8_matmul.SPLITK_ROWS[p.rows]
+                    assert 4 * (p.rows * (c * 64 + 16) + p.lanes * (c * 128 + 16)) <= 227 * 1024
+
+
+def test_plan_fills_the_card_for_narrow_weights():
+    # 4096 -> 1024 (wk, wv) at the slice's 8 lanes: its row tiles alone would
+    # leave most of 132 SMs idle; splits bring it to 128 blocks, one per SM
+    # (the plan does not pass one block per SM where it needs splits)
+    p = int8_matmul.plan_int8(8, 1024, 4096, 132)
+    assert p.path == "splitk" and p.splits > 1 and 0.95 * 132 <= p.blocks <= 132
+    # every llama3-8b decode shape keeps at least 95% of the SMs busy
+    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)):
+        assert int8_matmul.plan_int8(8, n, k, 132).blocks >= 0.95 * 132
 
 
 def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
@@ -128,12 +199,14 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
     q = torch.from_numpy(rng.integers(-127, 128, size=(32, 64)).astype(np.int8))
     s = torch.from_numpy(rng.random(32).astype(np.float32))
     before = int8_weight_matmul.launches
+    kernels_before = dict(int8_matmul.device_launches)
     got = int8_weight_matmul(x, q, s)
     assert got.shape == (2, 5, 32) and got.dtype == torch.float32
     assert torch.equal(got, int8_weight_matmul_plain(x, q, s))
     assert torch.equal(int8_weight_matmul(x, q, s, out_dtype=torch.bfloat16),
                        int8_weight_matmul_plain(x, q, s, out_dtype=torch.bfloat16))
     assert int8_weight_matmul.launches == before
+    assert int8_matmul.device_launches == kernels_before
 
 
 @pytest.mark.parametrize("n,k,why", [
