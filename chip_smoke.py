@@ -20,27 +20,50 @@ non-zero:
    it eager and graph-replayed beside the plain version and bf16
    ``torch.matmul`` on the same activations (eager and graph-replayed), and
    times both kernels forced on either side of the planner's threshold;
-5. load: writes a llama3-8b-width checkpoint cut to 2 layers (bf16, HF
+5. expert kernel: holds ``int8_expert_matmul`` against its plain version
+   over 8 experts at mixtral-8x7b's 4096->14336 and 14336->4096, C = 2, 4
+   (decode at 8 lanes), 5, 130 and 512 (a 1024-row prefill chunk), with the
+   plan it printed and launched, ms eager and graph-replayed, the bound and
+   bf16 ``torch.bmm`` over a bf16 expert stack;
+6. load: writes a llama3-8b-width checkpoint cut to 2 layers (bf16, HF
    names, two ``*.safetensors`` files), serves it through
    ``cli.run.build_engine``, checks every parameter on the card bit for bit
    against what was written, and answers 2 streaming requests over HTTP;
-6. serve: starts ``dynamo_tpu_torch.cli.run``'s HTTP server in this process
+7. serve: starts ``dynamo_tpu_torch.cli.run``'s HTTP server in this process
    on a llama3-8b-width model with random weights, answers 8 concurrent
    streaming requests, and checks the launch counts of both paged kernels
    (as the wrapper counts them where it launches them); then profiles a few
    steady decode dispatches of a second wave of requests and counts the
    kernels' device events per wrapper call;
-7. decode parity: one full-width ``forward_window`` step through the paged
+8. decode parity: one full-width ``forward_window`` step through the paged
    kernel and through its plain version;
-8. int8 serve: the same model and requests behind an
+9. int8 serve: the same model and requests behind an
    ``EngineConfig(quantize="int8")`` engine (the bf16 engine closed first);
    checks 225 int8 launches per decode step (7 per layer, 32 layers, and the
    LM head) and the paged kernels' launches, and profiles it alike;
-9. int8 parity: one full-width ``forward_window`` step of the int8 tree,
-   and one ``forward_chunk`` as the ``"int8-all"`` mode runs it (225
-   products of 1024 rows, all on the tile kernel), through the int8
-   kernels and through their plain version;
-10. prints the kernels' JSON line and, last, the device JSON line.
+10. int8 parity: one full-width ``forward_window`` step of the int8 tree,
+    and one ``forward_chunk`` as the ``"int8-all"`` mode runs it (225
+    products of 1024 rows, all on the tile kernel), through the int8
+    kernels and through their plain version; prints, not held, the same
+    chunk's drift between the plain version summed in fp64 and in fp32;
+11. mixtral load (every llama engine closed first): writes a
+    mixtral-8x7b-width checkpoint cut to 1 layer (bf16, HF
+    ``block_sparse_moe`` names), loads it straight to int8, checks every q
+    and s on the card bit for bit against the quantization of what was
+    written, and serves 2 streaming requests from it in ``"int8-all"``;
+12. mixtral serve: mixtral-8x7b at full width and depth, random weights
+    drawn straight to int8 on the card, behind the HTTP server in
+    ``"int8-all"``: peak memory, 8 concurrent streams of 32 tokens, launch
+    counts (129 ``int8_weight_matmul``, 96 ``int8_expert_matmul`` per
+    forward, 32 paged per decode step), TTFT, decode tok/s and a profile;
+13. mixtral parity: one MoE layer at 8 and 1024 tokens, and one full-depth
+    ``forward_window`` step through the kernels against the same step
+    through every kernel's plain version, and through the int8 products'
+    plain versions alone; routing choices that differ are counted, with the
+    router-logit gaps where each lane first differs, and the logits are
+    held on the lanes whose choices agree at every layer (at least half of
+    them);
+14. prints the kernels' JSON line and, last, the device JSON line.
 Each phase prints its seconds.
 """
 
@@ -48,6 +71,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import http.client
 import json
 import os
@@ -66,7 +90,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # llama3-8b widths (models/llama.py LLAMA_PRESETS["llama3-8b"])
 LLAMA3_8B = dict(vocab=128256, hidden=4096, ffn=14336, layers=32, heads=32, kv_heads=8,
-                 head_dim=128)
+                 head_dim=128, model_type="llama", rope_theta=500000.0)
+# mixtral-8x7b widths (LLAMA_PRESETS["mixtral-8x7b"])
+MIXTRAL = dict(vocab=32000, hidden=4096, ffn=14336, layers=32, heads=32, kv_heads=8,
+               head_dim=128, model_type="mixtral", rope_theta=1000000.0, experts=8, top_k=2)
 CHAT_TEMPLATE = (
     "{% for message in messages %}"
     "{{ '<s>' + message['role'] + '\\n' + message['content'] + '</s>' }}"
@@ -116,19 +143,23 @@ def byte_level_tokenizer_json() -> dict:
     }
 
 
-def write_model_dir(path: str, num_layers: int = LLAMA3_8B["layers"]) -> str:
-    """config.json at llama3-8b width (context 2048), the byte-level
-    tokenizer and a chat template; no weight files (random weights)."""
-    c = dict(LLAMA3_8B, layers=num_layers)
+def write_model_dir(path: str, num_layers: int = LLAMA3_8B["layers"], arch=LLAMA3_8B) -> str:
+    """config.json at ``arch``'s widths (llama3-8b or mixtral-8x7b, context
+    2048), the byte-level tokenizer and a chat template; no weight files
+    (random weights)."""
+    c = dict(arch, layers=num_layers)
     config = {
-        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "architectures": ["MixtralForCausalLM" if "experts" in c else "LlamaForCausalLM"],
+        "model_type": c["model_type"],
         "vocab_size": c["vocab"], "hidden_size": c["hidden"],
         "intermediate_size": c["ffn"], "num_hidden_layers": c["layers"],
         "num_attention_heads": c["heads"], "num_key_value_heads": c["kv_heads"],
         "head_dim": c["head_dim"], "max_position_embeddings": 2048,
-        "rms_norm_eps": 1e-5, "rope_theta": 500000.0, "bos_token_id": 256,
+        "rms_norm_eps": 1e-5, "rope_theta": c["rope_theta"], "bos_token_id": 256,
         "eos_token_id": 257, "tie_word_embeddings": False,
     }
+    if "experts" in c:
+        config.update(num_local_experts=c["experts"], num_experts_per_tok=c["top_k"])
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
@@ -603,7 +634,115 @@ def phase_int8_kernel(card: str) -> dict:
     return {"cases": result, "per_step": per_step, "sweep": sweep}
 
 
-# -- the HTTP pipeline (phases 5, 6 and 8) ---------------------------------------
+# -- phase 5: the expert kernel --------------------------------------------------
+
+# mixtral-8x7b's expert products (K, N) and how many a decode step runs
+EXPERT_SHAPES = [
+    ("w_gate, w_up: 4096->14336", 4096, 14336, 2 * MIXTRAL["layers"]),
+    ("w_down: 14336->4096", 14336, 4096, MIXTRAL["layers"]),
+]
+EXPERT_LAUNCHES_PER_STEP = sum(n for *_, n in EXPERT_SHAPES)  # 3 per layer x 32 = 96
+# rows per expert: decode at 8 lanes (C = 4) and its neighbours, an odd C, a
+# 1024-row prefill chunk's 512 and 130 (two tiles, the second ragged)
+EXPERT_C = (2, 4, 5, 130, 512)
+# bf16 outputs round twice (the product, then the scaled output): up to two
+# bf16 ulps of the max, 2^-6 of it
+EXPERT_TOL = 2.0 ** -6
+
+
+def expert_bound(X, C, N, K, rate):
+    """(bound_ms, bound_by) of one stack: x, q, s read once and out written
+    once at the HBM rate, or 2·X·C·N·K operations at the bf16 peak."""
+    nbytes = X * (C * K * 2 + N * K + N * 4 + C * N * 2)
+    t_bytes, t_ops = nbytes / rate, 2 * X * C * N * K / BF16_PEAK
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_expert_kernel(card: str) -> dict:
+    """``int8_expert_matmul`` against its plain version over 8 experts at
+    mixtral-8x7b's two expert shapes and C = 2, 4, 5, 130 and 512: the plan,
+    the launch it made, eager and graph-replayed ms over two stacks (940 MB,
+    far past L2), the bound, the plain version and bf16 ``torch.bmm`` over a
+    bf16 [8, K, N] stack on the same activations."""
+    import torch
+
+    from dynamo_tpu_torch.ops.int8_matmul import (
+        int8_expert_matmul,
+        int8_expert_matmul_plain,
+        plan_int8,
+    )
+
+    X = MIXTRAL["experts"]
+    rate = hbm_rate(card)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    result = []
+    for name, K, N, _ in EXPERT_SHAPES:
+        qs = [torch.randint(-127, 128, (X, N, K), generator=gen, device="cuda", dtype=torch.int8)
+              for _ in range(2)]
+        ss = [torch.rand((X, N), generator=gen, device="cuda") * 2e-3 + 1e-4 for _ in range(2)]
+        ws = [torch.randn((X, K, N), generator=gen, device="cuda").bfloat16() for _ in range(2)]
+        for C in EXPERT_C:
+            x = torch.randn((X, C, K), generator=gen, device="cuda").bfloat16()
+            plan = plan_int8(C, N, K, sms, experts=X)
+            before = int8_expert_matmul.launches
+            got = int8_expert_matmul(x, qs[0], ss[0])
+            torch.cuda.synchronize()
+            if int8_expert_matmul.launches != before + 1:
+                fail(f"int8_expert_matmul [{name}, C={C}] did not count its launch")
+            kernel, blocks, splits = int8_expert_matmul.last_launch
+            if kernel != f"w8a16_{plan.path}_kernel" or (blocks, splits) != (plan.blocks,
+                                                                              plan.splits):
+                fail(f"int8_expert_matmul [{name}, C={C}] launched {kernel} ({blocks} blocks, "
+                     f"{splits} splits), not its plan: {plan}")
+            ref = int8_expert_matmul_plain(x, qs[0], ss[0]).float()
+            err = (got.float() - ref).abs().max().item()
+            rel = err / max(ref.abs().max().item(), 1e-30)
+            ok = bool(torch.isfinite(got.float()).all()) and rel <= EXPERT_TOL
+            print(f"expert kernel vs plain [{name}, {X} experts, C={C}; {kernel}, {blocks} "
+                  f"blocks, {splits} splits]: max|d| {err:.3e}, max|d|/max|ref| {rel:.3e} "
+                  f"(limit {EXPERT_TOL:g}) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"int8_expert_matmul disagrees with its plain version: {name} C={C}")
+            print(f"  plan [{name}, C={C}]: {plan_label(plan)}")
+            b_ms, b_by = expert_bound(X, C, N, K, rate)
+            calls = [lambda q=q, s_=s_: int8_expert_matmul(x, q, s_) for q, s_ in zip(qs, ss)]
+            ms, graph_ms = time_many(torch, calls), time_graph(torch, calls)
+            plain_ms = time_many(torch, [lambda: int8_expert_matmul_plain(x, qs[0], ss[0])],
+                                 calls=4, reps=1)
+            lib = [lambda w=w: torch.bmm(x, w) for w in ws]
+            lib_ms, lib_graph_ms = time_many(torch, lib), time_graph(torch, lib)
+            print(f"  time [{name}, C={C}]: kernel {ms:.4f} ms ({b_ms / ms:.1%} of the {b_by} "
+                  f"bound), graph-replayed {graph_ms:.4f} ms ({b_ms / graph_ms:.1%}), bound "
+                  f"{b_ms:.4f} ms, plain {plain_ms:.4f} ms, library (bf16 torch.bmm, [{X}, {K}, "
+                  f"{N}] bf16 stack) {lib_ms:.4f} ms, graph-replayed {lib_graph_ms:.4f} ms")
+            result.append(dict(name=name, X=X, C=C, K=K, N=N, max_abs_err=err, rel_err=rel,
+                               kernel=kernel, blocks=blocks, splits=splits, ms=ms,
+                               graph_ms=graph_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               library_graph_ms=lib_graph_ms, bound_ms=b_ms, bound_by=b_by,
+                               bound_share=b_ms / ms, bound_share_graph=b_ms / graph_ms,
+                               plan=dataclasses.asdict(plan)))
+        del qs, ss, ws, x, got, ref
+        torch.cuda.empty_cache()
+    # one mixtral decode step at C = 4: 96 launches over the two shapes
+    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")
+    per_step = {key: 0.0 for key in keys}
+    for name, K, N, count in EXPERT_SHAPES:
+        (row,) = [r for r in result if r["name"] == name and r["C"] == 4]
+        for key in keys:
+            per_step[key] += count * row[key]
+    per_step["bound_share"] = per_step["bound_ms"] / per_step["ms"]
+    per_step["bound_share_graph"] = per_step["bound_ms"] / per_step["graph_ms"]
+    print(f"expert decode step (C=4, {EXPERT_LAUNCHES_PER_STEP} launches): kernel "
+          f"{per_step['ms']:.3f} ms ({per_step['bound_share']:.1%} of the bound), "
+          f"graph-replayed {per_step['graph_ms']:.3f} ms ({per_step['bound_share_graph']:.1%}), "
+          f"bound {per_step['bound_ms']:.3f} ms, bf16 torch.bmm {per_step['library_ms']:.3f} ms "
+          f"(graph-replayed {per_step['library_graph_ms']:.3f} ms), plain "
+          f"{per_step['plain_ms']:.3f} ms, on {card}")
+    return {"cases": result, "per_step": per_step}
+
+
+# -- the HTTP pipeline (phases 6, 7, 9, 11 and 12) --------------------------------
 
 def _free_port() -> int:
     with socket.socket() as s:
@@ -662,11 +801,21 @@ def device_intervals_us(trace_path: str):
     return [e for e in dev if e.get("cat") == "kernel"], dev
 
 
-# names of the port's kernels in a device trace, by wrapper
+# names of the port's kernels in a device trace, by wrapper; the int8 kernels
+# serve int8_weight_matmul and int8_expert_matmul alike
 TRACE_KERNELS = {"paged_decode_attention": ("paged_decode_split_kernel",
                                             "paged_decode_merge_kernel"),
                  "int8_weight_matmul": ("w8a16_tile_kernel", "w8a16_splitk_kernel",
                                         "w8f32_kernel")}
+
+
+def expert_event(e) -> bool:
+    """An int8 kernel event launched by int8_expert_matmul: its grid's z is
+    the expert axis (8 at mixtral's shapes), 1 for every llama-family
+    int8_weight_matmul launch on the serving path (M <= 64 on split-K, the
+    tile kernel's z is 1)."""
+    grid = (e.get("args") or {}).get("grid") or [1, 1, 1]
+    return any(k in e["name"] for k in TRACE_KERNELS["int8_weight_matmul"]) and grid[2] > 1
 
 
 def warm_profiler() -> float:
@@ -692,7 +841,7 @@ def profile_decode(port: int, bodies: list, core) -> dict:
     measured" when the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul
+    from dynamo_tpu_torch.ops.int8_matmul import int8_expert_matmul, int8_weight_matmul
     from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
 
     bodies = [(path, dict(body, max_tokens=PROFILE_TOKENS)) for path, body in bodies]
@@ -711,10 +860,12 @@ def profile_decode(port: int, bodies: list, core) -> dict:
         t0 = time.perf_counter()
         d1, s1 = core.decode_dispatches, core.decode_steps_total
         c1, i1 = paged_decode_attention.launches, int8_weight_matmul.launches
+        x1 = int8_expert_matmul.launches
         _wait_until(lambda: core.decode_dispatches >= d1 + PROFILE_DISPATCHES, threads)
         d2, s2 = core.decode_dispatches, core.decode_steps_total
         calls = paged_decode_attention.launches - c1
         int8_calls = int8_weight_matmul.launches - i1
+        expert_calls = int8_expert_matmul.launches - x1
         window_us = (time.perf_counter() - t0) * 1e6
     for t in threads:
         t.join(600)
@@ -744,6 +895,11 @@ def profile_decode(port: int, bodies: list, core) -> dict:
               / max(dev_us, 1e-9) for w, names in TRACE_KERNELS.items()}
     events = {k: sum(1 for e in kernels if k in e["name"])
               for names in TRACE_KERNELS.values() for k in names}
+    if expert_calls:  # the int8 kernels' time split by wrapper (grid z)
+        expert_us = sum(e["dur"] for e in kernels if expert_event(e))
+        shares["int8_expert_matmul"] = expert_us / max(dev_us, 1e-9)
+        shares["int8_weight_matmul"] -= shares["int8_expert_matmul"]
+        events["expert events"] = sum(1 for e in kernels if expert_event(e))
     idle = max(0.0, 1.0 - busy / window_us)
     print(f"profile: {d2 - d1} decode dispatches, {steps} steps, {window_us / 1e3:.1f} ms "
           f"window (host clock); device busy {busy / 1e3:.2f} ms, idle share "
@@ -751,7 +907,8 @@ def profile_decode(port: int, bodies: list, core) -> dict:
           f"{busy / steps / 1e3:.3f} ms device time per step")
     print("profile: share of device time " + ", ".join(f"{w} {v:.3f}" for w, v in shares.items())
           + "; device events " + ", ".join(f"{k} {n}" for k, n in events.items() if n)
-          + f" over {calls} paged and {int8_calls} int8 wrapper calls in the window "
+          + f" over {calls} paged, {int8_calls} int8 and {expert_calls} expert wrapper calls "
+          f"in the window "
           f"({events['paged_decode_split_kernel'] / max(calls, 1):.3f} split and "
           f"{events['paged_decode_merge_kernel'] / max(calls, 1):.3f} merge events per paged call)")
     for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
@@ -761,9 +918,11 @@ def profile_decode(port: int, bodies: list, core) -> dict:
             "device_busy_ms": busy / 1e3, "idle_share": idle,
             "paged_decode_share": shares["paged_decode_attention"],
             "int8_matmul_share": shares["int8_weight_matmul"],
+            "expert_matmul_share": shares.get("int8_expert_matmul"),
             "device_ms_per_step": busy / steps / 1e3,
             "kernels_per_step": len(kernels) / steps, "wrapper_calls": calls,
-            "int8_wrapper_calls": int8_calls, "device_events": events}
+            "int8_wrapper_calls": int8_calls, "expert_wrapper_calls": expert_calls,
+            "device_events": events}
 
 
 @contextmanager
@@ -855,7 +1014,7 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
     every launch count set to 0 just before and read just after, then
     profile a second wave."""
     from dynamo_tpu_torch.ops import int8_matmul
-    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul
+    from dynamo_tpu_torch.ops.int8_matmul import int8_expert_matmul, int8_weight_matmul
     from dynamo_tpu_torch.ops.paged_attention import (
         device_launches,
         paged_decode_attention,
@@ -865,17 +1024,19 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
     with http_server(chat, comp, name, flags) as port:
         bodies = request_bodies(name, N_REQUESTS, MAX_TOKENS)
         reset_all_counts()
-        steps0 = core.decode_steps_total
+        steps0, chunks0 = core.decode_steps_total, core.chunk_dispatches
         results, t_sent, wall = run_streams(port, bodies, MAX_TOKENS)
         launches = paged_decode_attention.launches
         kernel_launches = dict(device_launches)
         splits = dict(splits_launched)
         int8_launches = int8_weight_matmul.launches
+        expert_launches = int8_expert_matmul.launches
         int8_kernels = {k: n for k, n in int8_matmul.device_launches.items() if n}
         steps = core.decode_steps_total - steps0
+        chunks = core.chunk_dispatches - chunks0
         ttfts = list(core.recent_ttft_s)[-N_REQUESTS:]
         profile = profile_decode(port, bodies, core)
-    L = LLAMA3_8B["layers"]
+    L = core.model_config.num_layers
     print(f"{label}: {N_REQUESTS} streams (4 chat, 4 completions) HTTP 200, finish_reason "
           f"{sorted(set(r['finish'] for r in results))}, {MAX_TOKENS} completion tokens each")
     per_call = sum(kernel_launches.values()) / max(launches, 1)
@@ -884,8 +1045,9 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
           f"launches " + ", ".join(f"{k} {n}" for k, n in kernel_launches.items())
           + f" ({per_call:.3f} per call); split counts launched {splits} (splits: calls); "
           f"int8_weight_matmul launches {int8_launches} "
-          f"({int8_launches / max(steps, 1):.1f} per decode step; device launches "
-          f"{int8_kernels})")
+          f"({int8_launches / max(steps, 1):.1f} per decode step), int8_expert_matmul "
+          f"launches {expert_launches} (int8 device launches {int8_kernels}); {chunks} "
+          f"prefill chunks")
     if steps == 0 or launches < L * steps:
         fail(f"paged_decode_attention ran {launches} times, expected >= {L} x {steps}")
     for k, n in kernel_launches.items():
@@ -899,11 +1061,12 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
     return {"launches": launches, "kernel_launches": kernel_launches,
             "device_launches_per_call": per_call, "splits": splits,
             "int8_launches": int8_launches, "int8_kernel_launches": int8_kernels,
-            "decode_steps": steps,
+            "expert_launches": expert_launches, "decode_steps": steps,
+            "chunk_dispatches": chunks,
             "ttft_p50_ms": ttft_p50, "decode_tok_s": decode_tok_s, "profile": profile}
 
 
-# -- phase 5: load a checkpoint ---------------------------------------------------
+# -- phase 6: load a checkpoint ---------------------------------------------------
 
 LOAD_LAYERS = 2  # the checkpoint's depth: llama3-8b widths, ~3 GB of bf16
 
@@ -1020,7 +1183,7 @@ def phase_load(card: str, path: str) -> dict:
             "write_s": write_s, "build_engine_s": build_s}
 
 
-# -- phase 6/7: serve bf16 --------------------------------------------------------
+# -- phase 7/8: serve bf16 --------------------------------------------------------
 
 def phase_serve(card: str, model_dir: str) -> dict:
     from dynamo_tpu_torch.cli.run import build_engine, build_parser
@@ -1108,7 +1271,7 @@ def phase_parity(core) -> float:
                    f"{int(lens.min())}-{int(lens.max())})", outs[0], outs[1])
 
 
-# -- phase 8/9: serve and check int8 ------------------------------------------------
+# -- phase 9/10: serve and check int8 -----------------------------------------------
 
 def phase_int8_serve(card: str, served: dict) -> dict:
     """The bf16 engine's weights behind a quantize="int8" engine with the
@@ -1163,13 +1326,24 @@ def core_card(flags):
     return ModelDeploymentCard.from_local_path(flags.model_path, flags.model_name)
 
 
+def int8_weight_matmul_plain64(x, q, s, *, out_dtype=None):
+    """The plain version's function with the product summed in fp64: the
+    correctly rounded product, up to one fp64 rounding. Beside the fp32
+    plain version it measures how far two valid roundings of the same
+    products drift apart through the model."""
+    out_dtype = out_dtype or x.dtype
+    y = (x.double() @ q.double().T).to(x.dtype)
+    return (y.float() * s).to(out_dtype)
+
+
 @contextmanager
-def plain_int8():
-    """Route the model's int8 products through the plain version."""
+def plain_int8(fn=None):
+    """Route the model's int8 products through the plain version (or
+    ``fn``)."""
     import dynamo_tpu_torch.models.llama as llama
     from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul, int8_weight_matmul_plain
 
-    llama.int8_weight_matmul = int8_weight_matmul_plain
+    llama.int8_weight_matmul = fn or int8_weight_matmul_plain
     try:
         yield
     finally:
@@ -1198,7 +1372,7 @@ def phase_int8_parity(core) -> dict:
     pos = torch.arange(128, device="cuda", dtype=torch.int32)[None, :].repeat(8, 1)
     tables = case[1]
     outs = []
-    for ctx in (nullcontext(), plain_int8()):
+    for ctx in (nullcontext(), plain_int8(), plain_int8(int8_weight_matmul_plain64)):
         cache = make_kv_cache(cfg, tables.numel(), 16, device="cuda")
         reset_all_counts()
         with torch.no_grad(), ctx:
@@ -1217,7 +1391,360 @@ def phase_int8_parity(core) -> dict:
     chunk = _parity("int8-all chunk parity (forward_chunk of the int8 tree, 8 lanes x 128 "
                     "tokens, kernel vs plain int8 products; logits of the last 16 positions)",
                     outs[0], outs[1])
-    return {"window_ratio": window, "chunk_ratio": chunk, "chunk_launches": chunk_launches}
+    floor = (outs[2] - outs[1]).abs().max().item() / outs[1].abs().max().item()
+    print(f"int8-all chunk noise floor (not held): the plain products summed in fp64 against "
+          f"the fp32 plain version through the same chunk: ratio {floor:.3e}; the kernel against "
+          f"the fp64 plain version {(outs[0] - outs[2]).abs().max().item() / outs[2].abs().max().item():.3e}")
+    return {"window_ratio": window, "chunk_ratio": chunk, "chunk_noise_floor": floor,
+            "chunk_launches": chunk_launches}
+
+
+# -- phases 11-13: mixtral-8x7b in "int8-all" ------------------------------------
+
+MIXTRAL_LOAD_LAYERS = 1  # the checkpoint's depth: mixtral-8x7b widths, ~3.4 GB of bf16
+# int8_weight_matmul calls per forward of mixtral: wq, wk, wv, wo per layer and the LM head
+MIXTRAL_DENSE_PER_STEP = 4 * MIXTRAL["layers"] + 1  # 129
+
+
+def int8_quantized(w):
+    """The absmax/127 int8 of an HF [out, in] matrix (the embedding per row
+    too): (q [out, in] int8, s [out] fp32), written out here as the JAX
+    ``quantize_params_int8`` defines it."""
+    import torch
+
+    wf = w.float()
+    s = (wf.abs().amax(dim=1) / 127.0).clamp(min=1e-12)
+    return torch.round(wf / s[:, None]).clamp(-127, 127).to(torch.int8), s
+
+
+def mixtral_checkpoint(torch, seed: int) -> dict:
+    """Random bf16 weights on the card under the HF mixtral names, at
+    mixtral-8x7b widths and MIXTRAL_LOAD_LAYERS layers."""
+    c = MIXTRAL
+    E, F, V, X = c["hidden"], c["ffn"], c["vocab"], c["experts"]
+    q, kv = c["heads"] * c["head_dim"], c["kv_heads"] * c["head_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") / shape[-1] ** 0.5).bfloat16()
+
+    t = {"model.embed_tokens.weight": w(V, E)}
+    for i in range(MIXTRAL_LOAD_LAYERS):
+        p = f"model.layers.{i}."
+        t.update({
+            p + "input_layernorm.weight": 1 + w(E) * 4,
+            p + "post_attention_layernorm.weight": 1 + w(E) * 4,
+            p + "self_attn.q_proj.weight": w(q, E), p + "self_attn.k_proj.weight": w(kv, E),
+            p + "self_attn.v_proj.weight": w(kv, E), p + "self_attn.o_proj.weight": w(E, q),
+            p + "block_sparse_moe.gate.weight": w(X, E),
+        })
+        for x in range(X):
+            e = f"{p}block_sparse_moe.experts.{x}."
+            t.update({e + "w1.weight": w(F, E), e + "w3.weight": w(F, E),
+                      e + "w2.weight": w(E, F)})
+    t["model.norm.weight"] = 1 + w(E) * 4
+    t["lm_head.weight"] = w(V, E)
+    return t
+
+
+def mixtral_pairs(params) -> list:
+    """(tensor or int8 pair on the card, HF name, how it was loaded) for
+    every parameter of an int8 mixtral tree: "int8" (q, s of the HF
+    matrix), "T" (the router, transposed) or "" (a norm, as written)."""
+    lp = params.layers
+    pairs = [((params.embed_q, params.embed_s), "model.embed_tokens.weight", "int8"),
+             ((params.lm_head_q, params.lm_head_s), "lm_head.weight", "int8"),
+             (params.final_norm, "model.norm.weight", "")]
+    attn = {"wq": "q_proj", "wk": "k_proj", "wv": "v_proj", "wo": "o_proj"}
+    for i in range(MIXTRAL_LOAD_LAYERS):
+        p = f"model.layers.{i}."
+        pairs += [(lp["attn_norm"][i], p + "input_layernorm.weight", ""),
+                  (lp["mlp_norm"][i], p + "post_attention_layernorm.weight", ""),
+                  (lp["moe_router"][i], p + "block_sparse_moe.gate.weight", "T")]
+        pairs += [((lp[f"{k}_q"][i], lp[f"{k}_s"][i]), f"{p}self_attn.{v}.weight", "int8")
+                  for k, v in attn.items()]
+        for x in range(MIXTRAL["experts"]):
+            e = f"{p}block_sparse_moe.experts.{x}."
+            pairs += [((lp[f"{k}_q"][i, x], lp[f"{k}_s"][i, x]), f"{e}{v}.weight", "int8")
+                      for k, v in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2"))]
+    return pairs
+
+
+def phase_mixtral_load(card: str, path: str) -> dict:
+    """A mixtral-8x7b-width checkpoint cut to 1 layer (bf16, HF
+    ``block_sparse_moe`` names, two files) loaded straight to int8 by
+    ``load_params(..., int8=True)``: every q and s bit-equal to the
+    quantization of the tensors written; then served in ``"int8-all"``
+    through ``build_torch_serving_engine`` and the HTTP pipeline."""
+    import torch
+
+    from dynamo_tpu_torch.cli.run import build_parser, make_pipelines
+    from dynamo_tpu_torch.engine_torch.engine import build_torch_serving_engine
+    from dynamo_tpu_torch.engine_torch.weights import config_from_card, load_params
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    write_model_dir(path, num_layers=MIXTRAL_LOAD_LAYERS, arch=MIXTRAL)
+    tensors = mixtral_checkpoint(torch, 41)
+    names = list(tensors)
+    split = names.index("model.layers.0.block_sparse_moe.experts.4.w1.weight")
+    t0 = time.perf_counter()
+    nbytes = 0
+    for i, part in enumerate((names[:split], names[split:])):
+        nbytes += write_safetensors(os.path.join(path, f"model-0000{i + 1}-of-00002.safetensors"),
+                                    {n: tensors[n].cpu() for n in part})
+    write_s = time.perf_counter() - t0
+    hf_card = ModelDeploymentCard.from_local_path(path)
+    cfg = config_from_card(hf_card)
+    if (cfg.num_experts, cfg.num_experts_per_tok) != (MIXTRAL["experts"], MIXTRAL["top_k"]):
+        fail(f"mixtral load: config_from_card read {cfg.num_experts} experts, top "
+             f"{cfg.num_experts_per_tok}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = load_params(hf_card, cfg, device="cuda", int8=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pairs = mixtral_pairs(params)
+    if len(pairs) != len(tensors) or not params.int8:
+        fail(f"mixtral load: {len(pairs)} parameters checked, {len(tensors)} written")
+    for got, hname, how in pairs:
+        want = tensors[hname]
+        if how == "int8":
+            ok = all(torch.equal(a, b) for a, b in zip(got, int8_quantized(want)))
+        else:
+            want = want.T if how == "T" else want
+            ok = got.shape == want.shape and torch.equal(got, want.to(got.dtype))
+        if not ok:
+            fail(f"mixtral load: {hname} differs on the card from the quantization of what "
+                 f"was written")
+    n_int8 = sum(1 for *_, how in pairs if how == "int8")
+    print(f"mixtral load: {len(pairs)} parameters on the card from the {len(tensors)} tensors "
+          f"written (mixtral-8x7b widths, {MIXTRAL_LOAD_LAYERS} layer, bf16, 2 files): "
+          f"{n_int8} int8 pairs bit-equal to the absmax/127 quantization of the tensors "
+          f"written, the router and norms bit-equal as written; no bf16 matrix on the card")
+    del params, tensors
+    torch.cuda.empty_cache()
+    flags = build_parser().parse_args(["--model-path", path, "--host", "127.0.0.1", "--port",
+                                       str(_free_port()), "--max-batch-size", "2"])
+    t0 = time.perf_counter()
+    core = build_torch_serving_engine(hf_card, max_batch_size=2, quantize="int8-all")
+    core.warmup()
+    build_s = time.perf_counter() - t0
+    try:
+        chat, comp = make_pipelines(hf_card, core)
+        with http_server(chat, comp, hf_card.display_name, flags) as port:
+            run_streams(port, request_bodies(hf_card.display_name, 2, 8), 8)
+        print("mixtral load: 2 streaming requests served over HTTP in \"int8-all\" from the "
+              "loaded checkpoint")
+    finally:
+        core.close()
+    print(f"mixtral load: {nbytes / 1e9:.3f} GB written in {write_s:.2f} s; load_params "
+          f"(int8=True) to the card in {load_s:.2f} s = {nbytes / load_s / 1e9:.2f} GB/s of "
+          f"bf16 read (files in the page cache); engine built and warmed up in {build_s:.2f} s; "
+          f"on {card}")
+    return {"gb": nbytes / 1e9, "load_s": load_s, "gb_s": nbytes / load_s / 1e9,
+            "write_s": write_s, "build_engine_s": build_s}
+
+
+def phase_mixtral_serve(card: str, model_dir: str) -> dict:
+    """mixtral-8x7b at full width and depth, random weights drawn straight
+    to int8 on the card (``init_params_int8``, through
+    ``build_torch_serving_engine(quantize="int8-all")``), behind
+    ``cli.run``'s HTTP server: 8 concurrent streams with every launch count
+    checked against the decode steps and prefill chunks that ran."""
+    import torch
+
+    from dynamo_tpu_torch.cli.run import build_parser, make_pipelines
+    from dynamo_tpu_torch.engine_torch.engine import build_torch_serving_engine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    write_model_dir(model_dir, num_layers=MIXTRAL["layers"], arch=MIXTRAL)
+    mcard = ModelDeploymentCard.from_local_path(model_dir)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    core = build_torch_serving_engine(mcard, max_batch_size=N_REQUESTS, quantize="int8-all")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    core.warmup()
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params = dict(core.params.named_parameters())
+    weights = sum(p.numel() * p.element_size() for p in params.values())
+    kv = sum(t.numel() * t.element_size() for t in core.cache.values())
+    bf16 = [n for n, p in params.items() if p.dtype == torch.bfloat16]
+    print(f"mixtral serve: {core.model_config.num_layers} layers, {core.model_config.num_experts} "
+          f"experts, int8 tree drawn on the card in {build_s:.1f} s ({weights / 1e9:.2f} GB of "
+          f"weights, {kv / 1e9:.2f} GB of KV in {core.num_blocks} blocks), warmed up in "
+          f"{warm_s:.1f} s; peak memory allocated {peak / 1e9:.2f} GB of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; bf16 parameters: "
+          f"{len(bf16)}")
+    if bf16 or not core.params.int8 or core.params_decode is not core.params:
+        fail(f"mixtral serve: the tree is not int8 alone ({bf16[:4]})")
+    if peak > 80e9:
+        fail(f"mixtral serve: peak memory {peak / 1e9:.2f} GB is over 80 GB")
+    flags = build_parser().parse_args(["--model-path", model_dir, "--host", "127.0.0.1",
+                                       "--port", str(_free_port()), "--max-batch-size",
+                                       str(N_REQUESTS)])
+    chat, comp = make_pipelines(mcard, core)
+    out = serve_and_count(card, "mixtral serve", core, chat, comp, mcard.display_name, flags)
+    steps, chunks = out["decode_steps"], out["chunk_dispatches"]
+    want = {"int8_weight_matmul": MIXTRAL_DENSE_PER_STEP * (steps + chunks),
+            "int8_expert_matmul": EXPERT_LAUNCHES_PER_STEP * (steps + chunks),
+            "paged_decode_attention": MIXTRAL["layers"] * steps}
+    got = {"int8_weight_matmul": out["int8_launches"],
+           "int8_expert_matmul": out["expert_launches"],
+           "paged_decode_attention": out["launches"]}
+    # decode (8 lanes, C = 4) on the split-K kernel; a 1024-row chunk's
+    # products (C = 512) on the tile kernel, but for its LM head, which runs
+    # on the 8 sampled rows alone (split-K)
+    per_forward = MIXTRAL_DENSE_PER_STEP + EXPERT_LAUNCHES_PER_STEP
+    want_kernels = {"w8a16_splitk_kernel": per_forward * steps + chunks,
+                    "w8a16_tile_kernel": (per_forward - 1) * chunks}
+    want_kernels = {k: n for k, n in want_kernels.items() if n}
+    print(f"mixtral serve: {steps} decode steps and {chunks} prefill chunks: launches {got}, "
+          f"expected {want} ({MIXTRAL_DENSE_PER_STEP} int8_weight_matmul, "
+          f"{EXPERT_LAUNCHES_PER_STEP} int8_expert_matmul per forward; {MIXTRAL['layers']} "
+          f"paged per decode step); int8 device launches {out['int8_kernel_launches']}, "
+          f"expected {want_kernels}")
+    if got != want or steps == 0 or out["int8_kernel_launches"] != want_kernels:
+        fail("mixtral serve: the launch counts do not match the steps that ran")
+    out.update(core=core, build_s=build_s, warmup_s=warm_s, peak_gb=peak / 1e9,
+               weights_gb=weights / 1e9, kv_gb=kv / 1e9)
+    return out
+
+
+@contextmanager
+def plain_experts():
+    """Route the MoE layer's int8 expert products through the plain version."""
+    import dynamo_tpu_torch.ops.moe as moe
+    from dynamo_tpu_torch.ops.int8_matmul import int8_expert_matmul, int8_expert_matmul_plain
+
+    moe.int8_expert_matmul = int8_expert_matmul_plain
+    try:
+        yield
+    finally:
+        moe.int8_expert_matmul = int8_expert_matmul
+
+
+@contextmanager
+def recorded_routes(into: list):
+    """Append each MoE call's (top-k expert choices [N, K], router logits
+    [N, X]) to ``into``."""
+    import dynamo_tpu_torch.ops.moe as moe
+
+    route = moe.route
+
+    def recording(router, cfg, xt):
+        probs, top_p, top_idx = route(router, cfg, xt)
+        into.append((top_idx.cpu(), (xt.float() @ router).cpu()))
+        return probs, top_p, top_idx
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def routing_compare(cfg, kern_routes: list, other_routes: list) -> dict:
+    """(layer, lane) routing choices of two full-depth runs: the ordered
+    top-k of each lane at each layer, which lanes agree at every layer, and
+    for each lane's first differing layer the kernel run's router-logit
+    gaps (first-second, second-third) and the largest change of a router
+    logit between the runs: a flip at a near-tie shows a small gap."""
+    if not len(kern_routes) == len(other_routes) == cfg.num_layers:
+        fail(f"mixtral parity: {len(kern_routes)} and {len(other_routes)} MoE calls recorded")
+    import torch
+
+    same = torch.stack([(a[0] == b[0]).all(dim=-1) for a, b in zip(kern_routes, other_routes)])
+    agree = same.all(dim=0)
+    flips = []
+    for lane in range(same.shape[1]):
+        if agree[lane]:
+            continue
+        layer = int((~same[:, lane]).nonzero()[0])
+        logits = kern_routes[layer][1][lane]
+        top = logits.sort(descending=True).values
+        moved = (logits - other_routes[layer][1][lane]).abs().max().item()
+        flips.append(dict(lane=lane, layer=layer, gap12=float(top[0] - top[1]),
+                          gap23=float(top[1] - top[2]), max_logit_change=moved))
+    return {"differ": int((~same).sum()), "agree": agree, "n_agree": int(agree.sum()),
+            "first_flips": flips}
+
+
+def phase_mixtral_parity(params, cfg) -> dict:
+    """Kernel against plain at mixtral-8x7b width in int8: one MoE layer at
+    8 and 1024 tokens (the same input, so the same routing), then one
+    full-depth ``forward_window`` step through the kernels, held against
+    the same step with every kernel's plain version, and against the step
+    with the int8 products' plain versions and the paged kernel (as phase
+    10 holds the int8 products). For each, the (layer, lane) routing
+    choices that differ are counted, and the logits are held on the lanes
+    whose choices agree at every layer, which must be at least half of
+    them."""
+    import torch
+
+    from dynamo_tpu_torch.models.llama import moe_config
+    from dynamo_tpu_torch.ops.int8_matmul import int8_expert_matmul
+    from dynamo_tpu_torch.ops.moe import moe_mlp
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    lp = params.layer(0)
+    moe_params = {"router": lp["moe_router"], "w_gate": lp["w_gate"], "w_up": lp["w_up"],
+                  "w_down": lp["w_down"]}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    layer = {}
+    for b, t in ((8, 1), (8, 128)):
+        x = torch.randn((b, t, cfg.hidden_size), generator=gen, device="cuda").bfloat16()
+        valid = torch.ones((b, t), dtype=torch.bool, device="cuda")
+        reset_all_counts()
+        with torch.no_grad():
+            kern, _ = moe_mlp(moe_params, moe_config(cfg), x, token_valid=valid)
+            torch.cuda.synchronize()
+            launched = int8_expert_matmul.launches
+            with plain_experts():
+                plain, _ = moe_mlp(moe_params, moe_config(cfg), x, token_valid=valid)
+        if launched != 3:
+            fail(f"mixtral MoE layer: {launched} expert launches, expected 3")
+        layer[b * t] = _parity(f"mixtral MoE layer parity (layer 0 of the int8 tree, {b * t} "
+                               f"tokens, C={moe_config(cfg).capacity(b * t)}, kernel vs plain "
+                               f"expert products; output)", kern.float(), plain.float())
+    case = parity_case(torch, cfg, params)
+    routes = [], [], []
+    with recorded_routes(routes[0]):
+        kern = window_logits(torch, cfg, params, case, paged_decode_attention)
+    with recorded_routes(routes[1]), plain_int8(), plain_experts():
+        plain = {"all": window_logits(torch, cfg, params, case, paged_decode_attention_plain)}
+    with recorded_routes(routes[2]), plain_int8(), plain_experts():
+        plain["int8"] = window_logits(torch, cfg, params, case, paged_decode_attention)
+    lanes = kern.shape[0]
+    lens = case[5]
+    out = {}
+    for key, label, other in (("all", "every kernel against its plain version", routes[1]),
+                              ("int8", "the int8 products against their plain version, the "
+                                       "paged kernel in both runs", routes[2])):
+        c = routing_compare(cfg, routes[0], other)
+        print(f"mixtral decode routing [{label}]: {c['differ']} of {cfg.num_layers * lanes} "
+              f"(layer, lane) routing choices differ; {c['n_agree']} of {lanes} lanes agree at "
+              f"every layer; first differing layer per lane, with the kernel run's router-logit "
+              f"gaps (1st-2nd, 2nd-3rd) there and the largest router-logit change: "
+              + "; ".join(f"lane {f['lane']} layer {f['layer']} gaps {f['gap12']:.4f}, "
+                          f"{f['gap23']:.4f}, change {f['max_logit_change']:.4f}"
+                          for f in c["first_flips"]))
+        if 2 * c["n_agree"] < lanes:
+            fail(f"mixtral parity [{label}]: only {c['n_agree']} of {lanes} lanes route alike "
+                 f"at every layer")
+        agree = c["agree"]
+        c["ratio"] = _parity(f"mixtral decode parity (forward_window of the int8 tree, 32 layers, "
+                             f"{label}; the {c['n_agree']} lanes that route alike; lengths "
+                             f"{int(lens.min())}-{int(lens.max())})",
+                             kern[agree], plain[key][agree])
+        c["agree"] = agree.tolist()
+        out[key] = c
+    return {"layer_ratio": layer, "window": out, "lanes": lanes}
 
 
 def main() -> int:
@@ -1249,6 +1776,7 @@ def main() -> int:
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels, card)
     int8k = timed("int8 kernel", phase_int8_kernel, card)
+    expk = timed("expert kernel", phase_expert_kernel, card)
     with tempfile.TemporaryDirectory() as tmp:
         loaded = timed("load", phase_load, card, os.path.join(tmp, "llama3-8b-2-layers"))
     torch.cuda.empty_cache()
@@ -1259,8 +1787,30 @@ def main() -> int:
         int8s = timed("int8 serve", phase_int8_serve, card, served)
     int8p = timed("int8 parity", phase_int8_parity, int8s["core"])
     int8s.pop("core").close()
+    # every llama engine is closed: free the card for mixtral's 47 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"llama engines closed: {left / 1e9:.3f} GB still allocated on the card")
+    if left > 1e9:
+        fail(f"{left / 1e9:.2f} GB still allocated after the llama phases")
+    with tempfile.TemporaryDirectory() as tmp:
+        mixl = timed("mixtral load", phase_mixtral_load, card,
+                     os.path.join(tmp, "mixtral-8x7b-1-layer"))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mixs = timed("mixtral serve", phase_mixtral_serve, card,
+                     os.path.join(tmp, "mixtral-8x7b-random"))
+    mix_core = mixs.pop("core")
+    mix_core.close()
+    mix_params, mix_cfg = mix_core.params, mix_core.model_config
+    del mix_core
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixp = timed("mixtral parity", phase_mixtral_parity, mix_params, mix_cfg)
+    del mix_params
     main_regime = kern[REGIMES[0][0]]
-    step = int8k["per_step"]
+    step, estep = int8k["per_step"], expk["per_step"]
     decode_cases = [c for c in int8k["cases"] if c["M"] in (1, 8) and c["x"] == "bf16"]
     (chunk_case,) = [c for c in int8k["cases"] if c["M"] == 1024]
     line = {"kernels": [{
@@ -1281,6 +1831,7 @@ def main() -> int:
         "device_launches_per_call": served["device_launches_per_call"],
         "splits": served["splits"],
         "launches_int8_serve": int8s["launches"],
+        "launches_mixtral_serve": mixs["launches"],
         "regimes": [dict(name=k, **v) for k, v in kern.items()],
     }, {
         "name": "int8_weight_matmul",
@@ -1289,6 +1840,7 @@ def main() -> int:
         "replaces": "dynamo_tpu/models/llama.py:255 (matw, and lm_head :456: XLA's fused "
                     "int8 convert-dot, no Pallas kernel)",
         "launches": int8s["int8_launches"],
+        "launches_mixtral_serve": mixs["int8_launches"],
         # one decode step at M = 8: the 225 launches over the five shapes
         "unit": f"one decode step, M=8, {INT8_LAUNCHES_PER_STEP} launches",
         "max_abs_err": max(c["max_abs_err"] for c in decode_cases),
@@ -1308,10 +1860,39 @@ def main() -> int:
         "prefill_chunk": chunk_case,
         "cases": int8k["cases"],
         "kernel_sweep": int8k["sweep"],
+    }, {
+        "name": "int8_expert_matmul",
+        "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "dynamo_tpu/ops/moe.py:70 (_expert_mat: XLA's fused int8 convert-einsum "
+                    "over the expert stack, no Pallas kernel)",
+        "launches": mixs["expert_launches"],
+        # one mixtral decode step at C = 4: the 96 launches over the two shapes
+        "unit": f"one mixtral-8x7b decode step, 8 experts, C=4, {EXPERT_LAUNCHES_PER_STEP} "
+                f"launches",
+        "max_abs_err": max(c["max_abs_err"] for c in expk["cases"] if c["C"] == 4),
+        "ms": estep["ms"],
+        "graph_ms": estep["graph_ms"],
+        "plain_ms": estep["plain_ms"],
+        "bound_ms": estep["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": estep["library_ms"],
+        "library_graph_ms": estep["library_graph_ms"],
+        "bound_share": estep["bound_share"],
+        "launches_per_decode_step": EXPERT_LAUNCHES_PER_STEP,
+        "decode_steps": mixs["decode_steps"],
+        "chunk_dispatches": mixs["chunk_dispatches"],
+        "device_launches_int8_both_wrappers": mixs["int8_kernel_launches"],
+        "cases": expk["cases"],
     }], "serve": {"ttft_p50_ms": served["ttft_p50_ms"], "decode_tok_s": served["decode_tok_s"],
                   "profile": served["profile"], "parity_ratio": parity},
         "int8_serve": {"ttft_p50_ms": int8s["ttft_p50_ms"], "decode_tok_s": int8s["decode_tok_s"],
                        "profile": int8s["profile"], **int8p},
+        "mixtral_serve": {k: mixs[k] for k in (
+            "ttft_p50_ms", "decode_tok_s", "profile", "peak_gb", "weights_gb", "kv_gb", "build_s",
+            "warmup_s", "decode_steps", "chunk_dispatches", "launches", "int8_launches",
+            "expert_launches")},
+        "mixtral_parity": mixp, "mixtral_load": mixl,
         "load": loaded, "phase_seconds": seconds,
         "card": card, "seconds": time.perf_counter() - t0}
     print(json.dumps(line))

@@ -108,6 +108,19 @@
 // it runs a CUDA-core kernel, w8f32_kernel: one warp per weight row, 16-byte
 // loads.
 //
+// Expert stacks (the MoE layer's w_gate, w_up and w_down, ops/moe.py): one
+// launch computes E independent products x[e] @ q[e].T of one stack, with
+// the expert axis in the grid: z of the tile kernel, folded into z (expert
+// major, lane tile minor) of the split-K kernel, whose clusters span only
+// the split axis y, and z of the CUDA-core kernel. It replaces XLA's fused
+// int8 convert-einsum of dynamo_tpu/ops/moe.py:70 (_expert_mat), again no
+// Pallas kernel. The tile kernel's tensor maps span all experts' rows; a
+// tile of expert e starts at row e·M of x and e·N of q, and the rows it reads
+// past M or N belong to expert e + 1 (or are TMA's zero fill past the last)
+// and reach no store: every store is masked at M and N. The wrapper plans
+// the launch from (E, M, N, K), so a stack of E experts at M = 4 takes one
+// split where one product would take several.
+//
 // Unsupported shapes are refused: N must be a multiple of 16 and K of 64
 // (every llama-family width in the presets is a multiple of 128), and the
 // pointers 16-byte aligned; the wrapper checks and raises.
@@ -428,7 +441,10 @@ __device__ __forceinline__ void load_stage_a(uint32_t base, int st, int kb, cons
   tma_load_2d(base + G::QOFF + st * G::QTILE, tmq, kb * kBK, n0, bar);
 }
 
-// grid (ceil(M / 128), ceil(N / BN)), 256 threads, GeoA<BN>::SMEM bytes
+// grid (ceil(M / 128), ceil(N / BN), experts), 256 threads, GeoA<BN>::SMEM
+// bytes. The tensor maps span the experts' rows ([experts·M, K] and
+// [experts·N, K]); expert e's tiles start at row e·M of x and e·N of q, and
+// the rows a tile reads past M or N (the next expert's) reach no store.
 template <int BN, typename TO>
 __global__ void __launch_bounds__(kThreadsA, 1)
     w8a16_tile_kernel(const __grid_constant__ CUtensorMap tmx,
@@ -440,7 +456,10 @@ __global__ void __launch_bounds__(kThreadsA, 1)
   const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle wants 1024-byte tiles
   uint8_t* sm = smem_raw + (base - raw);
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN, e = blockIdx.z;
+  s += (size_t)e * N;
+  out += (size_t)e * M * N;
+  const int xrow = e * M + m0, qrow = e * N + n0;  // this tile's first rows in the maps
   const int nk = K / kBK;
   const uint32_t bars = base + G::BAROFF;  // one mbarrier per stage, 8 bytes each
   if (tid == 0) {
@@ -450,7 +469,7 @@ __global__ void __launch_bounds__(kThreadsA, 1)
   __syncthreads();
   if (tid == 0) {
     for (int st = 0; st < kStagesA && st < nk; ++st) {
-      load_stage_a<BN>(base, st, st, &tmx, &tmq, m0, n0);
+      load_stage_a<BN>(base, st, st, &tmx, &tmq, xrow, qrow);
     }
   }
   float acc[BN / 2];
@@ -479,7 +498,7 @@ __global__ void __launch_bounds__(kThreadsA, 1)
     // both warpgroups are done with k-block kb - 1: its stage and its bf16 tile are free
     __syncthreads();
     if (tid == 0 && kb >= 1 && kb - 1 + kStagesA < nk) {
-      load_stage_a<BN>(base, (kb - 1) % kStagesA, kb - 1 + kStagesA, &tmx, &tmq, m0, n0);
+      load_stage_a<BN>(base, (kb - 1) % kStagesA, kb - 1 + kStagesA, &tmx, &tmq, xrow, qrow);
     }
     // while k-block kb runs: dequantize k-block kb + 1 into the other bf16 tile
     if (kb + 1 < nk) {
@@ -553,20 +572,30 @@ __device__ __forceinline__ float ld_cluster(uint32_t local, int rank) {
   return v;
 }
 
-// grid (ceil(N / (16·RG)), splits, ceil(M / (8·MT))), 256 threads,
-// 4·GeoB<RG, MT>::STAGE bytes; a cluster of the `splits` blocks of a
-// tile. Split i takes 64-wide chunks [i·C/splits, (i+1)·C/splits) of K.
-// Warp w computes row group w % RG over part w / RG of every stage's chunks.
+// grid (ceil(N / (16·RG)), splits, experts · ceil(M / (8·MT))), 256
+// threads, 4·GeoB<RG, MT>::STAGE bytes; a cluster of the `splits` blocks of
+// a tile (the cluster spans y only: never two experts). z is the expert
+// (major) and the lane tile (minor); expert e's x, q, s and out start
+// e·M·K, e·N·K, e·N and e·M·N elements in. Split i takes 64-wide chunks
+// [i·C/splits, (i+1)·C/splits) of K. Warp w computes row group w % RG over
+// part w / RG of every stage's chunks.
 template <int RG, int MT, typename TO>
 __global__ void __launch_bounds__(kThreadsB)
     w8a16_splitk_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                         const float* __restrict__ s, TO* __restrict__ out, int M, int N, int K,
-                        int splits) {
+                        int splits) {  // x, q, s, out: the first expert's
   using G = GeoB<RG, MT>;
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, rg = warp % RG, part_k = warp / RG;
-  const int n0 = blockIdx.x * G::ROWS, split = blockIdx.y, m0 = blockIdx.z * (MT * kLanes);
+  const int mtiles = (M + MT * kLanes - 1) / (MT * kLanes);
+  const int e = blockIdx.z / mtiles;
+  const int n0 = blockIdx.x * G::ROWS, split = blockIdx.y;
+  const int m0 = (blockIdx.z - e * mtiles) * (MT * kLanes);
+  x += (size_t)e * M * K;
+  q += (size_t)e * N * K;
+  s += (size_t)e * N;
+  out += (size_t)e * M * N;
   const int rows = min(G::ROWS, N - n0), lanes = min(MT * kLanes, M - m0);
   const int chunks = K / kChunk;
   const int c0 = (int)((long long)split * chunks / splits);
@@ -708,12 +737,16 @@ __global__ void __launch_bounds__(kThreadsB)
 constexpr int kWarpsF = 8;
 
 // one warp per weight row, each lane 16 k at a time, 8 lanes of x per block
-// row; grid (N / 8, ceil(M / 8))
+// row; grid (N / 8, ceil(M / 8), experts)
 template <typename TO>
 __global__ void __launch_bounds__(kWarpsF * 32)
     w8f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
                  const float* __restrict__ s, TO* __restrict__ out, int M, int N, int K) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  x += (size_t)blockIdx.z * M * K;
+  q += (size_t)blockIdx.z * N * K;
+  s += (size_t)blockIdx.z * N;
+  out += (size_t)blockIdx.z * M * N;
   const int n = blockIdx.x * kWarpsF + warp;
   const int m0 = blockIdx.y * kLanes;
   const int8_t* qr = q + (size_t)n * K;
@@ -812,24 +845,24 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, cons
 
 template <int BN, typename TO>
 cudaError_t launch_tile(const void* x, const int8_t* q, const float* s, void* out, int M, int N,
-                        int K, cudaStream_t stream, int* launched) {
+                        int K, int E, cudaStream_t stream, int* launched) {
   static unsigned long long smem_done = 0;
   cudaError_t err = allow_smem(w8a16_tile_kernel<BN, TO>, GeoA<BN>::SMEM, smem_done);
   if (err != cudaSuccess) return err;
   CUtensorMap tmx, tmq;
-  if (!tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, kBM,
+  if (!tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, E * M, K, kBM,
                   CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, N, K, BN,
+      !tensor_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, E * N, K, BN,
                   CU_TENSOR_MAP_SWIZZLE_NONE)) {
     return cudaErrorInvalidValue;
   }
-  dim3 grid((M + kBM - 1) / kBM, (N + BN - 1) / BN);
+  dim3 grid((M + kBM - 1) / kBM, (N + BN - 1) / BN, E);
   w8a16_tile_kernel<BN, TO><<<grid, kThreadsA, GeoA<BN>::SMEM, stream>>>(
       tmx, tmq, s, static_cast<TO*>(out), M, N, K);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
     launched[0] = 1;
-    launched[1] = grid.x * grid.y;
+    launched[1] = grid.x * grid.y * grid.z;
     launched[2] = 1;
   }
   return err;
@@ -837,7 +870,7 @@ cudaError_t launch_tile(const void* x, const int8_t* q, const float* s, void* ou
 
 template <int RG, int MT, typename TO>
 cudaError_t launch_splitk(const void* x, const int8_t* q, const float* s, void* out, int M, int N,
-                          int K, int splits, cudaStream_t stream, int* launched) {
+                          int K, int E, int splits, cudaStream_t stream, int* launched) {
   using G = GeoB<RG, MT>;
   auto kernel = w8a16_splitk_kernel<RG, MT, TO>;
   const int smem = kStagesB * G::STAGE;
@@ -849,7 +882,8 @@ cudaError_t launch_splitk(const void* x, const int8_t* q, const float* s, void* 
   }
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + G::ROWS - 1) / G::ROWS, splits, (M + MT * kLanes - 1) / (MT * kLanes));
+  cfg.gridDim =
+      dim3((N + G::ROWS - 1) / G::ROWS, splits, E * ((M + MT * kLanes - 1) / (MT * kLanes)));
   cfg.blockDim = dim3(kThreadsB);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -873,76 +907,82 @@ cudaError_t launch_splitk(const void* x, const int8_t* q, const float* s, void* 
 
 template <int RG, typename TO>
 cudaError_t launch_splitk_m(const void* x, const int8_t* q, const float* s, void* out, int M,
-                            int N, int K, int splits, cudaStream_t stream, int* launched) {
+                            int N, int K, int E, int splits, cudaStream_t stream, int* launched) {
   if (M <= kLanes) {
-    return launch_splitk<RG, 1, TO>(x, q, s, out, M, N, K, splits, stream, launched);
+    return launch_splitk<RG, 1, TO>(x, q, s, out, M, N, K, E, splits, stream, launched);
   }
   if (M <= 2 * kLanes) {
-    return launch_splitk<RG, 2, TO>(x, q, s, out, M, N, K, splits, stream, launched);
+    return launch_splitk<RG, 2, TO>(x, q, s, out, M, N, K, E, splits, stream, launched);
   }
   if (M <= 4 * kLanes) {
-    return launch_splitk<RG, 4, TO>(x, q, s, out, M, N, K, splits, stream, launched);
+    return launch_splitk<RG, 4, TO>(x, q, s, out, M, N, K, E, splits, stream, launched);
   }
   if constexpr (RG == 1) {  // 16-row blocks with 8 lane tiles: a ring over 227 KB
     return cudaErrorInvalidValue;
   } else {
-    return launch_splitk<RG, 8, TO>(x, q, s, out, M, N, K, splits, stream, launched);
+    return launch_splitk<RG, 8, TO>(x, q, s, out, M, N, K, E, splits, stream, launched);
   }
 }
 
 template <typename TO>
 cudaError_t launch_out(const void* x, const int8_t* q, const float* s, void* out, int M, int N,
-                       int K, int x_dtype, int path, int splits, int rows,
+                       int K, int E, int x_dtype, int path, int splits, int rows,
                        cudaStream_t stream, int* launched) {
   if (x_dtype == 0) {
-    dim3 grid(N / kWarpsF, (M + kLanes - 1) / kLanes);
+    dim3 grid(N / kWarpsF, (M + kLanes - 1) / kLanes, E);
     w8f32_kernel<TO><<<grid, kWarpsF * 32, 0, stream>>>(static_cast<const float*>(x), q, s,
                                                          static_cast<TO*>(out), M, N, K);
     cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) {
       launched[0] = 3;
-      launched[1] = grid.x * grid.y;
+      launched[1] = grid.x * grid.y * grid.z;
       launched[2] = 1;
     }
     return err;
   }
   if (x_dtype != 1) return cudaErrorInvalidValue;
   if (path == 1) {  // rows: the tile's weight rows
-    if (rows == 256) return launch_tile<256, TO>(x, q, s, out, M, N, K, stream, launched);
-    if (rows == 224) return launch_tile<224, TO>(x, q, s, out, M, N, K, stream, launched);
-    if (rows == 128) return launch_tile<128, TO>(x, q, s, out, M, N, K, stream, launched);
+    if (rows == 256) return launch_tile<256, TO>(x, q, s, out, M, N, K, E, stream, launched);
+    if (rows == 224) return launch_tile<224, TO>(x, q, s, out, M, N, K, E, stream, launched);
+    if (rows == 128) return launch_tile<128, TO>(x, q, s, out, M, N, K, E, stream, launched);
     return cudaErrorInvalidValue;
   }
   if (path != 2 || splits < 1 || splits > K / kChunk || splits > kMaxSplits) {
     return cudaErrorInvalidValue;
   }
   if (rows == 64) {
-    return launch_splitk_m<4, TO>(x, q, s, out, M, N, K, splits, stream, launched);
+    return launch_splitk_m<4, TO>(x, q, s, out, M, N, K, E, splits, stream, launched);
   }
   if (rows == 16) {
-    return launch_splitk_m<1, TO>(x, q, s, out, M, N, K, splits, stream, launched);
+    return launch_splitk_m<1, TO>(x, q, s, out, M, N, K, E, splits, stream, launched);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x_dtype and out_dtype: 0 = float32, 1 = bfloat16. path (bf16 x only; fp32
-// x always runs the CUDA-core kernel): 1 = the wgmma tile kernel with tiles
-// of `rows` weight rows (128, 224 or 256), 2 = the split-K kernel with
-// blocks of `rows` weight rows (64 or 16) and `splits` splits of K
-// (1 <= splits <= min(K / 64, 16)).
+// x [E, M, K], q [E, N, K], s [E, N] and out [E, M, N], each contiguous:
+// E (experts) independent products of one launch, with the expert axis in
+// the grid (E = 1: one product). x_dtype and out_dtype: 0 = float32, 1 =
+// bfloat16. path (bf16 x only; fp32 x always runs the CUDA-core kernel): 1 =
+// the wgmma tile kernel with tiles of `rows` weight rows (128, 224 or 256), 2
+// = the split-K kernel with blocks of `rows` weight rows (64 or 16) and
+// `splits` splits of K (1 <= splits <= min(K / 64, 16)).
 // launched (3 ints, host memory) reports the launch: [0] the kernel (1 tile,
 // 2 split-K, 3 CUDA-core, 0 none), [1] its blocks, [2] its splits. Returns
 // the launch's error (cudaGetLastError() after it), 0 when the kernel
 // launched; M = 0 launches nothing and returns 0.
 extern "C" int int8_weight_matmul_launch(const void* x, const void* q, const void* s, void* out,
-                                         int M, int N, int K, int x_dtype, int out_dtype, int path,
-                                         int splits, int rows, void* stream, int* launched) {
+                                         int M, int N, int K, int E, int x_dtype, int out_dtype,
+                                         int path, int splits, int rows, void* stream,
+                                         int* launched) {
   if (launched == nullptr) return (int)cudaErrorInvalidValue;
   launched[0] = launched[1] = launched[2] = 0;
   if (M == 0) return 0;
-  if (M < 0 || N <= 0 || K <= 0 || N % 16 != 0 || K % kChunk != 0) {
+  // the grid's z (experts x lane tiles) and the tensor maps' rows (E·M, E·N)
+  if (M < 0 || N <= 0 || K <= 0 || E <= 0 || N % 16 != 0 || K % kChunk != 0 ||
+      (long long)E * ((M + 7) / 8) > 65535 || (long long)E * M > (1ll << 31) - 1 ||
+      (long long)E * N > (1ll << 31) - 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -950,9 +990,10 @@ extern "C" int int8_weight_matmul_launch(const void* x, const void* q, const voi
   const float* sp = static_cast<const float*>(s);
   cudaError_t err;
   if (out_dtype == 0) {
-    err = launch_out<float>(x, qp, sp, out, M, N, K, x_dtype, path, splits, rows, st, launched);
+    err = launch_out<float>(x, qp, sp, out, M, N, K, E, x_dtype, path, splits, rows, st,
+                            launched);
   } else if (out_dtype == 1) {
-    err = launch_out<__nv_bfloat16>(x, qp, sp, out, M, N, K, x_dtype, path, splits, rows, st,
+    err = launch_out<__nv_bfloat16>(x, qp, sp, out, M, N, K, E, x_dtype, path, splits, rows, st,
                                     launched);
   } else {
     err = cudaErrorInvalidValue;

@@ -24,7 +24,11 @@ Counterpart of the main path of the JAX package's ``engine_jax/engine.py``:
 - **Weight-only int8** (``EngineConfig.quantize``, the JAX modes):
   ``"int8"`` decodes from an int8 copy of the weights (``params_decode``)
   and prefills from the bf16 ones (``params``); ``"int8-all"`` keeps only
-  the int8 tree for both. Int8 products go through the W8A16 kernel.
+  the int8 tree for both. Int8 products go through the W8A16 kernels (an
+  MoE expert stack in one launch).
+- **The mixtral family** needs nothing of its own here: the model's MLP
+  block routes through ``ops/moe.py``, padding lanes masked out of routing
+  by their positions.
 
 Not in this engine yet (later slices, ROADMAP.md): speculative verify, int8
 KV, the host KV tier, disaggregated prefill, live migration,
@@ -1080,20 +1084,26 @@ def build_torch_serving_engine(
     decode_steps: int = 4,
     device: Optional[str] = None,
     dtype: torch.dtype = torch.bfloat16,
+    quantize: Optional[str] = None,
 ) -> TorchServingEngine:
     """CLI entry: model + engine from a ModelDeploymentCard, on CUDA unless
-    ``device="cpu"``."""
+    ``device="cpu"``. ``quantize`` is :class:`EngineConfig`'s; with
+    ``"int8-all"`` the weights are quantized as they are loaded (or drawn),
+    so the bf16 tree never exists on the device: how a model too large for
+    the card in bf16 (mixtral-8x7b) is served."""
     from .weights import config_from_card, load_params
 
     dev = resolve_device(device)
     model_config = config_from_card(card, dtype=dtype)
-    params = load_params(card, model_config, seed=seed, device=dev)
+    params = load_params(card, model_config, seed=seed, device=dev,
+                         int8=quantize == "int8-all")
     engine_config = EngineConfig(
         max_slots=max_batch_size,
         kv_block_size=kv_block_size,
         max_model_len=max_model_len or min(card.context_length, 4096),
         num_kv_blocks=num_kv_blocks,
         decode_steps=decode_steps,
+        quantize=quantize,
     )
     return TorchServingEngine(
         model_config, params, engine_config, device=dev, event_sink=event_sink

@@ -6,9 +6,13 @@ does: a card with a ``gguf_path`` loads the GGUF file (``llm/gguf.py``), a
 directory with ``*.safetensors`` files loads those (``safetensors.py``, the
 port's own reader), and a directory without weight files gets deterministic
 random weights made on the device. Tensors go to the device one at a time.
-:func:`params_from_numpy` carries the JAX package's parameter pytree across
-(its int8 tree too), so both packages compute the same function in the
-tests.
+With ``int8`` (the ``"int8-all"`` mode) each matrix is quantized as it
+reaches the card, so the bf16 tree never exists there: the way a model too
+large for the card in bf16 (mixtral-8x7b) is served. The mixtral family's HF
+names (``block_sparse_moe.gate`` and ``experts.{x}.w1/w3/w2``) load into the
+router and the expert stacks. :func:`params_from_numpy` carries the JAX
+package's parameter pytree across (its int8 tree too), so both packages
+compute the same function in the tests.
 """
 
 from __future__ import annotations
@@ -20,7 +24,14 @@ import numpy as np
 import torch
 
 from ..llm.model_card import ModelDeploymentCard
-from ..models.llama import LlamaConfig, LlamaParams, init_params
+from ..models.llama import (
+    LlamaConfig,
+    LlamaParams,
+    init_params,
+    init_params_int8,
+    quantize_matrix,
+    quantize_params_int8,
+)
 from .safetensors import hf_tensors
 
 logger = logging.getLogger(__name__)
@@ -31,13 +42,13 @@ _HF_MATS = {
     "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
     "w_down": "mlp.down_proj",
 }
+# the mixtral family's expert matrices: block_sparse_moe.experts.{x}.<name>
+_HF_EXPERTS = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
 
 
 def config_from_card(card: ModelDeploymentCard, dtype: torch.dtype = torch.bfloat16) -> LlamaConfig:
     """Derive a LlamaConfig from the card's HF config.json contents."""
     mc = card.model_config or {}
-    if int(mc.get("num_local_experts", 0) or 0) > 1:
-        raise ValueError("MoE models are not supported by the torch engine yet")
     hidden = int(mc.get("hidden_size", 4096))
     heads = int(mc.get("num_attention_heads", 32))
     return LlamaConfig(
@@ -52,56 +63,91 @@ def config_from_card(card: ModelDeploymentCard, dtype: torch.dtype = torch.bfloa
         rms_norm_eps=float(mc.get("rms_norm_eps", 1e-5)),
         tie_embeddings=bool(mc.get("tie_word_embeddings", False)),
         qkv_bias=mc.get("model_type") == "qwen2",
+        # mixtral family: sparse MoE MLP
+        num_experts=int(mc.get("num_local_experts", 0) or 0),
+        num_experts_per_tok=int(mc.get("num_experts_per_tok", 2)),
         dtype=dtype,
     )
 
 
 def load_params(card: ModelDeploymentCard, config: LlamaConfig, seed: int = 0,
-                device="cuda") -> LlamaParams:
-    """Load llama weights (GGUF or safetensors) onto ``device``, or
-    random-initialise there when the card has no weight files."""
+                device="cuda", int8: bool = False) -> LlamaParams:
+    """Load llama-family weights (GGUF or safetensors) onto ``device``, or
+    random-initialise there when the card has no weight files. ``int8``
+    gives the int8 tree of ``quantize_params_int8``, built without the bf16
+    one from safetensors files or a seed (a GGUF file is read in bf16 and
+    then quantized)."""
     gguf_path = getattr(card, "gguf_path", None)
     if gguf_path:
         from ..llm.gguf import gguf_params, read_gguf
 
-        return gguf_params(read_gguf(gguf_path), config, device=device)
+        params = gguf_params(read_gguf(gguf_path), config, device=device)
+        return quantize_params_int8(params, config) if int8 else params
     tensors = hf_tensors(card.model_path) if card.model_path else None
     if tensors is None:
         logger.info("no weight files for %s: random-initializing", card.display_name)
-        return init_params(config, seed=seed, device=device)
-    return params_from_hf(tensors, config, device=device)
+        init = init_params_int8 if int8 else init_params
+        return init(config, seed=seed, device=device)
+    return params_from_hf(tensors, config, device=device, int8=int8)
 
 
 def params_from_hf(tensors: Mapping[str, Union[torch.Tensor, np.ndarray]], config: LlamaConfig,
-                   device="cpu") -> LlamaParams:
-    """HF llama/qwen2 naming → :class:`LlamaParams` on ``device``: ``[out,
-    in]`` matrices transposed to ``[in, out]``, layers stacked, the qwen2
-    ``bq/bk/bv`` added and ``tie_word_embeddings`` honoured (no
-    ``lm_head.weight`` is read). Norms and biases are fp32, matrices the
-    config dtype. Each tensor is copied to the device as stored, then
-    transposed and converted there, one at a time."""
+                   device="cpu", int8: bool = False) -> LlamaParams:
+    """HF llama/qwen2/mixtral naming → :class:`LlamaParams` on ``device``:
+    ``[out, in]`` matrices transposed to ``[in, out]``, layers (and a
+    mixtral layer's experts) stacked, the mixtral router
+    ``block_sparse_moe.gate`` [X, E] transposed to ``[E, X]`` fp32, the
+    qwen2 ``bq/bk/bv`` added and ``tie_word_embeddings`` honoured (no
+    ``lm_head.weight`` is read). Norms, biases and the router are fp32,
+    matrices the config dtype. Each tensor is copied to the device as
+    stored, then converted there, one at a time. ``int8``: each matrix,
+    converted to the config dtype, is quantized on the device as it
+    arrives (HF ``[out, in]`` is already the int8 ``q`` layout), which
+    gives ``quantize_params_int8`` of the bf16 tree bit for bit."""
     c = config
-    params = LlamaParams(c, torch.device(device))
+    params = LlamaParams(c, torch.device(device), int8=int8)
 
-    def put(dst: torch.Tensor, name: str, transpose: bool = False) -> None:
+    def fetch(name: str) -> torch.Tensor:
         t = tensors[name]
         if isinstance(t, np.ndarray):
             t = torch.from_numpy(t)
-        t = t.to(dst.device)
+        return t.to(params.final_norm.device)
+
+    def put(dst: torch.Tensor, name: str, transpose: bool = False) -> None:
+        t = fetch(name)
         dst.copy_(t.T if transpose else t)
+
+    def put_mat(ours: str, idx: tuple, name: str) -> None:
+        """An HF [out, in] matrix into parameter ``ours`` (a name of
+        ``param_shapes``) at ``idx``; the embedding [V, E] as it is."""
+        embed = ours == "embed"
+        if not int8:
+            put(params.get_parameter(ours)[idx], name, transpose=not embed)
+            return
+        w = fetch(name).to(c.dtype)
+        q, s = quantize_matrix(w if embed else w.T, per_row=embed)
+        params.get_parameter(ours + "_q")[idx].copy_(q)
+        params.get_parameter(ours + "_s")[idx].copy_(s)
 
     lp = params.layers
     with torch.no_grad():
-        put(params.embed, "model.embed_tokens.weight")
+        put_mat("embed", (), "model.embed_tokens.weight")
         put(params.final_norm, "model.norm.weight")
         if not c.tie_embeddings:
-            put(params.lm_head, "lm_head.weight", transpose=True)
+            put_mat("lm_head", (), "lm_head.weight")
         for i in range(c.num_layers):
             pre = f"model.layers.{i}."
             put(lp["attn_norm"][i], pre + "input_layernorm.weight")
             put(lp["mlp_norm"][i], pre + "post_attention_layernorm.weight")
             for ours, hf in _HF_MATS.items():
-                put(lp[ours][i], f"{pre}{hf}.weight", transpose=True)
+                if c.num_experts > 1 and ours in _HF_EXPERTS:
+                    for x in range(c.num_experts):
+                        put_mat(f"layers.{ours}", (i, x), f"{pre}block_sparse_moe.experts."
+                                                          f"{x}.{_HF_EXPERTS[ours]}.weight")
+                else:
+                    put_mat(f"layers.{ours}", (i,), f"{pre}{hf}.weight")
+            if c.num_experts > 1:
+                put(lp["moe_router"][i], pre + "block_sparse_moe.gate.weight", transpose=True)
             if c.qkv_bias:
                 for ours, hf in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
                     put(lp[ours][i], f"{pre}self_attn.{hf}.bias")

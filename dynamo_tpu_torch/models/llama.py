@@ -6,16 +6,23 @@ an ``nn.Module`` (:class:`LlamaParams`) that holds the same stacked
 (``engine_torch/weights.py``). The layer loop is a Python loop over the
 stacked leading axis (the JAX package scans it).
 
+The mixtral family (``num_experts > 1``) replaces the dense FFN by the
+sparse MoE layer of ``ops/moe.py`` in every path (:func:`mlp_block`), with
+expert stacks ``[L, X, in, out]`` and a router ``[L, E, X]`` in fp32.
+
 Weight-only int8 (the JAX ``quantize_params_int8``, ``matw``, int8
 ``embed_lookup`` and ``lm_head``): :func:`quantize_params_int8` gives a
 :class:`LlamaParams` whose matrices are :class:`Int8Weight` pairs, ``q`` int8
-and ``s`` fp32 per output channel. **Layout:** ``q`` is ``[..., out, in]``
-with K contiguous, the transpose of the JAX ``[in, out]`` ``q`` (and of the
-port's own bf16 matrices): the natural operand of a small-M kernel, and the
-layout of the embedding ``[V, E]``, so the tied LM head (per-row scales) is
-one more weight of the same kind. ``engine_torch/weights.py`` transposes a
+and ``s`` fp32 per output channel. :func:`init_params_int8` makes the same
+int8 tree from a seed without the bf16 one ever existing (the fit mode of a
+model too large for the card in bf16: mixtral-8x7b). **Layout:** ``q`` is
+``[..., out, in]`` with K contiguous, the transpose of the JAX ``[in, out]``
+``q`` (and of the port's own bf16 matrices): the natural operand of a
+small-M kernel, and the layout of the embedding ``[V, E]``, so the tied LM
+head (per-row scales) is one more weight of the same kind. ``engine_torch/weights.py`` transposes a
 JAX int8 tree on the way in. Every int8 product goes through
-``ops/int8_matmul.py`` (the CUDA kernel on the card).
+``ops/int8_matmul.py`` (the CUDA kernels on the card; an expert stack in
+one launch).
 
 The KV cache is ``{"k": [L, N, bs, KVH, D], "v": ...}`` (the JAX layout) and
 is updated in place. Decode history always goes through the paged flash-decode
@@ -25,15 +32,17 @@ not ported (its choice was tuned on a TPU).
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..ops.attention import gather_pages, paged_attention, write_kv_to_pages
-from ..ops.int8_matmul import int8_weight_matmul
+from ..ops.int8_matmul import Int8Weight, int8_weight_matmul
+from ..ops.moe import MoeConfig, moe_mlp
 from ..ops.paged_attention import paged_decode_attention
 
 KVCache = Dict[str, torch.Tensor]  # {"k": [L,N,bs,KVH,D], "v": ...}
@@ -52,6 +61,11 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     tie_embeddings: bool = False
     qkv_bias: bool = False  # qwen2-family attention biases
+    # sparse MoE MLP (mixtral family): > 1 routes every path's MLP block
+    # through ops/moe.py; 0/1 = dense MLP
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    expert_capacity_factor: float = 2.0  # serving: generous, rare drops
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -88,18 +102,21 @@ LLAMA_PRESETS: Dict[str, LlamaConfig] = {
         rope_theta=1000000.0, rms_norm_eps=1e-6, qkv_bias=True,
         tie_embeddings=True,
     ),
+    # mixtral family: llama attention + sparse MoE MLP
+    "tiny-moe": LlamaConfig(
+        vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=16, rope_theta=10000.0,
+        num_experts=4, num_experts_per_tok=2,
+    ),
+    "mixtral-8x7b": LlamaConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+        rope_theta=1000000.0, num_experts=8, num_experts_per_tok=2,
+    ),
 }
 
 
 # -- params ------------------------------------------------------------------
-
-class Int8Weight(NamedTuple):
-    """A weight-only int8 matrix: ``q`` [..., out, in] int8 (K contiguous)
-    and ``s`` [..., out] fp32, the absmax/127 scale of each output channel."""
-
-    q: torch.Tensor
-    s: torch.Tensor
-
 
 Weight = Union[torch.Tensor, Int8Weight]
 # the dense matrices of a layer, quantized by quantize_params_int8
@@ -108,25 +125,30 @@ INT8_MATS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 def param_shapes(c: LlamaConfig, int8: bool = False
                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """name → (shape, dtype); ``layers.*`` are stacked over L. With ``int8``
-    each matrix ``name`` is ``name_q`` [..., out, in] int8 plus ``name_s``
-    [..., out] fp32 (the embedding per row, the LM head per vocab entry)."""
+    """name → (shape, dtype); ``layers.*`` are stacked over L (and MoE
+    expert stacks over L, X). With ``int8`` each matrix ``name`` is
+    ``name_q`` [..., out, in] int8 plus ``name_s`` [..., out] fp32 (the
+    embedding per row, the LM head per vocab entry); the MoE router stays
+    fp32 ``[L, E, X]``."""
     L, E, F, V = c.num_layers, c.hidden_size, c.intermediate_size, c.vocab_size
     f32 = torch.float32
+    ffn = (L, c.num_experts) if c.num_experts > 1 else (L,)  # MoE: expert stacks
     mats = {
         "embed": (V, E),
         "layers.wq": (L, E, c.q_dim),
         "layers.wk": (L, E, c.kv_dim),
         "layers.wv": (L, E, c.kv_dim),
         "layers.wo": (L, c.q_dim, E),
-        "layers.w_gate": (L, E, F),
-        "layers.w_up": (L, E, F),
-        "layers.w_down": (L, F, E),
+        "layers.w_gate": ffn + (E, F),
+        "layers.w_up": ffn + (E, F),
+        "layers.w_down": ffn + (F, E),
     }
     if not c.tie_embeddings:
         mats["lm_head"] = (E, V)
     shapes = {"final_norm": ((E,), f32), "layers.attn_norm": ((L, E), f32),
               "layers.mlp_norm": ((L, E), f32)}
+    if c.num_experts > 1:
+        shapes["layers.moe_router"] = ((L, E, c.num_experts), f32)
     for name, shape in mats.items():
         if not int8:
             shapes[name] = (shape, c.dtype)
@@ -178,25 +200,77 @@ class LlamaParams(nn.Module):
         return lp
 
 
+def _random_slices(c: LlamaConfig, seed: int, device: torch.device
+                   ) -> Iterator[Tuple[str, Tuple[int, ...], torch.Tensor]]:
+    """The random matrices of :func:`init_params` in a fixed order (the
+    embedding and LM head, then the layers' matrices): (name in
+    :func:`param_shapes`, index into its leading axes, the draw as normal /
+    sqrt(fan_in) in fp32, cast to the parameter's dtype). A dense model
+    draws each matrix whole, stacked over its layers, as the port always
+    has (its random weights are those of every earlier measurement); a MoE
+    model draws one ``[in, out]`` expert or layer slice at a time, so that
+    the bf16 stacks of a model too large for the card (mixtral-8x7b) never
+    exist whole."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = param_shapes(c)
+    for name in sorted(shapes, key=lambda n: n.startswith("layers.")):  # stable
+        shape, dt = shapes[name]
+        leaf = name.split(".")[-1]
+        if leaf.endswith("norm") or leaf in ("bq", "bk", "bv"):
+            continue
+        whole = c.num_experts <= 1 or leaf in ("embed", "lm_head")
+        lead = () if whole else shape[:-2]
+        fan_in = shape[-1] if leaf == "embed" else shape[-2]
+        for idx in itertools.product(*map(range, lead)):
+            w = torch.randn(shape[len(lead):], generator=gen, device=device,
+                            dtype=torch.float32)
+            yield name, idx, w.div_(math.sqrt(fan_in)).to(dt)
+
+
+def _fill_constants(params: "LlamaParams") -> None:
+    """Norm weights 1, biases 0."""
+    for name, p in params.named_parameters():
+        leaf = name.split(".")[-1]
+        if leaf.endswith("norm"):
+            p.fill_(1.0)
+        elif leaf in ("bq", "bk", "bv"):
+            p.zero_()
+
+
 def init_params(config: LlamaConfig, seed: int = 0, device="cpu") -> LlamaParams:
     """Random init with fan-in scaling (normal / sqrt(fan_in)), drawn on
-    ``device`` from a ``torch.Generator`` seeded with ``seed``; norms are 1
-    and biases 0. Streams differ from ``jax.random``'s: carry JAX weights
-    over with ``weights.params_from_numpy`` where equality matters."""
+    ``device`` from a ``torch.Generator`` seeded with ``seed`` (a MoE model
+    one matrix slice at a time: :func:`_random_slices`); norms are 1 and
+    biases 0. Streams differ from ``jax.random``'s: carry JAX weights over
+    with ``weights.params_from_numpy`` where equality matters."""
     device = torch.device(device)
     params = LlamaParams(config, device)
-    gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
-        for name, p in params.named_parameters():
-            leaf = name.split(".")[-1]
-            if leaf.endswith("norm"):
-                p.fill_(1.0)
-            elif leaf in ("bq", "bk", "bv"):
-                p.zero_()
-            else:
-                fan_in = p.shape[-2] if leaf != "embed" else p.shape[-1]
-                w = torch.randn(p.shape, generator=gen, device=device, dtype=torch.float32)
-                p.copy_(w.div_(math.sqrt(fan_in)))
+        _fill_constants(params)
+        for name, idx, w in _random_slices(config, seed, device):
+            params.get_parameter(name)[idx].copy_(w)
+    return params
+
+
+def init_params_int8(config: LlamaConfig, seed: int = 0, device="cpu") -> LlamaParams:
+    """``quantize_params_int8(init_params(config, seed, device), config)``,
+    bit for bit, without the bf16 tree: the same draws in the same order,
+    each quantized one ``[in, out]`` slice at a time as it is drawn. Beside
+    the int8 tree only one draw exists at a time: one slice of a MoE model,
+    one stacked matrix of a dense one."""
+    device = torch.device(device)
+    params = LlamaParams(config, device, int8=True)
+    with torch.no_grad():
+        _fill_constants(params)
+        for name, idx, w in _random_slices(config, seed, device):
+            if name.endswith("moe_router"):
+                params.get_parameter(name)[idx].copy_(w)
+                continue
+            per_row = name == "embed"
+            for sub in itertools.product(*map(range, () if per_row else w.shape[:-2])):
+                q, s = quantize_matrix(w[sub], per_row=per_row)
+                params.get_parameter(name + "_q")[idx + sub].copy_(q)
+                params.get_parameter(name + "_s")[idx + sub].copy_(s)
     return params
 
 
@@ -222,12 +296,25 @@ def _quantize(w: torch.Tensor, contract_dim: int) -> Tuple[torch.Tensor, torch.T
     return q.clamp(-127, 127).to(torch.int8), s
 
 
+def quantize_matrix(w: torch.Tensor, per_row: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One matrix (or stack) in the JAX layout ``[..., in, out]`` to the
+    port's int8 pair: contracted over ``in`` (the JAX rule "ndim - 2"), ``q``
+    transposed to ``[..., out, in]``. ``per_row``: the embedding ``[V, E]``,
+    quantized per row and kept as it is."""
+    if per_row:
+        return _quantize(w, 1)
+    q, s = _quantize(w, w.dim() - 2)
+    return q.transpose(-1, -2), s
+
+
 def quantize_params_int8(params: LlamaParams, config: LlamaConfig) -> LlamaParams:
     """Every dense matrix to int8 with per-output-channel absmax/127 scales
     (``max(absmax / 127, 1e-12)``, ``q = clip(round(w / s), -127, 127)``),
-    the embedding per row; norms and biases are shared with ``params``.
-    The JAX ``quantize_params_int8`` in the port's ``[out, in]`` layout.
-    Works one layer at a time on the params' device."""
+    the embedding per row and each expert of an MoE stack on its own; norms,
+    biases and the MoE router are shared with ``params``. The JAX
+    ``quantize_params_int8`` in the port's ``[out, in]`` layout. Works one
+    layer at a time on the params' device."""
     if params.int8:
         raise ValueError("params are already quantized")
     dev = params.final_norm.device
@@ -237,18 +324,18 @@ def quantize_params_int8(params: LlamaParams, config: LlamaConfig) -> LlamaParam
         for k, v in params.layers.items():
             if k not in INT8_MATS:
                 out.layers[k] = v
-        q, s = _quantize(params.embed, 1)
+        q, s = quantize_matrix(params.embed, per_row=True)
         out.embed_q.copy_(q)
         out.embed_s.copy_(s)
         if not config.tie_embeddings:
-            q, s = _quantize(params.lm_head, 0)
-            out.lm_head_q.copy_(q.T)
+            q, s = quantize_matrix(params.lm_head)
+            out.lm_head_q.copy_(q)
             out.lm_head_s.copy_(s)
         del q, s
         for name in INT8_MATS:
             for i in range(config.num_layers):
-                q, s = _quantize(params.layers[name][i], 0)
-                out.layers[f"{name}_q"][i].copy_(q.T)
+                q, s = quantize_matrix(params.layers[name][i])
+                out.layers[f"{name}_q"][i].copy_(q)
                 out.layers[f"{name}_s"][i].copy_(s)
     return out
 
@@ -312,9 +399,26 @@ def project_qkv(
     return q, k, v
 
 
-def mlp_block(lp: Dict[str, torch.Tensor], c: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Post-norm dense silu-gated FFN plus residual."""
+def moe_config(c: LlamaConfig) -> MoeConfig:
+    """The MoE layer's configuration of a mixtral-family model."""
+    return MoeConfig(hidden_size=c.hidden_size, intermediate_size=c.intermediate_size,
+                     num_experts=c.num_experts, top_k=c.num_experts_per_tok,
+                     capacity_factor=c.expert_capacity_factor)
+
+
+def mlp_block(lp: Dict[str, Weight], c: LlamaConfig, hidden: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Post-norm FFN plus residual: dense silu-gated, or the sparse MoE
+    layer (``ops/moe.py``) when the config declares experts. ``positions``
+    (< 0 = padding) masks padding out of MoE routing, so that it claims no
+    expert capacity ahead of real tokens."""
     x = rms_norm(hidden, lp["mlp_norm"], c.rms_norm_eps)
+    if c.num_experts > 1:
+        moe_params = {"router": lp["moe_router"], "w_gate": lp["w_gate"],
+                      "w_up": lp["w_up"], "w_down": lp["w_down"]}
+        out, _ = moe_mlp(moe_params, moe_config(c), x, token_valid=positions >= 0,
+                         with_aux=False)
+        return hidden + out.to(hidden.dtype)
     gate = torch.nn.functional.silu(matw(x, lp["w_gate"]).float()).to(x.dtype)
     return hidden + matw(gate * matw(x, lp["w_up"]), lp["w_down"])
 
@@ -358,7 +462,7 @@ def decoder_layer(
     write_kv_to_pages(k_page, v_page, k, v, positions, block_tables)
     attn = paged_attention(q, k_page, v_page, block_tables, positions)
     hidden = hidden + matw(attn.reshape(b, t, c.q_dim), lp["wo"])
-    return mlp_block(lp, c, hidden)
+    return mlp_block(lp, c, hidden, positions)
 
 
 def forward(
@@ -458,7 +562,7 @@ def forward_chunk(
             attn = torch.where(den > 0, num / den.clamp(min=1e-30), torch.zeros_like(num))
         write_kv_to_pages(k_page, v_page, k, v, positions, block_tables)
         h = h + matw(attn.to(h.dtype).reshape(b, t, c.q_dim), lp["wo"])
-        h = mlp_block(lp, c, h)
+        h = mlp_block(lp, c, h, positions)
     h = rms_norm(h, params.final_norm, c.rms_norm_eps)
     if hidden_only:
         return h, kv_cache
@@ -540,7 +644,7 @@ def forward_window(
             wk, wv, wslot, decode_attention,
         )
         h = h + matw(attn.reshape(b, 1, c.q_dim), lp["wo"])
-        h = mlp_block(lp, c, h)
+        h = mlp_block(lp, c, h, pos2)
     h = rms_norm(h, params.final_norm, c.rms_norm_eps)
     return lm_head(params, c, h)[:, 0], window_k, window_v
 

@@ -17,6 +17,12 @@ tensor the wrapper launches one of them or raises: a shape it does not tile
 raises, it never runs the plain version. On a CPU tensor it runs
 :func:`int8_weight_matmul_plain`. :func:`int8_weight_matmul_splitk_plain`
 is the split-K kernel's order of sums in PyTorch, for the tests.
+
+:func:`int8_expert_matmul` is the same product over an expert stack (the
+MoE layer's ``w_gate``, ``w_up`` and ``w_down``, ``ops/moe.py``): ``x``
+[X, C, K] against ``q`` [X, N, K] and ``s`` [X, N], one launch of the same
+kernels with the expert axis in the grid, planned from (X, C, N, K); its
+plain version is :func:`int8_expert_matmul_plain`.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from functools import lru_cache
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -53,9 +59,19 @@ _PATHS = {"tile": 1, "splitk": 2}
 _KERNELS = {1: "w8a16_tile_kernel", 2: "w8a16_splitk_kernel", 3: "w8f32_kernel"}
 _Launched = ctypes.c_int * 3  # the C entry's report: kernel, blocks, splits
 
-# Kernels launched on the card by the wrapper, by __global__ name, as the C
-# entry reports them. ``int8_weight_matmul.launches`` counts calls.
+# Kernels launched on the card by both wrappers, by __global__ name, as the
+# C entry reports them. ``int8_weight_matmul.launches`` and
+# ``int8_expert_matmul.launches`` count calls.
 device_launches: Dict[str, int] = {name: 0 for name in _KERNELS.values()}
+
+
+class Int8Weight(NamedTuple):
+    """A weight-only int8 matrix, or a stack of them: ``q`` [..., out, in]
+    int8 (K contiguous) and ``s`` [..., out] fp32, the absmax/127 scale of
+    each output channel."""
+
+    q: torch.Tensor
+    s: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +95,11 @@ def _splitk_lanes(m: int) -> int:
     return SPLITK_MAX_LANES
 
 
-def plan_int8(m: int, n: int, k: int, sms: int, path: Optional[str] = None) -> Int8Plan:
-    """The launch for an [m, k] x [n, k] product, from shapes alone.
+def plan_int8(m: int, n: int, k: int, sms: int, path: Optional[str] = None,
+              experts: int = 1) -> Int8Plan:
+    """The launch for an [m, k] x [n, k] product, or for ``experts`` of them
+    in one launch (an expert stack), from shapes alone: every count of
+    tiles and blocks below is over all the experts' tiles.
 
     The tile kernel (a prefill chunk) from ``TILE_MIN_M`` rows of x on,
     where its grid keeps ``TILE_MIN_SM_SHARE`` of the ``sms`` SMs busy:
@@ -96,7 +115,8 @@ def plan_int8(m: int, n: int, k: int, sms: int, path: Optional[str] = None) -> I
     split sweep on the card). ``path`` forces a kernel."""
     if path not in (None, "tile", "splitk"):
         raise ValueError(f"unknown int8 path {path!r}")
-    tile = min((Int8Plan("tile", rows, TILE_LANES, 1, -(-m // TILE_LANES) * -(-n // rows))
+    tile = min((Int8Plan("tile", rows, TILE_LANES, 1,
+                         experts * -(-m // TILE_LANES) * -(-n // rows))
                 for rows in TILE_ROWS), key=lambda p: -(-p.blocks // sms) * (p.rows + 32))
     if path is None:
         wide = m >= TILE_MIN_M and tile.blocks >= TILE_MIN_SM_SHARE * sms
@@ -110,7 +130,7 @@ def plan_int8(m: int, n: int, k: int, sms: int, path: Optional[str] = None) -> I
         stage = rows * (per_stage * K_TILE + 16) + lanes * (per_stage * K_TILE * 2 + 16)
         if RING * stage > MAX_SMEM:
             continue
-        tiles = -(-n // rows) * -(-m // lanes)
+        tiles = experts * -(-n // rows) * -(-m // lanes)
         splits = max(1, min(MAX_SPLITS, chunks // MIN_SPLIT_CHUNKS,
                             BLOCKS_PER_SM * sms // tiles))
         plans[rows] = Int8Plan("splitk", rows, lanes, splits, tiles * splits)
@@ -124,14 +144,14 @@ def plan_int8(m: int, n: int, k: int, sms: int, path: Optional[str] = None) -> I
 
 
 @lru_cache(maxsize=None)
-def _planned(m: int, n: int, k: int, index: int) -> Int8Plan:
+def _planned(m: int, n: int, k: int, experts: int, index: int) -> Int8Plan:
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return plan_int8(m, n, k, sms)
+    return plan_int8(m, n, k, sms, experts=experts)
 
 
 def _bind(lib) -> None:
     fn = lib.int8_weight_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
     ]
     fn.restype = ctypes.c_int
@@ -141,21 +161,26 @@ LIBRARY = KernelLibrary("int8_matmul", _bind)
 
 
 def reset_launch_counts() -> None:
-    """Zero the wrapper's call count and the device launch counts."""
+    """Zero both wrappers' call counts and the device launch counts."""
     int8_weight_matmul.launches = 0
+    int8_expert_matmul.launches = 0
     for name in device_launches:
         device_launches[name] = 0
 
 
-def _check(x, q, s, out_dtype) -> None:
-    if q.dim() != 2 or s.shape != (q.shape[0],):
-        raise ValueError(f"q must be [N, K] and s [N]: q {tuple(q.shape)}, s {tuple(s.shape)}")
-    n, k = q.shape
-    if x.shape[-1] != k:
+def _check(x, q, s, out_dtype, experts: Optional[int] = None) -> None:
+    """What the kernels take: q [N, K] and s [N], or with ``experts`` q
+    [X, N, K], s [X, N] and x [X, C, K]."""
+    lead = () if experts is None else (experts,)
+    if q.dim() != 2 + len(lead) or s.shape != q.shape[:-1] or q.shape[:len(lead)] != lead:
+        want = "[N, K] and s [N]" if experts is None else "[X, N, K] and s [X, N]"
+        raise ValueError(f"q must be {want}: q {tuple(q.shape)}, s {tuple(s.shape)}")
+    n, k = q.shape[-2:]
+    if x.shape[-1] != k or (experts is not None and (x.dim() != 3 or x.shape[0] != experts)):
         raise ValueError(f"x {tuple(x.shape)} does not contract with q {tuple(q.shape)}")
     if n % N_TILE or k % K_TILE:
-        raise ValueError(f"int8_weight_matmul tiles N by {N_TILE} and K by {K_TILE}: "
-                         f"N={n}, K={k}")
+        raise ValueError(f"the int8 kernels take N and K in whole tiles of {N_TILE} and "
+                         f"{K_TILE}: N={n}, K={k}")
     if q.dtype != torch.int8 or s.dtype != torch.float32:
         raise ValueError(f"q must be int8 and s float32: {q.dtype}, {s.dtype}")
     if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
@@ -167,6 +192,29 @@ def _check(x, q, s, out_dtype) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _launch(wrapper, x, q, s, out, m: int, experts: int, plan: Optional[Int8Plan]) -> None:
+    """One launch of the C entry for ``experts`` products of [m, K] x
+    [N, K]; counts it on ``wrapper`` and in :data:`device_launches`."""
+    lib = LIBRARY.load()
+    n, k = q.shape[-2:]
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    if plan is None:
+        plan = _planned(m, n, k, experts, index)
+    launched = _Launched()
+    err = lib.int8_weight_matmul_launch(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k, experts,
+        _DTYPES[x.dtype], _DTYPES[out.dtype], _PATHS.get(plan.path, 0), plan.splits, plan.rows,
+        torch._C._cuda_getCurrentRawStream(index), launched,
+    )
+    if launched[0]:
+        device_launches[_KERNELS[launched[0]]] += 1
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: cudaError {err} "
+                           f"(X={experts}, M={m}, N={n}, K={k}, {plan})")
+    wrapper.launches += 1
+    wrapper.last_launch = (_KERNELS[launched[0]], launched[1], launched[2])
 
 
 def int8_weight_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
@@ -182,28 +230,11 @@ def int8_weight_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
     if x.device.type != "cuda":
         raise ValueError(f"int8_weight_matmul: unsupported device {x.device}")
     _check(x, q, s, out_dtype)
-    lib = LIBRARY.load()
     n, k = q.shape
     m = x.numel() // k
     out = torch.empty(x.shape[:-1] + (n,), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    if plan is None:
-        plan = _planned(m, n, k, index)
-    launched = _Launched()
-    err = lib.int8_weight_matmul_launch(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k,
-        _DTYPES[x.dtype], _DTYPES[out_dtype], _PATHS.get(plan.path, 0), plan.splits, plan.rows,
-        torch._C._cuda_getCurrentRawStream(index), launched,
-    )
-    if launched[0]:
-        device_launches[_KERNELS[launched[0]]] += 1
-    if err != 0:
-        raise RuntimeError(f"int8_weight_matmul launch failed: cudaError {err} "
-                           f"(M={m}, N={n}, K={k}, {plan})")
-    int8_weight_matmul.launches += 1
-    int8_weight_matmul.last_launch = (_KERNELS[launched[0]], launched[1], launched[2])
+    if m:
+        _launch(int8_weight_matmul, x, q, s, out, m, 1, plan)
     return out
 
 
@@ -241,3 +272,39 @@ def int8_weight_matmul_splitk_plain(x: torch.Tensor, q: torch.Tensor, s: torch.T
         part = xf[..., a:b] @ qf[:, a:b].T
         y = part if y is None else y + part
     return (y.to(x.dtype).float() * s).to(out_dtype)
+
+
+def int8_expert_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
+                       out_dtype: Optional[torch.dtype] = None,
+                       plan: Optional[Int8Plan] = None) -> torch.Tensor:
+    """:func:`int8_weight_matmul` over an expert stack: ``x`` [X, C, K],
+    ``q`` [X, N, K] int8, ``s`` [X, N] fp32 -> [X, C, N] in ``out_dtype``
+    (default: x's dtype), ``out[e] = round(round(x[e] @ q[e].T) * s[e])``.
+    One launch for the whole stack, planned by :func:`plan_int8` from
+    (X, C, N, K) unless ``plan`` forces one. On a CPU tensor it runs
+    :func:`int8_expert_matmul_plain`; on a CUDA tensor it launches or
+    raises."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return int8_expert_matmul_plain(x, q, s, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_expert_matmul: unsupported device {x.device}")
+    _check(x, q, s, out_dtype, experts=q.shape[0] if q.dim() == 3 else -1)
+    experts, c = x.shape[:2]
+    out = torch.empty((experts, c, q.shape[1]), dtype=out_dtype, device=x.device)
+    if c:
+        _launch(int8_expert_matmul, x, q, s, out, c, experts, plan)
+    return out
+
+
+int8_expert_matmul.launches = 0
+int8_expert_matmul.last_launch = None
+
+
+def int8_expert_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
+                             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The expert kernel's function in plain PyTorch:
+    :func:`int8_weight_matmul_plain` for each expert of the stack."""
+    out_dtype = out_dtype or x.dtype
+    return torch.stack([int8_weight_matmul_plain(x[e], q[e], s[e], out_dtype=out_dtype)
+                        for e in range(q.shape[0])])

@@ -394,3 +394,161 @@ def test_int8_build_failure_raises_and_runs_no_plain_version(cuda, tmp_path, mon
         int8_weight_matmul(x, torch.zeros((32, 128), dtype=torch.int8, device="cuda"),
                            torch.ones(32, device="cuda"))
     assert int8_weight_matmul.launches == before
+
+
+# -- the expert-batched int8 kernel ---------------------------------------------
+
+from dynamo_tpu_torch.ops.int8_matmul import (  # noqa: E402
+    int8_expert_matmul,
+    int8_expert_matmul_plain,
+)
+
+EXPERTS = 8
+# rows per expert: decode (C = 4 at 8 lanes), odd counts that end mid lane
+# tile and mid tile (5, 17, 130), a 1024-row prefill chunk's 512
+EXPERT_C = [1, 2, 4, 5, 17, 130, 512]
+# (K, N): mixtral-8x7b's w_gate/w_up and w_down, and the tiny-moe widths
+EXPERT_SHAPES = [(4096, 14336), (14336, 4096), (64, 128), (128, 64)]
+
+
+def _expert_stack(k, n, seed):
+    """Experts of different contents: expert e's weights are drawn apart and
+    scaled by e + 1, so that an expert offset gone wrong shows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randint(-127, 128, (EXPERTS, n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = (torch.rand((EXPERTS, n), generator=gen, device="cuda") * 1e-2 + 1e-4) \
+        * torch.arange(1, EXPERTS + 1, device="cuda")[:, None]
+    return q, s
+
+
+def _check_experts(x, q, s, out_dtype, tol, plan=None):
+    """One expert call against the plain version, counted once under the
+    kernel of its plan (planned from X, C, N, K)."""
+    before, dense_before = int8_expert_matmul.launches, int8_weight_matmul.launches
+    kernels_before = dict(int8_matmul.device_launches)
+    got = int8_expert_matmul(x, q, s, out_dtype=out_dtype, plan=plan)
+    torch.cuda.synchronize()
+    assert int8_expert_matmul.launches == before + 1
+    assert int8_weight_matmul.launches == dense_before
+    X, C, K = x.shape
+    N = q.shape[1]
+    if plan is None:
+        plan = plan_int8(C, N, K, torch.cuda.get_device_properties(0).multi_processor_count,
+                         experts=X)
+    kernel, blocks, splits = int8_expert_matmul.last_launch
+    if x.dtype == torch.float32:
+        assert kernel == "w8f32_kernel"
+    else:
+        assert kernel == f"w8a16_{plan.path}_kernel"
+        assert (blocks, splits) == (plan.blocks, plan.splits)
+    assert {k_: v - kernels_before[k_] for k_, v in int8_matmul.device_launches.items()} == {
+        k_: int(k_ == kernel) for k_ in kernels_before}
+    assert got.dtype == out_dtype and got.shape == (X, C, N)
+    ref = int8_expert_matmul_plain(x, q, s, out_dtype=out_dtype).float()
+    assert torch.isfinite(got.float()).all()
+    for e in range(X):  # each expert against its own plain product
+        rel = (got[e].float() - ref[e]).abs().max().item() / max(ref[e].abs().max().item(), 1e-30)
+        assert rel <= tol, (e, rel)
+    return got
+
+
+# each expert's max|Δ| / max|ref| (a stricter measure than over the whole
+# stack): bf16 outputs round twice, the product and the scaled output, and
+# each rounding may leave one bf16 ulp of an element, up to 2^-7 of the
+# expert's max; fp32 activations differ only in the order of fp32 sums
+EXPERT_BF16_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype,tol", [
+    (torch.bfloat16, torch.bfloat16, EXPERT_BF16_TOL), (torch.float32, torch.float32, 1e-5),
+], ids=["bf16-bf16", "fp32-fp32"])
+@pytest.mark.parametrize("C", EXPERT_C)
+@pytest.mark.parametrize("K,N", EXPERT_SHAPES)
+def test_int8_expert_kernel_matches_plain(cuda, K, N, C, x_dtype, out_dtype, tol):
+    q, s = _expert_stack(K, N, K + N)
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    x = torch.randn((EXPERTS, C, K), generator=gen, device="cuda").to(x_dtype)
+    _check_experts(x, q, s, out_dtype, tol)
+
+
+@pytest.mark.parametrize("path", ["tile", "splitk"])
+@pytest.mark.parametrize("C", [2, 5, 130, 512])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096), (64, 128)])
+def test_int8_expert_both_kernels(cuda, K, N, C, path):
+    """Each kernel forced at every C, whichever the planner takes."""
+    q, s = _expert_stack(K, N, 3 * K + N)
+    x = torch.randn((EXPERTS, C, K), device="cuda").bfloat16()
+    plan = plan_int8(C, N, K, torch.cuda.get_device_properties(0).multi_processor_count,
+                     path=path, experts=EXPERTS)
+    _check_experts(x, q, s, torch.bfloat16, EXPERT_BF16_TOL, plan=plan)
+
+
+@pytest.mark.parametrize("path", ["tile", "splitk", None])
+@pytest.mark.parametrize("C", [1, 5, 130])
+def test_int8_expert_kernel_writes_nothing_past_its_rows(cuda, C, path):
+    """The launch into a view of a larger buffer of NaN: the X·C·N outputs
+    are written and agree with the plain version, and the tail stays NaN
+    (a store past C of the last expert would land there; one past C of
+    another expert lands in the next expert's rows, which the plain check
+    catches)."""
+    K, N = 128, 64
+    q, s = _expert_stack(K, N, 5)
+    x = torch.randn((EXPERTS, C, K), device="cuda").bfloat16()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = plan_int8(C, N, K, sms, path=path, experts=EXPERTS)
+    tail = 4096
+    big = torch.full((EXPERTS * C * N + tail,), float("nan"), device="cuda",
+                     dtype=torch.bfloat16)
+    out = big[: EXPERTS * C * N].view(EXPERTS, C, N)
+    int8_matmul._launch(int8_expert_matmul, x, q, s, out, C, EXPERTS, plan)
+    torch.cuda.synchronize()
+    assert torch.isnan(big[EXPERTS * C * N:]).all()
+    ref = int8_expert_matmul_plain(x, q, s).float()
+    assert torch.isfinite(out.float()).all()
+    rel = (out.float() - ref).abs().max().item() / ref.abs().max().item()
+    assert rel <= EXPERT_BF16_TOL, rel
+
+
+@pytest.mark.parametrize("C", [4, 130, 512])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096)])
+def test_int8_expert_two_calls_are_bit_equal_and_a_graph_replays_them(cuda, K, N, C):
+    q, s = _expert_stack(K, N, 7)
+    gen = torch.Generator(device="cuda").manual_seed(K + C)
+    x = torch.randn((EXPERTS, C, K), generator=gen, device="cuda").bfloat16()
+    a = _check_experts(x, q, s, torch.bfloat16, EXPERT_BF16_TOL)
+    b = int8_expert_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        int8_expert_matmul(x, q, s)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c = int8_expert_matmul(x, q, s)
+    for _ in range(3):
+        c.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(a, c)
+
+
+def test_int8_expert_kernel_layer_views_and_refusals(cuda):
+    """A layer's view of a stacked [L, X, N, K] weight; shapes the kernel
+    does not take raise before any launch."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randint(-127, 128, (2, EXPERTS, 128, 64), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((2, EXPERTS, 128), generator=gen, device="cuda")
+    x = torch.randn((EXPERTS, 3, 64), generator=gen, device="cuda").bfloat16()
+    _check_experts(x, q[1], s[1], torch.bfloat16, EXPERT_BF16_TOL)
+    before = int8_expert_matmul.launches
+    with pytest.raises(ValueError, match="contract"):  # 4 experts of x, 8 of q
+        int8_expert_matmul(x[:4].contiguous(), q[1], s[1])
+    with pytest.raises(ValueError, match=r"\[X, N, K\]"):
+        int8_expert_matmul(x, q[1, 0], s[1, 0])
+    with pytest.raises(ValueError, match="tiles"):
+        int8_expert_matmul(x[..., :32].contiguous(), q[1, :, :, :32].contiguous(), s[1])
+    assert int8_expert_matmul.launches == before

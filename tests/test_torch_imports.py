@@ -55,9 +55,9 @@ def test_port_imports_only_stdlib_torch_numpy_jinja2():
     assert not bad, bad
 
 
-# the modules of the weight path from disk to the card
+# the modules of the weight path from disk to the card, and the MoE layer
 WEIGHT_PATH_MODULES = ["dynamo_tpu_torch.engine_torch.safetensors", "dynamo_tpu_torch.llm.gguf",
-                       "dynamo_tpu_torch.ops.int8_matmul"]
+                       "dynamo_tpu_torch.ops.int8_matmul", "dynamo_tpu_torch.ops.moe"]
 
 
 @pytest.mark.parametrize("module", WEIGHT_PATH_MODULES)

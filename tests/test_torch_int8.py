@@ -152,14 +152,16 @@ def test_plan_int8_is_a_function_of_shapes_alone():
     import inspect
 
     assert list(inspect.signature(int8_matmul.plan_int8).parameters) == [
-        "m", "n", "k", "sms", "path"]
+        "m", "n", "k", "sms", "path", "experts"]
     for k, n in _PLAN_SHAPES:
         for m in _PLAN_M:
-            a, b = int8_matmul.plan_int8(m, n, k, 132), int8_matmul.plan_int8(m, n, k, 132)
-            assert a == b and hash(a) == hash(b)
-            tile = int8_matmul.plan_int8(m, n, k, 132, path="tile")
-            wide = tile.blocks >= int8_matmul.TILE_MIN_SM_SHARE * 132
-            assert a.path == ("tile" if m >= int8_matmul.TILE_MIN_M and wide else "splitk")
+            for x in (1, 8):  # one product, and a stack of 8 experts
+                a = int8_matmul.plan_int8(m, n, k, 132, experts=x)
+                b = int8_matmul.plan_int8(m, n, k, 132, experts=x)
+                assert a == b and hash(a) == hash(b)
+                tile = int8_matmul.plan_int8(m, n, k, 132, path="tile", experts=x)
+                wide = tile.blocks >= int8_matmul.TILE_MIN_SM_SHARE * 132
+                assert a.path == ("tile" if m >= int8_matmul.TILE_MIN_M and wide else "splitk")
     # an "int8-all" prefill chunk of 8 x 128 tokens: every llama3-8b product on the tile kernel
     for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)):
         assert int8_matmul.plan_int8(1024, n, k, 132).path == "tile"
