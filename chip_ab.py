@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the kernels of several checkouts in turns, on one card.
 
-    python3 chip_ab.py [--kernels paged,int8] ROOT [ROOT ...]
+    python3 chip_ab.py [--kernels paged,int8,experts] ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -15,9 +15,12 @@ replayed from a CUDA graph.
   ``chip_smoke.py`` (bf16, the wrapper's own split plan);
 - ``int8``: ``int8_weight_matmul`` at each llama3-8b shape of
   ``chip_smoke.py``'s phase 4 at M = 1, 8 and 1024 (bf16 activations, the
-  wrapper's own plan).
+  wrapper's own plan);
+- ``experts``: ``int8_expert_matmul`` over 8 experts at mixtral-8x7b's two
+  expert shapes of phase 5 at C = 4 (decode), 130 and 512 (prefill), cycling
+  through two stacks (bf16 activations, the wrapper's own plan).
 
-Both by default. Give the roots as A B B A to see the spread between turns.
+``paged`` and ``int8`` by default. Give the roots as A B B A to see the spread between turns.
 Prints one line per run and case, then one JSON line with every number.
 """
 
@@ -33,13 +36,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 INT8_M = (1, 8, 1024)
+EXPERT_C = (4, 130, 512)
 
 
 def worker(root: str, kernels: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
-    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul
+    from dynamo_tpu_torch.ops.int8_matmul import int8_expert_matmul, int8_weight_matmul
     from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
 
     # this checkout's chip_smoke.py (regimes, inputs, timing), not the root's
@@ -62,6 +66,24 @@ def worker(root: str, kernels: str) -> dict:
                                                          "bound_ms": b_ms}
                 del x, qs, ss
                 torch.cuda.empty_cache()
+    if "experts" in kernels:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        X = cs.MIXTRAL["experts"]
+        for name, K, N, _ in cs.EXPERT_SHAPES:
+            qs = [torch.randint(-127, 128, (X, N, K), generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2)]
+            ss = [torch.rand((X, N), generator=gen, device="cuda") * 2e-3 + 1e-4
+                  for _ in range(2)]
+            for C in EXPERT_C:
+                x = torch.randn((X, C, K), generator=gen, device="cuda").bfloat16()
+                fns = [lambda q=q, s_=s_: int8_expert_matmul(x, q, s_) for q, s_ in zip(qs, ss)]
+                ms, graph_ms = cs.time_many(torch, fns), cs.time_graph(torch, fns)
+                out["regimes"][f"experts {name}, X={X}, C={C}"] = {
+                    "ms": ms, "graph_ms": graph_ms,
+                    "bound_ms": cs.expert_bound(X, C, N, K, rate)[0]}
+                del x, fns
+            del qs, ss
+            torch.cuda.empty_cache()
     if "paged" not in kernels:
         return out
     for ri, (name, S, H, KVH, D, bs, max_len) in enumerate(cs.REGIMES):
@@ -87,7 +109,7 @@ def main(argv) -> int:
     kernels = "paged,int8"
     if len(argv) >= 2 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
-    if not argv or not set(kernels.split(",")) <= {"paged", "int8"}:
+    if not argv or not set(kernels.split(",")) <= {"paged", "int8", "experts"}:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []

@@ -22,9 +22,14 @@ non-zero:
    times both kernels forced on either side of the planner's threshold;
 5. expert kernel: holds ``int8_expert_matmul`` against its plain version
    over 8 experts at mixtral-8x7b's 4096->14336 and 14336->4096, C = 2, 4
-   (decode at 8 lanes), 5, 130 and 512 (a 1024-row prefill chunk), with the
-   plan it printed and launched, ms eager and graph-replayed, the bound and
-   bf16 ``torch.bmm`` over a bf16 expert stack;
+   (decode at 8 lanes), 5, 17, 130 and 512 (a 1024-row prefill chunk), with
+   the plan it printed and launched, and the expert tile kernel forced where
+   the plan takes split-K; prints each one's drift from the plain product
+   summed in fp64 beside the fp32 plain product's; times the planned kernel
+   eager and graph-replayed, the expert tile, the dense tile and the split-K
+   kernels forced, the bound, the plain version and bf16 ``torch.bmm`` over
+   a bf16 expert stack; times split-K and the expert tile kernel forced
+   across the planner's cut; sums a decode step and a prefill chunk;
 6. load: writes a llama3-8b-width checkpoint cut to 2 layers (bf16, HF
    names, two ``*.safetensors`` files), serves it through
    ``cli.run.build_engine``, checks every parameter on the card bit for bit
@@ -53,16 +58,23 @@ non-zero:
     written, and serves 2 streaming requests from it in ``"int8-all"``;
 12. mixtral serve: mixtral-8x7b at full width and depth, random weights
     drawn straight to int8 on the card, behind the HTTP server in
-    ``"int8-all"``: peak memory, 8 concurrent streams of 32 tokens, launch
-    counts (129 ``int8_weight_matmul``, 96 ``int8_expert_matmul`` per
-    forward, 32 paged per decode step), TTFT, decode tok/s and a profile;
+    ``"int8-all"``, its prompts read by a mixtral-shaped tokenizer.json
+    (``mixtral_tokenizer_json``: SentencePiece-style BPE with byte
+    fallback; phase 11 reads it too): peak memory, 8 concurrent streams of
+    32 tokens, launch counts (129 ``int8_weight_matmul``, 96
+    ``int8_expert_matmul`` per forward, 32 paged per decode step; each
+    prefill chunk's expert products on the expert tile kernel), TTFT,
+    decode tok/s and a profile;
 13. mixtral parity: one MoE layer at 8 and 1024 tokens, and one full-depth
     ``forward_window`` step through the kernels against the same step
     through every kernel's plain version, and through the int8 products'
     plain versions alone; routing choices that differ are counted, with the
     router-logit gaps where each lane first differs, and the logits are
     held on the lanes whose choices agree at every layer (at least half of
-    them);
+    them); then the kernels' step is run again routed to the plain run's
+    expert choices, and the logits are held on every lane; last, one
+    full-depth prefill chunk is timed with the expert products on the
+    expert tile kernel and on the dense tile kernel, in turns;
 14. prints the kernels' JSON line and, last, the device JSON line.
 Each phase prints its seconds.
 """
@@ -143,28 +155,78 @@ def byte_level_tokenizer_json() -> dict:
     }
 
 
+def mixtral_tokenizer_json(vocab_size: int = MIXTRAL["vocab"]) -> dict:
+    """A tokenizer.json of mixtral's shape (a SentencePiece BPE as
+    ``transformers`` converts it): <unk>, <s> and </s> (ids 0-2), the 256 byte
+    tokens ``<0x00>``-``<0xFF>`` (3-258), characters, then merged pieces up
+    to ``vocab_size`` by a fixed rule (each piece in turn, joined with each
+    lower-case letter); a ``Prepend("▁")``/``Replace(" ", "▁")`` normalizer,
+    no pre-tokenizer, BPE with ``byte_fallback`` and ``fuse_unk``, and the
+    ``Replace``/``ByteFallback``/``Fuse``/``Strip`` decoder."""
+    specials = ["<unk>", "<s>", "</s>"]
+    lower = list("etaoinshrdlucmfwypvbgkjqxz")
+    chars = (["▁"] + lower + [c.upper() for c in lower] + list("0123456789")
+             + list(".,!?'\"-:;()[]{}<>/\\@#$%^&*_+=|~`") + list("你好世界こんにちは"))
+    tokens = specials + [f"<0x{b:02X}>" for b in range(256)] + chars
+    seen, merges = set(tokens), []
+    i = len(specials) + 256  # the piece joined next: characters, then merged pieces
+    while len(tokens) < vocab_size:
+        a = tokens[i]
+        i += 1
+        for b in lower:
+            if a + b not in seen and len(tokens) < vocab_size:
+                seen.add(a + b)
+                tokens.append(a + b)
+                merges.append([a, b])
+    added = [
+        {"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+         "normalized": False, "special": True}
+        for i, t in enumerate(specials)
+    ]
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+        "pre_tokenizer": None, "post_processor": None,
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {
+            "type": "BPE", "dropout": None, "unk_token": "<unk>",
+            "continuing_subword_prefix": None, "end_of_word_suffix": None,
+            "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+            "vocab": {t: i for i, t in enumerate(tokens)}, "merges": merges,
+        },
+    }
+
+
 def write_model_dir(path: str, num_layers: int = LLAMA3_8B["layers"], arch=LLAMA3_8B) -> str:
     """config.json at ``arch``'s widths (llama3-8b or mixtral-8x7b, context
-    2048), the byte-level tokenizer and a chat template; no weight files
-    (random weights)."""
+    2048), a tokenizer (the byte-level one; mixtral's shape for mixtral) and
+    a chat template; no weight files (random weights)."""
     c = dict(arch, layers=num_layers)
+    moe = "experts" in c
+    bos, eos = (1, 2) if moe else (256, 257)
     config = {
-        "architectures": ["MixtralForCausalLM" if "experts" in c else "LlamaForCausalLM"],
+        "architectures": ["MixtralForCausalLM" if moe else "LlamaForCausalLM"],
         "model_type": c["model_type"],
         "vocab_size": c["vocab"], "hidden_size": c["hidden"],
         "intermediate_size": c["ffn"], "num_hidden_layers": c["layers"],
         "num_attention_heads": c["heads"], "num_key_value_heads": c["kv_heads"],
         "head_dim": c["head_dim"], "max_position_embeddings": 2048,
-        "rms_norm_eps": 1e-5, "rope_theta": c["rope_theta"], "bos_token_id": 256,
-        "eos_token_id": 257, "tie_word_embeddings": False,
+        "rms_norm_eps": 1e-5, "rope_theta": c["rope_theta"], "bos_token_id": bos,
+        "eos_token_id": eos, "tie_word_embeddings": False,
     }
-    if "experts" in c:
+    if moe:
         config.update(num_local_experts=c["experts"], num_experts_per_tok=c["top_k"])
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
     with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
-        json.dump(byte_level_tokenizer_json(), f, ensure_ascii=False)
+        spec = mixtral_tokenizer_json(c["vocab"]) if moe else byte_level_tokenizer_json()
+        json.dump(spec, f, ensure_ascii=False)
     with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
         json.dump({"bos_token": "<s>", "eos_token": "</s>", "chat_template": CHAT_TEMPLATE,
                    "model_max_length": 2048}, f)
@@ -208,6 +270,9 @@ def _kernel_label(ln: str) -> str:
     m = re.search(r"(w8a16_tile_kernel)ILi(\d+)E(13__nv_bfloat16|f)E", ln)
     if m:
         return f"{m.group(1)}<BN={m.group(2)}, out={'fp32' if m.group(3) == 'f' else 'bf16'}>"
+    m = re.search(r"(w8a16_expert_tile_kernel)ILi(\d+)E(13__nv_bfloat16|f)E", ln)
+    if m:
+        return f"{m.group(1)}<BT={m.group(2)}, out={'fp32' if m.group(3) == 'f' else 'bf16'}>"
     m = re.search(r"(w8f32_kernel)I(13__nv_bfloat16|f)E", ln)
     if m:
         return f"{m.group(1)}<out={'fp32' if m.group(2) == 'f' else 'bf16'}>"
@@ -642,9 +707,13 @@ EXPERT_SHAPES = [
     ("w_down: 14336->4096", 14336, 4096, MIXTRAL["layers"]),
 ]
 EXPERT_LAUNCHES_PER_STEP = sum(n for *_, n in EXPERT_SHAPES)  # 3 per layer x 32 = 96
-# rows per expert: decode at 8 lanes (C = 4) and its neighbours, an odd C, a
-# 1024-row prefill chunk's 512 and 130 (two tiles, the second ragged)
-EXPERT_C = (2, 4, 5, 130, 512)
+# rows per expert: decode at 8 lanes (C = 4) and its neighbours, an odd C,
+# a short prefill's 17, and a 1024-row prefill chunk's 512 and 130 (one
+# ragged token tile)
+EXPERT_C = (2, 4, 5, 17, 130, 512)
+# the split-K and expert tile kernels forced at these C, to place the
+# planner's cut between them (EXPERT_TILE_MIN_C)
+EXPERT_SWEEP_C = (4, 5, 8, 12, 17, 24, 32)
 # bf16 outputs round twice (the product, then the scaled output): up to two
 # bf16 ulps of the max, 2^-6 of it
 EXPERT_TOL = 2.0 ** -6
@@ -658,15 +727,66 @@ def expert_bound(X, C, N, K, rate):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def expert_plain64(x, q, s):
+    """The plain expert product summed in fp64, then the kernel's two
+    roundings as the plain version makes them: the yardstick of both
+    accumulation orders."""
+    import torch
+
+    return torch.stack([((x[e].double() @ q[e].double().T).to(x.dtype).float() * s[e])
+                        .to(x.dtype) for e in range(q.shape[0])])
+
+
+def drift(got, ref) -> dict:
+    """max|d| / max|ref| and the share of outputs that are not bit-equal."""
+    d = (got.float() - ref.float()).abs()
+    return {"rel": d.max().item() / max(ref.float().abs().max().item(), 1e-30),
+            "differ_share": (d > 0).float().mean().item()}
+
+
+@contextmanager
+def card_clocks(into: list):
+    """Sample the card's SM clock (MHz) and power draw (W) with nvidia-smi
+    every 0.2 s while the block runs, into ``into`` as (MHz, W) pairs."""
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True)
+            try:
+                mhz, watts = res.stdout.strip().splitlines()[0].split(",")
+                into.append((float(mhz), float(watts)))
+            except (IndexError, ValueError):
+                pass
+            stop.wait(0.2)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join()
+
+
 def phase_expert_kernel(card: str) -> dict:
-    """``int8_expert_matmul`` against its plain version over 8 experts at
-    mixtral-8x7b's two expert shapes and C = 2, 4, 5, 130 and 512: the plan,
-    the launch it made, eager and graph-replayed ms over two stacks (940 MB,
-    far past L2), the bound, the plain version and bf16 ``torch.bmm`` over a
-    bf16 [8, K, N] stack on the same activations."""
+    """``int8_expert_matmul`` over 8 experts at mixtral-8x7b's two expert
+    shapes and C = 2, 4, 5, 17, 130 and 512: the plan and the launch it made,
+    the planned kernel and the expert tile kernel (forced where the plan
+    takes split-K) held against the plain version; each one's drift from the
+    plain product summed in fp64 beside the fp32 plain product's; eager and
+    graph-replayed ms over two stacks (940 MB, far past L2) of the planned
+    kernel, graph-replayed ms of the expert tile kernel, the dense tile kernel
+    and the split-K kernel forced, the bound, the plain version and bf16
+    ``torch.bmm`` over a bf16 [8, K, N] stack on the same activations; then
+    both kernels forced across the planner's cut, and the expert products
+    of a 1024-row prefill chunk (96 stacks at C = 512)."""
     import torch
 
     from dynamo_tpu_torch.ops.int8_matmul import (
+        EXPERT_TILE_MIN_C,
         int8_expert_matmul,
         int8_expert_matmul_plain,
         plan_int8,
@@ -676,7 +796,7 @@ def phase_expert_kernel(card: str) -> dict:
     rate = hbm_rate(card)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(11)
-    result = []
+    result, sweep = [], []
     for name, K, N, _ in EXPERT_SHAPES:
         qs = [torch.randint(-127, 128, (X, N, K), generator=gen, device="cuda", dtype=torch.int8)
               for _ in range(2)]
@@ -685,29 +805,64 @@ def phase_expert_kernel(card: str) -> dict:
         for C in EXPERT_C:
             x = torch.randn((X, C, K), generator=gen, device="cuda").bfloat16()
             plan = plan_int8(C, N, K, sms, experts=X)
+            forced = {p: plan_int8(C, N, K, sms, path=p, experts=X)
+                      for p in ("expert_tile", "tile", "splitk")}
             before = int8_expert_matmul.launches
             got = int8_expert_matmul(x, qs[0], ss[0])
             torch.cuda.synchronize()
             if int8_expert_matmul.launches != before + 1:
                 fail(f"int8_expert_matmul [{name}, C={C}] did not count its launch")
             kernel, blocks, splits = int8_expert_matmul.last_launch
-            if kernel != f"w8a16_{plan.path}_kernel" or (blocks, splits) != (plan.blocks,
-                                                                              plan.splits):
+            if kernel != plan.kernel or (blocks, splits) != (plan.blocks, plan.splits):
                 fail(f"int8_expert_matmul [{name}, C={C}] launched {kernel} ({blocks} blocks, "
                      f"{splits} splits), not its plan: {plan}")
-            ref = int8_expert_matmul_plain(x, qs[0], ss[0]).float()
-            err = (got.float() - ref).abs().max().item()
-            rel = err / max(ref.abs().max().item(), 1e-30)
-            ok = bool(torch.isfinite(got.float()).all()) and rel <= EXPERT_TOL
-            print(f"expert kernel vs plain [{name}, {X} experts, C={C}; {kernel}, {blocks} "
-                  f"blocks, {splits} splits]: max|d| {err:.3e}, max|d|/max|ref| {rel:.3e} "
-                  f"(limit {EXPERT_TOL:g}) {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                fail(f"int8_expert_matmul disagrees with its plain version: {name} C={C}")
+            ref = int8_expert_matmul_plain(x, qs[0], ss[0])
+            ref64 = expert_plain64(x, qs[0], ss[0])
+            outs = {plan.path: got}
+            if plan.path != "expert_tile":
+                outs["expert_tile"] = int8_expert_matmul(x, qs[0], ss[0],
+                                                         plan=forced["expert_tile"])
+                torch.cuda.synchronize()
+            row = dict(name=name, X=X, C=C, K=K, N=N, kernel=kernel, blocks=blocks, splits=splits,
+                       plan=dataclasses.asdict(plan),
+                       plain_fp32_vs_fp64=drift(ref, ref64))
+            for path, out in outs.items():
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = err / max(ref.float().abs().max().item(), 1e-30)
+                ok = bool(torch.isfinite(out.float()).all()) and rel <= EXPERT_TOL
+                d64 = drift(out, ref64)
+                print(f"expert kernel vs plain [{name}, {X} experts, C={C}; "
+                      f"{forced[path].kernel}{'' if path == plan.path else ' (forced)'}, "
+                      f"{forced[path].blocks} blocks, {forced[path].splits} splits]: max|d| "
+                      f"{err:.3e}, max|d|/max|ref| {rel:.3e} (limit {EXPERT_TOL:g}) "
+                      f"{'ok' if ok else 'MISMATCH'}; against the fp64 plain product "
+                      f"{d64['rel']:.3e} ({d64['differ_share']:.2%} of outputs differ), the fp32 "
+                      f"plain product {row['plain_fp32_vs_fp64']['rel']:.3e} "
+                      f"({row['plain_fp32_vs_fp64']['differ_share']:.2%})")
+                if not ok:
+                    fail(f"int8_expert_matmul [{path}] disagrees with its plain version: "
+                         f"{name} C={C}")
+                row[f"{path}_max_abs_err"] = err
+                row[f"{path}_rel_err"] = rel
+                row[f"{path}_vs_fp64"] = d64
+            row["max_abs_err"] = row[f"{plan.path}_max_abs_err"]
+            row["rel_err"] = row[f"{plan.path}_rel_err"]
             print(f"  plan [{name}, C={C}]: {plan_label(plan)}")
             b_ms, b_by = expert_bound(X, C, N, K, rate)
             calls = [lambda q=q, s_=s_: int8_expert_matmul(x, q, s_) for q, s_ in zip(qs, ss)]
-            ms, graph_ms = time_many(torch, calls), time_graph(torch, calls)
+            clocks = []
+            with card_clocks(clocks) if C == 512 else nullcontext():
+                ms, graph_ms = time_many(torch, calls), time_graph(torch, calls)
+            paths_ms = {path: graph_ms if path == plan.path else time_graph(torch, [
+                lambda q=q, s_=s_, p=p: int8_expert_matmul(x, q, s_, plan=p)
+                for q, s_ in zip(qs, ss)]) for path, p in forced.items()}
+            if clocks:
+                mhz = sorted(c[0] for c in clocks)
+                watts = sorted(c[1] for c in clocks)
+                row["clocks_mhz"], row["power_w"] = mhz, watts
+                print(f"  card while the planned kernel ran [{name}, C={C}]: SM clock "
+                      f"{mhz[0]:.0f}-{mhz[-1]:.0f} MHz (median {statistics.median(mhz):.0f}), "
+                      f"power {watts[0]:.1f}-{watts[-1]:.1f} W, {len(clocks)} nvidia-smi samples")
             plain_ms = time_many(torch, [lambda: int8_expert_matmul_plain(x, qs[0], ss[0])],
                                  calls=4, reps=1)
             lib = [lambda w=w: torch.bmm(x, w) for w in ws]
@@ -715,31 +870,60 @@ def phase_expert_kernel(card: str) -> dict:
             print(f"  time [{name}, C={C}]: kernel {ms:.4f} ms ({b_ms / ms:.1%} of the {b_by} "
                   f"bound), graph-replayed {graph_ms:.4f} ms ({b_ms / graph_ms:.1%}), bound "
                   f"{b_ms:.4f} ms, plain {plain_ms:.4f} ms, library (bf16 torch.bmm, [{X}, {K}, "
-                  f"{N}] bf16 stack) {lib_ms:.4f} ms, graph-replayed {lib_graph_ms:.4f} ms")
-            result.append(dict(name=name, X=X, C=C, K=K, N=N, max_abs_err=err, rel_err=rel,
-                               kernel=kernel, blocks=blocks, splits=splits, ms=ms,
-                               graph_ms=graph_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               library_graph_ms=lib_graph_ms, bound_ms=b_ms, bound_by=b_by,
-                               bound_share=b_ms / ms, bound_share_graph=b_ms / graph_ms,
-                               plan=dataclasses.asdict(plan)))
-        del qs, ss, ws, x, got, ref
+                  f"{N}] bf16 stack) {lib_ms:.4f} ms, graph-replayed {lib_graph_ms:.4f} ms; "
+                  f"graph-replayed, each kernel forced: expert tile "
+                  f"{paths_ms['expert_tile']:.4f} ms, dense tile {paths_ms['tile']:.4f} ms, "
+                  f"split-K {paths_ms['splitk']:.4f} ms")
+            row.update(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_graph_ms=lib_graph_ms, bound_ms=b_ms, bound_by=b_by,
+                       bound_share=b_ms / ms, bound_share_graph=b_ms / graph_ms,
+                       **{f"{p}_graph_ms": t for p, t in paths_ms.items()})
+            result.append(row)
+            del x, got, ref, ref64, outs
+        # both kernels forced across the planner's cut
+        for C in EXPERT_SWEEP_C:
+            x = torch.randn((X, C, K), generator=gen, device="cuda").bfloat16()
+            times = {p: time_graph(torch, [
+                lambda q=q, s_=s_, pl=plan_int8(C, N, K, sms, path=p, experts=X):
+                int8_expert_matmul(x, q, s_, plan=pl) for q, s_ in zip(qs, ss)])
+                for p in ("splitk", "expert_tile")}
+            sweep.append(dict(K=K, N=N, C=C, **{f"{p}_graph_ms": t for p, t in times.items()}))
+            print(f"  kernels forced [{name}, C={C}, graph-replayed]: split-K "
+                  f"{times['splitk']:.4f} ms, expert tile {times['expert_tile']:.4f} ms (the plan "
+                  f"takes {plan_int8(C, N, K, sms, experts=X).path}; cut at C = "
+                  f"{EXPERT_TILE_MIN_C})")
+            del x
+        del qs, ss, ws
         torch.cuda.empty_cache()
-    # one mixtral decode step at C = 4: 96 launches over the two shapes
-    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")
-    per_step = {key: 0.0 for key in keys}
-    for name, K, N, count in EXPERT_SHAPES:
-        (row,) = [r for r in result if r["name"] == name and r["C"] == 4]
-        for key in keys:
-            per_step[key] += count * row[key]
-    per_step["bound_share"] = per_step["bound_ms"] / per_step["ms"]
-    per_step["bound_share_graph"] = per_step["bound_ms"] / per_step["graph_ms"]
+    # one mixtral decode step at C = 4 (96 launches), and the expert products
+    # of a 1024-row prefill chunk at C = 512 (96 launches), over the two shapes
+    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms",
+            "expert_tile_graph_ms", "tile_graph_ms", "splitk_graph_ms")
+    units = {}
+    for C in (4, 512):
+        unit = {key: 0.0 for key in keys}
+        for name, K, N, count in EXPERT_SHAPES:
+            (row,) = [r for r in result if r["name"] == name and r["C"] == C]
+            for key in keys:
+                unit[key] += count * row[key]
+        unit["bound_share"] = unit["bound_ms"] / unit["ms"]
+        unit["bound_share_graph"] = unit["bound_ms"] / unit["graph_ms"]
+        units[C] = unit
+    per_step, chunk = units[4], units[512]
     print(f"expert decode step (C=4, {EXPERT_LAUNCHES_PER_STEP} launches): kernel "
           f"{per_step['ms']:.3f} ms ({per_step['bound_share']:.1%} of the bound), "
           f"graph-replayed {per_step['graph_ms']:.3f} ms ({per_step['bound_share_graph']:.1%}), "
           f"bound {per_step['bound_ms']:.3f} ms, bf16 torch.bmm {per_step['library_ms']:.3f} ms "
           f"(graph-replayed {per_step['library_graph_ms']:.3f} ms), plain "
           f"{per_step['plain_ms']:.3f} ms, on {card}")
-    return {"cases": result, "per_step": per_step}
+    print(f"expert products of a 1024-row prefill chunk (C=512, {EXPERT_LAUNCHES_PER_STEP} "
+          f"launches): expert tile kernel {chunk['ms']:.3f} ms ({chunk['bound_share']:.1%} of "
+          f"the bound), graph-replayed {chunk['graph_ms']:.3f} ms "
+          f"({chunk['bound_share_graph']:.1%}); the dense tile kernel graph-replayed "
+          f"{chunk['tile_graph_ms']:.3f} ms; bound {chunk['bound_ms']:.3f} ms; bf16 torch.bmm "
+          f"{chunk['library_ms']:.3f} ms (graph-replayed {chunk['library_graph_ms']:.3f} ms); "
+          f"plain {chunk['plain_ms']:.3f} ms, on {card}")
+    return {"cases": result, "per_step": per_step, "prefill_chunk": chunk, "sweep": sweep}
 
 
 # -- the HTTP pipeline (phases 6, 7, 9, 11 and 12) --------------------------------
@@ -1385,8 +1569,8 @@ def phase_int8_parity(core) -> dict:
     print("int8-all chunk: int8 device launches "
           + ", ".join(f"{k} {n}" for k, n in chunk_launches.items())
           + f" ({INT8_LAUNCHES_PER_STEP} products of 1024 rows: 7 per layer and the LM head)")
-    if chunk_launches != {"w8a16_tile_kernel": INT8_LAUNCHES_PER_STEP, "w8a16_splitk_kernel": 0,
-                          "w8f32_kernel": 0}:
+    if {k: n for k, n in chunk_launches.items() if n} != {
+            "w8a16_tile_kernel": INT8_LAUNCHES_PER_STEP}:
         fail(f"the int8-all chunk's products did not all run on the tile kernel: {chunk_launches}")
     chunk = _parity("int8-all chunk parity (forward_chunk of the int8 tree, 8 lanes x 128 "
                     "tokens, kernel vs plain int8 products; logits of the last 16 positions)",
@@ -1594,19 +1778,21 @@ def phase_mixtral_serve(card: str, model_dir: str) -> dict:
     got = {"int8_weight_matmul": out["int8_launches"],
            "int8_expert_matmul": out["expert_launches"],
            "paged_decode_attention": out["launches"]}
-    # decode (8 lanes, C = 4) on the split-K kernel; a 1024-row chunk's
-    # products (C = 512) on the tile kernel, but for its LM head, which runs
-    # on the 8 sampled rows alone (split-K)
+    # decode (8 lanes, C = 4) on the split-K kernel; a 1024-row chunk's dense
+    # products on the tile kernel, but for its LM head, which runs on the 8
+    # sampled rows alone (split-K), and its expert products (C = 512) on the
+    # expert tile kernel
     per_forward = MIXTRAL_DENSE_PER_STEP + EXPERT_LAUNCHES_PER_STEP
     want_kernels = {"w8a16_splitk_kernel": per_forward * steps + chunks,
-                    "w8a16_tile_kernel": (per_forward - 1) * chunks}
+                    "w8a16_tile_kernel": (MIXTRAL_DENSE_PER_STEP - 1) * chunks,
+                    "w8a16_expert_tile_kernel": EXPERT_LAUNCHES_PER_STEP * chunks}
     want_kernels = {k: n for k, n in want_kernels.items() if n}
     print(f"mixtral serve: {steps} decode steps and {chunks} prefill chunks: launches {got}, "
           f"expected {want} ({MIXTRAL_DENSE_PER_STEP} int8_weight_matmul, "
           f"{EXPERT_LAUNCHES_PER_STEP} int8_expert_matmul per forward; {MIXTRAL['layers']} "
           f"paged per decode step); int8 device launches {out['int8_kernel_launches']}, "
           f"expected {want_kernels}")
-    if got != want or steps == 0 or out["int8_kernel_launches"] != want_kernels:
+    if got != want or steps == 0 or chunks == 0 or out["int8_kernel_launches"] != want_kernels:
         fail("mixtral serve: the launch counts do not match the steps that ran")
     out.update(core=core, build_s=build_s, warmup_s=warm_s, peak_gb=peak / 1e9,
                weights_gb=weights / 1e9, kv_gb=kv / 1e9)
@@ -1646,6 +1832,29 @@ def recorded_routes(into: list):
         moe.route = route
 
 
+@contextmanager
+def forced_routes(routes: list):
+    """Send each MoE call's tokens to the experts another run chose there
+    (``routes`` as ``recorded_routes`` wrote them, in call order), with this
+    run's own router weights over those experts."""
+    import dynamo_tpu_torch.ops.moe as moe
+
+    route = moe.route
+    calls = iter(routes)
+
+    def forced(router, cfg, xt):
+        probs, _, _ = route(router, cfg, xt)
+        top_idx = next(calls)[0].to(xt.device)
+        top_p = probs.gather(-1, top_idx)
+        return probs, top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9), top_idx
+
+    moe.route = forced
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
 def routing_compare(cfg, kern_routes: list, other_routes: list) -> dict:
     """(layer, lane) routing choices of two full-depth runs: the ordered
     top-k of each lane at each layer, which lanes agree at every layer, and
@@ -1672,6 +1881,50 @@ def routing_compare(cfg, kern_routes: list, other_routes: list) -> dict:
             "first_flips": flips}
 
 
+def mixtral_chunk_ms(torch, cfg, params, case) -> dict:
+    """One full-depth mixtral ``"int8-all"`` prefill chunk (8 lanes x 128
+    tokens from position 0, ``forward_chunk``), ms by CUDA events, the
+    median of 3 after a warm run: the expert products on the planner's
+    kernel (the expert tile kernel at C = 512) and forced onto the dense
+    tile kernel, in the order expert tile, tile, tile, expert tile."""
+    import dynamo_tpu_torch.ops.moe as moe
+    from dynamo_tpu_torch.models.llama import forward_chunk, make_kv_cache
+    from dynamo_tpu_torch.ops.int8_matmul import int8_expert_matmul, plan_int8
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    toks = case[4][:, :128].contiguous()
+    pos = torch.arange(128, device="cuda", dtype=torch.int32)[None, :].repeat(8, 1)
+    tables = case[1]
+
+    def tile_kernel(x, q, s, **kw):
+        plan = plan_int8(x.shape[1], q.shape[1], x.shape[2], sms, path="tile", experts=x.shape[0])
+        return int8_expert_matmul(x, q, s, plan=plan, **kw)
+
+    runs = {"expert_tile": [], "tile": []}
+    for label in ("expert_tile", "tile", "tile", "expert_tile"):
+        moe.int8_expert_matmul = tile_kernel if label == "tile" else int8_expert_matmul
+        try:
+            cache = make_kv_cache(cfg, tables.numel(), 16, device="cuda")
+            times = []
+            for _ in range(4):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                with torch.no_grad():
+                    forward_chunk(params, cfg, toks, pos, cache, tables, with_history=False)
+                b.record()
+                torch.cuda.synchronize()
+                times.append(a.elapsed_time(b))
+            runs[label].append(statistics.median(times[1:]))
+            del cache
+        finally:
+            moe.int8_expert_matmul = int8_expert_matmul
+    print(f"mixtral prefill chunk (forward_chunk, 32 layers, 8 lanes x 128 tokens, eager): expert "
+          f"products on the expert tile kernel {runs['expert_tile'][0]:.2f} / "
+          f"{runs['expert_tile'][1]:.2f} ms, on the dense tile kernel {runs['tile'][0]:.2f} / "
+          f"{runs['tile'][1]:.2f} ms (in turns: expert tile, tile, tile, expert tile)")
+    return {k: statistics.mean(v) for k, v in runs.items()} | {"runs": runs}
+
+
 def phase_mixtral_parity(params, cfg) -> dict:
     """Kernel against plain at mixtral-8x7b width in int8: one MoE layer at
     8 and 1024 tokens (the same input, so the same routing), then one
@@ -1681,7 +1934,10 @@ def phase_mixtral_parity(params, cfg) -> dict:
     10 holds the int8 products). For each, the (layer, lane) routing
     choices that differ are counted, and the logits are held on the lanes
     whose choices agree at every layer, which must be at least half of
-    them."""
+    them; then the kernels' step is run again with every MoE layer sending
+    each lane to the experts the plain run chose, and the logits are held
+    on all lanes, each lane on its own as well. Last, a prefill chunk is
+    timed on either expert kernel (:func:`mixtral_chunk_ms`)."""
     import torch
 
     from dynamo_tpu_torch.models.llama import moe_config
@@ -1743,8 +1999,28 @@ def phase_mixtral_parity(params, cfg) -> dict:
                              f"{int(lens.min())}-{int(lens.max())})",
                              kern[agree], plain[key][agree])
         c["agree"] = agree.tolist()
+        # every lane: the kernels fed the plain run's expert choices at each
+        # layer, so that no near-tie flips a lane away (ROADMAP C2)
+        forced_run = []
+        with forced_routes(other), recorded_routes(forced_run):  # records what was forced
+            both = window_logits(torch, cfg, params, case, paged_decode_attention)
+        if routing_compare(cfg, forced_run, other)["n_agree"] != lanes:
+            fail(f"mixtral parity [{label}]: the forced routing was not followed")
+        c["forced_ratio"] = _parity(f"mixtral decode parity, all {lanes} lanes (forward_window of "
+                                    f"the int8 tree, 32 layers, {label}; the kernels' run routed "
+                                    f"to the plain run's top-{cfg.num_experts_per_tok} at every "
+                                    f"layer)", both, plain[key])
+        lane_ratios = [((both[i] - plain[key][i]).abs().max()
+                        / plain[key][i].abs().max().clamp(min=1e-30)).item()
+                       for i in range(lanes)]
+        print(f"  per lane max|dlogits| / max|logits|: "
+              + ", ".join(f"{r:.3e}" for r in lane_ratios) + " (limit 0.02 each)")
+        if not max(lane_ratios) <= 2e-2:
+            fail(f"mixtral parity [{label}]: a lane over 2e-2 with the routing forced")
+        c["forced_lane_ratios"] = lane_ratios
         out[key] = c
-    return {"layer_ratio": layer, "window": out, "lanes": lanes}
+    return {"layer_ratio": layer, "window": out, "lanes": lanes,
+            "chunk_ms": mixtral_chunk_ms(torch, cfg, params, case)}
 
 
 def main() -> int:
@@ -1810,7 +2086,7 @@ def main() -> int:
     mixp = timed("mixtral parity", phase_mixtral_parity, mix_params, mix_cfg)
     del mix_params
     main_regime = kern[REGIMES[0][0]]
-    step, estep = int8k["per_step"], expk["per_step"]
+    step, estep, echunk = int8k["per_step"], expk["per_step"], expk["prefill_chunk"]
     decode_cases = [c for c in int8k["cases"] if c["M"] in (1, 8) and c["x"] == "bf16"]
     (chunk_case,) = [c for c in int8k["cases"] if c["M"] == 1024]
     line = {"kernels": [{
@@ -1884,6 +2160,29 @@ def main() -> int:
         "chunk_dispatches": mixs["chunk_dispatches"],
         "device_launches_int8_both_wrappers": mixs["int8_kernel_launches"],
         "cases": expk["cases"],
+    }, {
+        "name": "w8a16_expert_tile_kernel",
+        "wrapper": "int8_expert_matmul",
+        "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "dynamo_tpu/ops/moe.py:70 (_expert_mat on a prefill chunk's expert stacks: "
+                    "XLA's fused int8 convert-einsum, no Pallas kernel)",
+        "launches": mixs["int8_kernel_launches"].get("w8a16_expert_tile_kernel", 0),
+        # the expert products of one 1024-row prefill chunk: 96 stacks at C = 512
+        "unit": f"the expert products of one 1024-row mixtral-8x7b prefill chunk, 8 experts, "
+                f"C=512, {EXPERT_LAUNCHES_PER_STEP} launches",
+        "max_abs_err": max(c["expert_tile_max_abs_err"] for c in expk["cases"]),
+        "ms": echunk["ms"],
+        "graph_ms": echunk["graph_ms"],
+        "plain_ms": echunk["plain_ms"],
+        "bound_ms": echunk["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": echunk["library_ms"],
+        "library_graph_ms": echunk["library_graph_ms"],
+        "bound_share": echunk["bound_share"],
+        "tile_kernel_graph_ms": echunk["tile_graph_ms"],
+        "chunk_dispatches": mixs["chunk_dispatches"],
+        "kernel_sweep": expk["sweep"],
     }], "serve": {"ttft_p50_ms": served["ttft_p50_ms"], "decode_tok_s": served["decode_tok_s"],
                   "profile": served["profile"], "parity_ratio": parity},
         "int8_serve": {"ttft_p50_ms": int8s["ttft_p50_ms"], "decode_tok_s": int8s["decode_tok_s"],
@@ -1891,7 +2190,7 @@ def main() -> int:
         "mixtral_serve": {k: mixs[k] for k in (
             "ttft_p50_ms", "decode_tok_s", "profile", "peak_gb", "weights_gb", "kv_gb", "build_s",
             "warmup_s", "decode_steps", "chunk_dispatches", "launches", "int8_launches",
-            "expert_launches")},
+            "expert_launches", "int8_kernel_launches")},
         "mixtral_parity": mixp, "mixtral_load": mixl,
         "load": loaded, "phase_seconds": seconds,
         "card": card, "seconds": time.perf_counter() - t0}

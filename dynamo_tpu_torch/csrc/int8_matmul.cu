@@ -13,9 +13,9 @@
 // (lm_head). int8 -> bf16 is exact (|q| <= 127), so the only roundings are the
 // two above, as in the JAX code.
 //
-// Two designs behind one entry. The wrapper (ops/int8_matmul.py, plan_int8)
-// chooses one, and its grid, from M, N and K alone, never from data, so a
-// CUDA graph can capture any call:
+// Three designs behind one entry. The wrapper (ops/int8_matmul.py,
+// plan_int8) chooses one, and its grid, from M, N, K and the expert count
+// alone, never from data, so a CUDA graph can capture any call:
 //
 // A. w8a16_tile_kernel, for prefill chunks (M from a threshold set on the
 //    card; an "int8-all" chunk is 8 lanes x 128 tokens = 1024 rows). What
@@ -98,7 +98,49 @@
 //      roundings. No float atomics: two calls give the same bits, and so
 //      does a CUDA graph replay. One split writes out directly.
 //
-// int8 -> bf16 without a conversion instruction (both designs): a byte's low
+// C. w8a16_expert_tile_kernel, for an expert stack's prefill (rows per expert
+//    C from a threshold set on the card; a 1024-row chunk gives each of
+//    mixtral's 8 experts C = 512). What bounds it: operations, as path A.
+//    Path A keeps the weight as wgmma's B and pays in shared-memory traffic
+//    (its own note above); here the roles swap:
+//    - The weight is wgmma's A, fed from registers; x is B, straight from
+//      its TMA tile (the 128-byte-swizzled K-major tile of path A). A block
+//      owns 128 weight rows by BT tokens; each of two consumer warpgroups
+//      issues wgmma.mma_async.m64nBTk16 over its own 64 weight rows, so each
+//      dequantizes only the rows it multiplies, once, in registers. A
+//      64-wide k-block moves about 115 bytes of shared memory per clock at
+//      the tensor cores' peak (x read by both warpgroups, the int8 tile read
+//      once, the TMA writes) against ~160 for path A.
+//    - The fragment bytes: TMA lands the int8 tile with the 64-byte swizzle,
+//      so the 4-byte loads of a warp hit 16 banks once; thread (g, t) loads
+//      the words holding k = 2t.. and 2t + 8.. of its rows' 16-byte chunk,
+//      and one prmt packs the two byte pairs for the exact conversion
+//      (below) into the fragment's k slots {2t, 2t+1, 2t+8, 2t+9}. No
+//      permutation of x or of the stored weights is needed. What holds the
+//      kernel on the card (its clock under load, read beside its times by
+//      chip_smoke.py) is in PERF.md.
+//    - Token tiles as narrow as the capacity: BT is 16, 32, 64, 136 or 256
+//      (wgmma's N in steps of 8; a width that is not a power of two runs as
+//      pieces of 128, 64, ..., 8 tokens, each piece with the fragment layout
+//      of one wide instruction). The planner takes the narrowest that
+//      covers C in the fewest tiles: C = 130 is one tile of 136, not
+//      128 + 2.
+//    - A producer warpgroup (one thread issues the TMA loads; setmaxnreg
+//      gives its registers to the consumers) and a ring of full and empty
+//      mbarriers. The ring holds no bf16 tiles, so it is 5 stages deep at
+//      BT = 256 and up to 8 for narrow tiles. Each consumer keeps two
+//      k-blocks of wgmma in flight with their A fragments in two register
+//      sets, and frees a stage when the k-block that read it is done.
+//    - Grid (token tiles, weight tiles, experts): the token tiles of a
+//      weight tile are neighbours, so they run together and the second
+//      reads the weight tile from L2.
+//    - Epilogue: the tile comes out transposed ([weight rows x tokens]), so
+//      it is staged through the idle ring as [tokens x weight rows] (round
+//      to bf16, scale by s[n] in fp32, round to the output dtype) and
+//      written in whole 16-byte pieces of output rows, masked at C and N.
+//      No atomics: two calls and a graph replay give the same bits.
+//
+// int8 -> bf16 without a conversion instruction (all three designs): a byte's low
 // 7 bits placed under the bf16 exponent of 128 (prmt) are the bf16 128 + low7;
 // one bf16x2 subtract of 128, or of 256 where the byte's sign bit is set (the
 // sign bits placed the same way), gives the byte's value exactly, two bytes
@@ -110,11 +152,11 @@
 //
 // Expert stacks (the MoE layer's w_gate, w_up and w_down, ops/moe.py): one
 // launch computes E independent products x[e] @ q[e].T of one stack, with
-// the expert axis in the grid: z of the tile kernel, folded into z (expert
-// major, lane tile minor) of the split-K kernel, whose clusters span only
-// the split axis y, and z of the CUDA-core kernel. It replaces XLA's fused
+// the expert axis in the grid: z of the tile kernels (A and C), folded into
+// z (expert major, lane tile minor) of the split-K kernel, whose clusters
+// span only the split axis y, and z of the CUDA-core kernel. It replaces XLA's fused
 // int8 convert-einsum of dynamo_tpu/ops/moe.py:70 (_expert_mat), again no
-// Pallas kernel. The tile kernel's tensor maps span all experts' rows; a
+// Pallas kernel. The tile kernels' tensor maps span all experts' rows; a
 // tile of expert e starts at row e·M of x and e·N of q, and the rows it reads
 // past M or N belong to expert e + 1 (or are TMA's zero fill past the last)
 // and reach no store: every store is masked at M and N. The wrapper plans
@@ -732,6 +774,367 @@ __global__ void __launch_bounds__(kThreadsB)
   cluster_sync();  // no block leaves while split 0 may still read its shared memory
 }
 
+// -- path C: expert tiles with the weight as wgmma's register-fed A ---------------------
+
+constexpr int kWRows = 128;                 // weight rows per block: 2 consumer warpgroups x 64
+constexpr int kThreadsC = 384;              // 2 consumer warpgroups, 1 producer warpgroup
+constexpr int kQTileC = kWRows * kBK;       // the int8 weight tile of a stage, 8 KB
+constexpr int kRingC = 200 * 1024;          // the ring's bytes, at most
+constexpr int kMaxStagesC = 8;
+
+// BT tokens per block (wgmma's N); the staging tile of the epilogue reuses
+// the ring: [BT tokens x 128 weight rows] of TO, each row padded by 16 bytes
+template <int BT, typename TO>
+struct GeoC {
+  static constexpr int XTILE = BT * kBK * 2;  // x: BT rows x 64 bf16, 128-byte swizzle
+  static constexpr int STAGE = XTILE + kQTileC;
+  static constexpr int STAGES = kRingC / STAGE < kMaxStagesC ? kRingC / STAGE : kMaxStagesC;
+  static constexpr int QOFF = STAGES * XTILE;  // the q tiles after the x tiles
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int PITCH = kWRows + 16 / (int)sizeof(TO);  // staging row, elements
+  static constexpr int BAROFF = RING;  // full[STAGES], then empty[STAGES]
+  static constexpr int SMEM = BAROFF + 16 * STAGES + 1024;  // + room to align the base to 1024
+  static_assert(BT % 8 == 0 && BT >= 8 && BT <= 256, "wgmma's N");
+  static_assert(BT * PITCH * (int)sizeof(TO) <= RING, "the staging tile fits the ring");
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"  // scale-d: d += a·b
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"  // scale-d: d += a·b
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"  // scale-d: d += a·b
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"  // scale-d: d += a·b
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"  // scale-d: d += a·b
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float* d, const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"  // scale-d: d += a·b
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[BT / 2] += A(64 x 16, registers) · B(16 x BT), B K-major in shared memory
+// at x with the 128-byte swizzle: pieces of 256, 128, ..., 8 tokens, each
+// token piece a 1024-byte-aligned run of 8-row swizzle atoms. Every piece
+// keeps the fragment layout of one m64nBTk16: d[4j + 2h + e] is weight row
+// 16·warp + g + 8h, token 8j + 2t + e
+template <int BT, int OFF = 0>
+__device__ __forceinline__ void wgmma_tokens(float (&d)[BT / 2], const uint32_t (&a)[4],
+                                             uint32_t x) {
+  constexpr int REM = BT - OFF;
+  if constexpr (REM > 0) {
+    constexpr int P = REM >= 256 ? 256 : REM >= 128 ? 128 : REM >= 64 ? 64
+                      : REM >= 32 ? 32 : REM >= 16 ? 16 : 8;
+    wgmma_rs<P>(d + OFF / 2, a, desc_sw128(x + OFF * kBK * 2));
+    wgmma_tokens<BT, OFF + P>(d, a, x);
+  }
+}
+
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i]) :: "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// one 64-wide k-block of a consumer warpgroup: wait for its stage, gather
+// this thread's A fragments of its two weight rows from the int8 tile into
+// `cur`, queue the four k16 steps behind the previous k-block's, then wait
+// for the previous k-block (whose fragments are `prev`) and free its stage.
+// The tile landed with TMA's 64-byte swizzle (16-byte chunk c of row r at
+// c ^ ((r >> 1) & 3)): a warp's 4-byte loads of one k16 step hit 16 words in
+// 16 banks. Thread (g, t) takes the words holding k = 16j + 2t.. and 16j +
+// 2t + 8.. of its rows; one prmt packs their two bytes each, and the exact
+// conversion turns them into the fragment's pairs {2t, 2t+1}, {2t+8, 2t+9}.
+template <int BT, int STAGES>
+__device__ __forceinline__ void expert_kblock(float (&acc)[BT / 2], uint32_t (&cur)[4][4],
+                                              uint32_t (&prev)[4][4], int kb, uint32_t base,
+                                              const uint8_t* qtiles, uint32_t full,
+                                              uint32_t empty, int sw, uint32_t sel, int lane) {
+  const int st = kb % STAGES;
+  mbar_wait(full + 8 * st, (kb / STAGES) & 1);
+  const uint8_t* qt = qtiles + st * kQTileC;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = (j ^ sw) << 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows r0 (a0, a2) and r0 + 8 (a1, a3)
+      const uint8_t* p = qt + h * 8 * kBK + c;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + 8);
+      i8x4_to_bf16x4(__byte_perm(w0, w1, sel), cur[j][h], cur[j][h + 2]);
+    }
+  }
+  fence_a(cur);
+  fence_regs(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const uint32_t x = base + st * (BT * kBK * 2);  // the stage's x tile
+#pragma unroll
+  for (int j = 0; j < kBK / 16; ++j) wgmma_tokens<BT>(acc, cur[j], x + 32 * j);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // k-block kb - 1 done
+  fence_regs(acc);
+  fence_a(prev);  // live until here: the k-block kb - 1 read them
+  if (kb >= 1 && lane == 0) mbar_arrive(empty + 8 * ((kb - 1) % STAGES));
+}
+
+// grid (ceil(C / BT), ceil(N / 128), experts), 384 threads, GeoC::SMEM bytes.
+// Warpgroups 0 and 1 consume, 64 weight rows each; warpgroup 2 produces
+// (one thread issues the TMA loads). The token tiles of a weight tile are
+// neighbours in x, so they run together and the second reads the weight
+// tile from L2. The tensor maps span the experts' rows ([experts·C, K] and
+// [experts·N, K]); expert e's tiles start at row e·C of x and e·N of q, and
+// the rows a tile reads past C or N (the next expert's) reach no store.
+template <int BT, typename TO>
+__global__ void __launch_bounds__(kThreadsC, 1)
+    w8a16_expert_tile_kernel(const __grid_constant__ CUtensorMap tmx,
+                             const __grid_constant__ CUtensorMap tmq,
+                             const float* __restrict__ s, TO* __restrict__ out, int C, int N,
+                             int K) {
+  using G = GeoC<BT, TO>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzles want 1024-byte tiles
+  uint8_t* sm = smem_raw + (base - raw);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int c0 = blockIdx.x * BT, n0 = blockIdx.y * kWRows, e = blockIdx.z;
+  const int nk = K / kBK;
+  const uint32_t full = base + G::BAROFF, empty = full + 8 * G::STAGES;
+  if (tid == 0) {
+    for (int st = 0; st < G::STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 2) {  // producer: registers go to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 2 * 128) {
+      const int xrow = e * C + c0, qrow = e * N + n0;  // this tile's first rows in the maps
+      for (int kb = 0; kb < nk; ++kb) {
+        const int st = kb % G::STAGES;
+        if (kb >= G::STAGES) mbar_wait(empty + 8 * st, ((kb / G::STAGES) - 1) & 1);
+        mbar_expect_tx(full + 8 * st, G::STAGE);
+        tma_load_2d(base + st * G::XTILE, &tmx, kb * kBK, xrow, full + 8 * st);
+        tma_load_2d(base + G::QOFF + st * kQTileC, &tmq, kb * kBK, qrow, full + 8 * st);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+    const int r0 = wg * 64 + warp * 16 + g;  // this thread's weight rows: r0 and r0 + 8
+    const int sw = (g >> 1) & 3;              // both rows' swizzle: (r >> 1) & 3
+    const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;  // the byte pair at k = 2t of a word
+    const uint8_t* qtiles = sm + G::QOFF + r0 * kBK + 4 * (t >> 1);
+    float acc[BT / 2];
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+    uint32_t fa[4][4], fb[4][4];  // A fragments of two k-blocks in flight
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fa[j][i] = fb[j][i] = 0u;
+    }
+    int kb = 0;
+#pragma unroll 1
+    for (; kb + 1 < nk; kb += 2) {
+      expert_kblock<BT, G::STAGES>(acc, fa, fb, kb, base, qtiles, full, empty, sw, sel, lane);
+      expert_kblock<BT, G::STAGES>(acc, fb, fa, kb + 1, base, qtiles, full, empty, sw, sel,
+                                   lane);
+    }
+    if (kb < nk) {
+      expert_kblock<BT, G::STAGES>(acc, fa, fb, kb, base, qtiles, full, empty, sw, sel, lane);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(acc);
+    fence_a(fa);
+    fence_a(fb);
+
+    // epilogue: both consumer warpgroups are done with the ring, which now
+    // stages the tile as [tokens x weight rows]: round to bf16, scale by
+    // s[n] in fp32, round to the output dtype; then whole 16-byte pieces of
+    // a token's row go out, masked at C and N
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    TO* stage = reinterpret_cast<TO*>(sm);
+    s += (size_t)e * N + n0;
+    const float sc0 = n0 + r0 < N ? s[r0] : 0.f, sc1 = n0 + r0 + 8 < N ? s[r0 + 8] : 0.f;
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        TO* p = stage + (8 * j + 2 * t + i) * G::PITCH + r0;
+        p[0] = from_f<TO>(round_bf16(acc[4 * j + i]) * sc0);
+        p[8] = from_f<TO>(round_bf16(acc[4 * j + 2 + i]) * sc1);
+      }
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    constexpr int VEC = 16 / (int)sizeof(TO), PER_ROW = kWRows / VEC;
+    out += ((size_t)e * C + c0) * N + n0;
+#pragma unroll 4
+    for (int i = tid; i < BT * PER_ROW; i += 256) {
+      const int tok = i / PER_ROW, v = i - tok * PER_ROW;
+      if (c0 + tok < C && n0 + v * VEC < N) {
+        *reinterpret_cast<uint4*>(out + (size_t)tok * N + v * VEC) =
+            *reinterpret_cast<const uint4*>(stage + tok * G::PITCH + v * VEC);
+      }
+    }
+  }
+}
+
 // -- fp32 activations: CUDA cores ------------------------------------------------------
 
 constexpr int kWarpsF = 8;
@@ -868,6 +1271,32 @@ cudaError_t launch_tile(const void* x, const int8_t* q, const float* s, void* ou
   return err;
 }
 
+template <int BT, typename TO>
+cudaError_t launch_expert_tile(const void* x, const int8_t* q, const float* s, void* out, int C,
+                               int N, int K, int E, cudaStream_t stream, int* launched) {
+  using G = GeoC<BT, TO>;
+  static unsigned long long smem_done = 0;
+  cudaError_t err = allow_smem(w8a16_expert_tile_kernel<BT, TO>, G::SMEM, smem_done);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tmx, tmq;
+  if (!tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, E * C, K, BT,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, E * N, K, kWRows,
+                  CU_TENSOR_MAP_SWIZZLE_64B)) {
+    return cudaErrorInvalidValue;
+  }
+  dim3 grid((C + BT - 1) / BT, (N + kWRows - 1) / kWRows, E);
+  w8a16_expert_tile_kernel<BT, TO><<<grid, kThreadsC, G::SMEM, stream>>>(
+      tmx, tmq, s, static_cast<TO*>(out), C, N, K);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    launched[0] = 4;
+    launched[1] = grid.x * grid.y * grid.z;
+    launched[2] = 1;
+  }
+  return err;
+}
+
 template <int RG, int MT, typename TO>
 cudaError_t launch_splitk(const void* x, const int8_t* q, const float* s, void* out, int M, int N,
                           int K, int E, int splits, cudaStream_t stream, int* launched) {
@@ -947,6 +1376,16 @@ cudaError_t launch_out(const void* x, const int8_t* q, const float* s, void* out
     if (rows == 128) return launch_tile<128, TO>(x, q, s, out, M, N, K, E, stream, launched);
     return cudaErrorInvalidValue;
   }
+  if (path == 3) {  // rows: the expert tile kernel's tokens per block (wgmma's N)
+    switch (rows) {
+      case 256: return launch_expert_tile<256, TO>(x, q, s, out, M, N, K, E, stream, launched);
+      case 136: return launch_expert_tile<136, TO>(x, q, s, out, M, N, K, E, stream, launched);
+      case 64: return launch_expert_tile<64, TO>(x, q, s, out, M, N, K, E, stream, launched);
+      case 32: return launch_expert_tile<32, TO>(x, q, s, out, M, N, K, E, stream, launched);
+      case 16: return launch_expert_tile<16, TO>(x, q, s, out, M, N, K, E, stream, launched);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   if (path != 2 || splits < 1 || splits > K / kChunk || splits > kMaxSplits) {
     return cudaErrorInvalidValue;
   }
@@ -967,9 +1406,12 @@ cudaError_t launch_out(const void* x, const int8_t* q, const float* s, void* out
 // bfloat16. path (bf16 x only; fp32 x always runs the CUDA-core kernel): 1 =
 // the wgmma tile kernel with tiles of `rows` weight rows (128, 224 or 256), 2
 // = the split-K kernel with blocks of `rows` weight rows (64 or 16) and
-// `splits` splits of K (1 <= splits <= min(K / 64, 16)).
+// `splits` splits of K (1 <= splits <= min(K / 64, 16)), 3 = the expert tile
+// kernel with blocks of `rows` rows of x (16, 32, 64, 136 or 256)
+// by 128 weight rows.
 // launched (3 ints, host memory) reports the launch: [0] the kernel (1 tile,
-// 2 split-K, 3 CUDA-core, 0 none), [1] its blocks, [2] its splits. Returns
+// 2 split-K, 3 CUDA-core, 4 expert tile, 0 none), [1] its blocks, [2] its
+// splits. Returns
 // the launch's error (cudaGetLastError() after it), 0 when the kernel
 // launched; M = 0 launches nothing and returns 0.
 extern "C" int int8_weight_matmul_launch(const void* x, const void* q, const void* s, void* out,

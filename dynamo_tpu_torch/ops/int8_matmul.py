@@ -20,9 +20,12 @@ is the split-K kernel's order of sums in PyTorch, for the tests.
 
 :func:`int8_expert_matmul` is the same product over an expert stack (the
 MoE layer's ``w_gate``, ``w_up`` and ``w_down``, ``ops/moe.py``): ``x``
-[X, C, K] against ``q`` [X, N, K] and ``s`` [X, N], one launch of the same
-kernels with the expert axis in the grid, planned from (X, C, N, K); its
-plain version is :func:`int8_expert_matmul_plain`.
+[X, C, K] against ``q`` [X, N, K] and ``s`` [X, N], one launch with the
+expert axis in the grid, planned from (X, C, N, K): the split-K kernel for
+decode, and from ``EXPERT_TILE_MIN_C`` rows per expert on the expert tile
+kernel, which takes the weight as ``wgmma``'s register-fed A and tiles the
+tokens as narrowly as C allows (``plan=`` can still force the dense tile
+kernel). Its plain version is :func:`int8_expert_matmul_plain`.
 """
 
 from __future__ import annotations
@@ -55,8 +58,22 @@ BLOCKS_PER_SM = 1  # the split-K grid's target: blocks per SM (a split sweep on 
 MIN_SPLIT_CHUNKS = 4  # 64-wide chunks of K per split, at the least
 MAX_SPLITS = 16  # the splits of a tile are one thread block cluster (csrc: kMaxSplits)
 RING, MAX_SMEM = 4, 227 * 1024  # the split-K ring's stages; a block's shared memory
-_PATHS = {"tile": 1, "splitk": 2}
-_KERNELS = {1: "w8a16_tile_kernel", 2: "w8a16_splitk_kernel", 3: "w8f32_kernel"}
+# expert stacks (experts > 1): the expert tile kernel from EXPERT_TILE_MIN_C
+# rows per expert on, else the split-K kernel. Both forced at mixtral's
+# shapes (chip_smoke.py phase 5, PERF.md): split-K is no faster from C = 8
+# on (8 experts, 4096->14336 / 14336->4096, graph-replayed: C = 8 0.1655 /
+# 0.1665 ms against 0.1653 / 0.1600, C = 12 0.187 / 0.193 against 0.168 /
+# 0.162); decode at 8 lanes (C = 4) stays on split-K. Blocks of
+# EXPERT_TILE_ROWS weight rows by the narrowest of EXPERT_TILE_TOKENS
+# (wgmma's N, csrc: the widths of path 3) that covers C in the fewest tiles
+# of at most 256 rows of x: 16-64 for C = slots / 2 at 16-128 slots, 256 for
+# prefill chunks (C = 512), 136 for C = 130 in one tile
+EXPERT_TILE_MIN_C = 8
+EXPERT_TILE_ROWS = 128
+EXPERT_TILE_TOKENS = (16, 32, 64, 136, 256)
+_PATHS = {"tile": 1, "splitk": 2, "expert_tile": 3}
+_KERNELS = {1: "w8a16_tile_kernel", 2: "w8a16_splitk_kernel", 3: "w8f32_kernel",
+            4: "w8a16_expert_tile_kernel"}
 _Launched = ctypes.c_int * 3  # the C entry's report: kernel, blocks, splits
 
 # Kernels launched on the card by both wrappers, by __global__ name, as the
@@ -76,15 +93,22 @@ class Int8Weight(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class Int8Plan:
-    """What one call launches: ``path`` "tile" (the wgmma kernel) or
-    "splitk"; each block covers ``rows`` weight rows and ``lanes`` rows of
-    x; ``splits`` splits of K (1 for "tile"); ``blocks`` in the grid."""
+    """What one call launches: ``path`` "tile" (the wgmma kernel with the
+    weight as B), "splitk" or "expert_tile" (the wgmma kernel over an
+    expert stack with the weight as the register-fed A); each block covers
+    ``rows`` weight rows and ``lanes`` rows of x; ``splits`` splits of K (1
+    but for "splitk"); ``blocks`` in the grid."""
 
     path: str
     rows: int
     lanes: int
     splits: int
     blocks: int
+
+    @property
+    def kernel(self) -> str:
+        """The ``__global__`` kernel this plan launches for bf16 x."""
+        return f"w8a16_{self.path}_kernel"
 
 
 def _splitk_lanes(m: int) -> int:
@@ -95,11 +119,24 @@ def _splitk_lanes(m: int) -> int:
     return SPLITK_MAX_LANES
 
 
+def _expert_tile_plan(m: int, n: int, experts: int) -> Int8Plan:
+    """The expert tile kernel's blocks: 128 weight rows by the narrowest
+    token width that covers ``m`` rows of x in the fewest tiles (C = 512 as
+    2 x 256, C = 130 as one tile of 136)."""
+    tiles = -(-m // EXPERT_TILE_TOKENS[-1])
+    width = next(w for w in EXPERT_TILE_TOKENS if w * tiles >= m)
+    return Int8Plan("expert_tile", EXPERT_TILE_ROWS, width, 1,
+                    experts * -(-m // width) * -(-n // EXPERT_TILE_ROWS))
+
+
 def plan_int8(m: int, n: int, k: int, sms: int, path: Optional[str] = None,
               experts: int = 1) -> Int8Plan:
     """The launch for an [m, k] x [n, k] product, or for ``experts`` of them
     in one launch (an expert stack), from shapes alone: every count of
     tiles and blocks below is over all the experts' tiles.
+
+    An expert stack (``experts`` > 1) from ``EXPERT_TILE_MIN_C`` rows per
+    expert on takes the expert tile kernel (:func:`_expert_tile_plan`).
 
     The tile kernel (a prefill chunk) from ``TILE_MIN_M`` rows of x on,
     where its grid keeps ``TILE_MIN_SM_SHARE`` of the ``sms`` SMs busy:
@@ -113,8 +150,10 @@ def plan_int8(m: int, n: int, k: int, sms: int, path: Optional[str] = None,
     ``MAX_SPLITS`` of them. 64-row blocks share each row of x among more
     weight rows; 16-row blocks are taken where they save enough splits (a
     split sweep on the card). ``path`` forces a kernel."""
-    if path not in (None, "tile", "splitk"):
+    if path not in (None, "tile", "splitk", "expert_tile"):
         raise ValueError(f"unknown int8 path {path!r}")
+    if path == "expert_tile" or (path is None and experts > 1 and m >= EXPERT_TILE_MIN_C):
+        return _expert_tile_plan(m, n, experts)
     tile = min((Int8Plan("tile", rows, TILE_LANES, 1,
                          experts * -(-m // TILE_LANES) * -(-n // rows))
                 for rows in TILE_ROWS), key=lambda p: -(-p.blocks // sms) * (p.rows + 32))
@@ -203,9 +242,11 @@ def _launch(wrapper, x, q, s, out, m: int, experts: int, plan: Optional[Int8Plan
     if plan is None:
         plan = _planned(m, n, k, experts, index)
     launched = _Launched()
+    # the C entry's block width: weight rows, or for the expert tile kernel rows of x
+    width = plan.lanes if plan.path == "expert_tile" else plan.rows
     err = lib.int8_weight_matmul_launch(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k, experts,
-        _DTYPES[x.dtype], _DTYPES[out.dtype], _PATHS.get(plan.path, 0), plan.splits, plan.rows,
+        _DTYPES[x.dtype], _DTYPES[out.dtype], _PATHS.get(plan.path, 0), plan.splits, width,
         torch._C._cuda_getCurrentRawStream(index), launched,
     )
     if launched[0]:

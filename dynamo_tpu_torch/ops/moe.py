@@ -15,8 +15,10 @@ shape is fixed by (N, X, C), so nothing waits on the host.
 The expert products are the only heavy work. A bf16 stack ``[X, in, out]``
 goes through ``torch.bmm`` (the JAX package leaves it to XLA's einsum); an
 int8 stack (:class:`Int8Weight` with ``q`` [X, out, in], ``s`` [X, out])
-goes through the expert-batched W8A16 kernel
-(``ops/int8_matmul.py::int8_expert_matmul``), one launch per stack.
+goes through the expert-batched W8A16 kernels
+(``ops/int8_matmul.py::int8_expert_matmul``), one launch per stack: the
+split-K kernel at decode capacities, the expert tile kernel for a prefill
+chunk's.
 
 Expert parallelism over a mesh (``moe_param_logical_axes``) waits for the
 port's ep; ``init_moe_params`` and router noise (training only) are not
@@ -54,7 +56,8 @@ class MoeConfig:
 def _expert_mat(x: torch.Tensor, w: Weight) -> torch.Tensor:
     """[X, C, in] against an expert stack: a bf16 ``[X, in, out]`` tensor,
     or an int8 pair (``matw``'s contract per expert: the product rounded to
-    x's dtype, times the fp32 scale, rounded again). [X, C, out]."""
+    x's dtype, times the fp32 scale, rounded again; on the card the kernel
+    that :func:`plan_int8` takes for (X, C, out, in)). [X, C, out]."""
     if isinstance(w, Int8Weight):
         return int8_expert_matmul(x.contiguous(), w.q, w.s)
     return torch.bmm(x, w)

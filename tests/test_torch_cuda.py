@@ -472,7 +472,7 @@ def test_int8_expert_kernel_matches_plain(cuda, K, N, C, x_dtype, out_dtype, tol
     _check_experts(x, q, s, out_dtype, tol)
 
 
-@pytest.mark.parametrize("path", ["tile", "splitk"])
+@pytest.mark.parametrize("path", ["tile", "splitk", "expert_tile"])
 @pytest.mark.parametrize("C", [2, 5, 130, 512])
 @pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096), (64, 128)])
 def test_int8_expert_both_kernels(cuda, K, N, C, path):
@@ -484,7 +484,7 @@ def test_int8_expert_both_kernels(cuda, K, N, C, path):
     _check_experts(x, q, s, torch.bfloat16, EXPERT_BF16_TOL, plan=plan)
 
 
-@pytest.mark.parametrize("path", ["tile", "splitk", None])
+@pytest.mark.parametrize("path", ["tile", "splitk", "expert_tile", None])
 @pytest.mark.parametrize("C", [1, 5, 130])
 def test_int8_expert_kernel_writes_nothing_past_its_rows(cuda, C, path):
     """The launch into a view of a larger buffer of NaN: the X·C·N outputs
@@ -533,6 +533,50 @@ def test_int8_expert_two_calls_are_bit_equal_and_a_graph_replays_them(cuda, K, N
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("C", [1, 5, 17, 130, 512])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096)])
+def test_int8_expert_tile_kernel(cuda, K, N, C, out_dtype):
+    """The expert tile kernel forced at every C of mixtral's two shapes,
+    into a view of a NaN-filled buffer larger than the stack: each expert
+    agrees with its plain product, nothing lands past the stack (a store
+    past C or N inside it lands on another output, which the plain check
+    catches), and a second call and a CUDA-graph replay give the same bits."""
+    q, s = _expert_stack(K, N, 11 * K + N + C)
+    gen = torch.Generator(device="cuda").manual_seed(C + 3)
+    x = torch.randn((EXPERTS, C, K), generator=gen, device="cuda").bfloat16()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = plan_int8(C, N, K, sms, path="expert_tile", experts=EXPERTS)
+    assert plan.lanes >= min(C, 256) and plan.lanes in int8_matmul.EXPERT_TILE_TOKENS
+    size, tail = EXPERTS * C * N, 8192
+    big = torch.full((size + tail,), float("nan"), device="cuda", dtype=out_dtype)
+    out = big[:size].view(EXPERTS, C, N)
+    int8_matmul._launch(int8_expert_matmul, x, q, s, out, C, EXPERTS, plan)
+    torch.cuda.synchronize()
+    assert int8_expert_matmul.last_launch == ("w8a16_expert_tile_kernel", plan.blocks, 1)
+    assert torch.isnan(big[size:]).all()
+    assert torch.isfinite(out.float()).all()
+    ref = int8_expert_matmul_plain(x, q, s, out_dtype=out_dtype).float()
+    for e in range(EXPERTS):
+        rel = (out[e].float() - ref[e]).abs().max().item() / ref[e].abs().max().item()
+        assert rel <= EXPERT_BF16_TOL, (e, rel)
+    again = int8_expert_matmul(x, q, s, out_dtype=out_dtype, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        int8_expert_matmul(x, q, s, out_dtype=out_dtype, plan=plan)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = int8_expert_matmul(x, q, s, out_dtype=out_dtype, plan=plan)
+    replayed.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, out)
 
 
 def test_int8_expert_kernel_layer_views_and_refusals(cuda):

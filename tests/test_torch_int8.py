@@ -161,10 +161,53 @@ def test_plan_int8_is_a_function_of_shapes_alone():
                 assert a == b and hash(a) == hash(b)
                 tile = int8_matmul.plan_int8(m, n, k, 132, path="tile", experts=x)
                 wide = tile.blocks >= int8_matmul.TILE_MIN_SM_SHARE * 132
-                assert a.path == ("tile" if m >= int8_matmul.TILE_MIN_M and wide else "splitk")
+                if x > 1 and m >= int8_matmul.EXPERT_TILE_MIN_C:  # an expert stack's prefill
+                    assert a.path == "expert_tile"
+                else:
+                    assert a.path == ("tile" if m >= int8_matmul.TILE_MIN_M and wide
+                                      else "splitk")
     # an "int8-all" prefill chunk of 8 x 128 tokens: every llama3-8b product on the tile kernel
     for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)):
         assert int8_matmul.plan_int8(1024, n, k, 132).path == "tile"
+
+
+# mixtral-8x7b's expert stacks (8 experts): C = 2, 4 (decode at 8 lanes) and
+# 5 on the split-K kernel; C = 130 as one token tile of 136, C = 512 (a
+# 1024-row prefill chunk) as two of 256, on the expert tile kernel
+_EXPERT_PLANS = {
+    (4096, 14336): {
+        2: ("splitk", 64, 8, 1, 1792), 4: ("splitk", 64, 8, 1, 1792),
+        5: ("splitk", 64, 8, 1, 1792), 130: ("expert_tile", 128, 136, 1, 896),
+        512: ("expert_tile", 128, 256, 1, 1792),
+    },
+    (14336, 4096): {
+        2: ("splitk", 64, 8, 1, 512), 4: ("splitk", 64, 8, 1, 512),
+        5: ("splitk", 64, 8, 1, 512), 130: ("expert_tile", 128, 136, 1, 256),
+        512: ("expert_tile", 128, 256, 1, 512),
+    },
+}
+
+
+@pytest.mark.parametrize("k,n", list(_EXPERT_PLANS))
+def test_expert_plans_for_mixtral(k, n):
+    for c, want in _EXPERT_PLANS[(k, n)].items():
+        plan = int8_matmul.plan_int8(c, n, k, 132, experts=8)
+        assert dataclasses.astuple(plan) == want, (c, plan)
+        assert plan.kernel == f"w8a16_{want[0]}_kernel"
+        assert plan.kernel in int8_matmul._KERNELS.values()
+
+
+def test_expert_tile_width_is_the_narrowest_that_covers_c_in_fewest_tiles():
+    widths = int8_matmul.EXPERT_TILE_TOKENS
+    for c in range(1, 1100):
+        plan = int8_matmul.plan_int8(c, 4096, 14336, 132, path="expert_tile", experts=8)
+        tiles = -(-c // widths[-1])
+        assert plan.lanes in widths and -(-c // plan.lanes) == tiles
+        assert all(w * tiles < c for w in widths if w < plan.lanes)
+        assert plan.blocks == 8 * tiles * 4096 // int8_matmul.EXPERT_TILE_ROWS
+    # the dense product keeps its plans: never the expert tile kernel unforced
+    for m in (1, 17, 130, 1024):
+        assert int8_matmul.plan_int8(m, 14336, 4096, 132).path != "expert_tile"
 
 
 def test_planned_splits_cut_k_into_nonempty_ranges():

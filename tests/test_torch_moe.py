@@ -144,6 +144,26 @@ def test_int8_experts_match_jax(factor):
     _check(*jmoe.moe_mlp(jp, jc, jnp.asarray(x)), *tmoe.moe_mlp(tp, tc, torch.from_numpy(x)))
 
 
+@pytest.mark.parametrize("c", [2, 5, 17, 130])
+@pytest.mark.parametrize("k,n", [(64, 128), (128, 64)])
+def test_expert_mat_int8_matches_jax(c, k, n):
+    """``_expert_mat`` on an int8 stack: the JAX convert-einsum and the
+    port's ``int8_expert_matmul`` (its plain version on the CPU), at
+    capacities on either side of the expert tile kernel's cut (the planner's
+    choice on the card), fp32."""
+    rng = np.random.default_rng(c * 1000 + k)
+    x = rng.normal(size=(X, c, k)).astype(np.float32)
+    q = rng.integers(-127, 128, size=(X, k, n), dtype=np.int8)  # JAX [X, in, out]
+    s = (rng.random((X, n)) * 1e-2 + 1e-4).astype(np.float32)
+    want = jmoe._expert_mat(jnp.asarray(x), {"q": jnp.asarray(q), "s": jnp.asarray(s)},
+                            "xce,xef->xcf")
+    w = Int8Weight(torch.from_numpy(np.ascontiguousarray(q.transpose(0, 2, 1))),
+                   torch.from_numpy(s))
+    got = tmoe._expert_mat(torch.from_numpy(x), w)
+    assert got.shape == (X, c, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
 def test_routing_ties_break_toward_the_lower_expert():
     """Experts 0, 1 and 2 share one router column: every token ties among
     them. jax.lax.top_k takes the lower indices; so must the port."""
