@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the kernels of several checkouts in turns, on one card.
 
-    python3 chip_ab.py [--kernels paged,int8,experts] ROOT [ROOT ...]
+    python3 chip_ab.py [--kernels paged,kv8,int8,experts] ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -18,7 +18,10 @@ replayed from a CUDA graph.
   wrapper's own plan);
 - ``experts``: ``int8_expert_matmul`` over 8 experts at mixtral-8x7b's two
   expert shapes of phase 5 at C = 4 (decode), 130 and 512 (prefill), cycling
-  through two stacks (bf16 activations, the wrapper's own plan).
+  through two stacks (bf16 activations, the wrapper's own plan);
+- ``kv8``: ``paged_decode_attention_int8`` in every int8-KV regime of
+  ``chip_smoke.py``'s phase 3 (bf16 compute, the wrapper's own split plan;
+  a checkout without the int8-KV kernel cannot run it).
 
 ``paged`` and ``int8`` by default. Give the roots as A B B A to see the spread between turns.
 Prints one line per run and case, then one JSON line with every number.
@@ -84,6 +87,22 @@ def worker(root: str, kernels: str) -> dict:
                 del x, fns
             del qs, ss
             torch.cuda.empty_cache()
+    if "kv8" in kernels:
+        from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention_int8
+
+        for ri, (name, S, H, KVH, D, bs, max_len) in enumerate(cs.KV_INT8_REGIMES):
+            case8 = cs.int8_pool(torch, cs.make_case(torch, S, H, KVH, D, bs, max_len,
+                                                     torch.bfloat16, 300 + ri))
+            lens = case8[6].cpu().numpy()
+            live_kv = 2 * int(lens.sum()) * KVH * D
+            n_sets = min(cs.MAX_SETS, max(4, -(-int(cs.COLD_BYTES) // live_kv)))
+            sets = cs.int8_timing_sets(torch, case8, n_sets, 2000 + ri)
+            fns = [lambda a=a: paged_decode_attention_int8(*a) for a in sets]
+            out["regimes"][f"int8 KV {name}"] = {
+                "ms": cs.time_many(torch, fns), "graph_ms": cs.time_graph(torch, fns),
+                "bound_ms": cs.int8_kv_bound(S, H, KVH, D, bs, lens, rate)[0]}
+            del case8, sets, fns
+            torch.cuda.empty_cache()
     if "paged" not in kernels:
         return out
     for ri, (name, S, H, KVH, D, bs, max_len) in enumerate(cs.REGIMES):
@@ -109,7 +128,7 @@ def main(argv) -> int:
     kernels = "paged,int8"
     if len(argv) >= 2 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
-    if not argv or not set(kernels.split(",")) <= {"paged", "int8", "experts"}:
+    if not argv or not set(kernels.split(",")) <= {"paged", "kv8", "int8", "experts"}:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []

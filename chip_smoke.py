@@ -12,7 +12,14 @@ non-zero:
    version on the card, in every regime the JAX kernels covered and with one
    lane, and times kernel, plain version and the library call beside it over
    runs of many calls cycling through inputs larger than L2; at two shapes
-   it also times the kernel at split counts around the planner's;
+   it also times the kernel at split counts around the planner's; then the
+   int8-KV rows: ``paged_decode_attention_int8`` in the same regimes and at
+   8 lanes x 8192 tokens (llama3-8b's native context) against its plain
+   version, bit for bit against the bf16 kernel on ``dequantize_kv(pages)``
+   at the same split count, and timed eager and graph-replayed beside its
+   bound, its plain version, the bf16 kernel on bf16 pages of the same
+   lengths, and "dequantize the gathered pages, then the bf16 kernel" (a
+   two-call yardstick: no single PyTorch call computes this function);
 4. int8 kernel: holds ``int8_weight_matmul`` against its plain version at
    the llama3-8b projection shapes (M = 1 and 8, and M = 64, 256 and 1024
    = an ``"int8-all"`` prefill chunk for 4096->14336), prints each shape's
@@ -51,21 +58,31 @@ non-zero:
     products of 1024 rows, all on the tile kernel), through the int8
     kernels and through their plain version; prints, not held, the same
     chunk's drift between the plain version summed in fp64 and in fp32;
-11. mixtral load (every llama engine closed first): writes a
+11. int8 KV serve: the bf16 weights of phases 7 and 9 behind an engine
+    with ``kv_dtype="int8"`` and the host-RAM KV tier (the int8 engine
+    closed first), its pool sized so that a second wave of 8 other prompts
+    evicts the first wave's cached blocks to host RAM and a third wave of
+    the first prompts finds them there: checks 32
+    ``paged_decode_attention_int8`` launches per decode step and none of the
+    bf16 paged kernel, host hits, and every injected page and scale
+    bit-equal to what was spilled; profiles decode; then one full-width
+    ``forward_window`` step over an int8 pool through the kernel against its
+    plain version, and prints (not held) its drift from a bf16 pool;
+12. mixtral load (every llama engine closed first): writes a
     mixtral-8x7b-width checkpoint cut to 1 layer (bf16, HF
     ``block_sparse_moe`` names), loads it straight to int8, checks every q
     and s on the card bit for bit against the quantization of what was
     written, and serves 2 streaming requests from it in ``"int8-all"``;
-12. mixtral serve: mixtral-8x7b at full width and depth, random weights
+13. mixtral serve: mixtral-8x7b at full width and depth, random weights
     drawn straight to int8 on the card, behind the HTTP server in
     ``"int8-all"``, its prompts read by a mixtral-shaped tokenizer.json
     (``mixtral_tokenizer_json``: SentencePiece-style BPE with byte
-    fallback; phase 11 reads it too): peak memory, 8 concurrent streams of
+    fallback; phase 12 reads it too): peak memory, 8 concurrent streams of
     32 tokens, launch counts (129 ``int8_weight_matmul``, 96
     ``int8_expert_matmul`` per forward, 32 paged per decode step; each
     prefill chunk's expert products on the expert tile kernel), TTFT,
     decode tok/s and a profile;
-13. mixtral parity: one MoE layer at 8 and 1024 tokens, and one full-depth
+14. mixtral parity: one MoE layer at 8 and 1024 tokens, and one full-depth
     ``forward_window`` step through the kernels against the same step
     through every kernel's plain version, and through the int8 products'
     plain versions alone; routing choices that differ are counted, with the
@@ -75,7 +92,7 @@ non-zero:
     expert choices, and the logits are held on every lane; last, one
     full-depth prefill chunk is timed with the expert products on the
     expert tile kernel and on the dense tile kernel, in turns;
-14. prints the kernels' JSON line and, last, the device JSON line.
+15. prints the kernels' JSON line and, last, the device JSON line.
 Each phase prints its seconds.
 """
 
@@ -542,6 +559,170 @@ def phase_kernels(card: str) -> dict:
     return result
 
 
+# the int8-KV rows of phase 3: every regime above, plus llama3-8b's heads at
+# its native context, where the KV bytes dominate
+KV_INT8_REGIMES = REGIMES + [
+    ("llama3-8b long context (D=128, KVH=8, 8 lanes, 8192)", 8, 32, 8, 128, 16, 8192),
+]
+
+
+def int8_pool(torch, case):
+    """The per-token int8 quantization of a case's K/V, with NaN scales in
+    the dead slots of each lane's last page (where the case has NaN K/V):
+    stale scales a kernel must never read."""
+    from dynamo_tpu_torch.ops.attention import quantize_kv
+
+    q, k, v, tables, lengths = case
+    dead = torch.isnan(k.float()).any(-1).any(-1)  # [N, bs]
+    kq, vq, ks, vs = quantize_kv(torch.nan_to_num(k.float()), torch.nan_to_num(v.float()))
+    ks[dead] = float("nan")
+    vs[dead] = float("nan")
+    return q, kq, vq, ks, vs, tables, lengths
+
+
+def int8_timing_sets(torch, case8, n_sets: int, seed: int) -> list:
+    """``n_sets`` inputs of the int8 case's shapes, tables and lengths: the
+    case and fresh int8 pages and scales made on the card."""
+    q, kq, vq, ks, vs, tables, lengths = case8
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sets = [case8]
+    for _ in range(n_sets - 1):
+        pages = [torch.randint(-127, 128, kq.shape, generator=gen, device="cuda",
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand(ks.shape, generator=gen, device="cuda") * 0.05 for _ in range(2)]
+        qn = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        sets.append((qn, *pages, *scales, tables, lengths))
+    return sets
+
+
+def dequant_then_bf16(torch, q, kq, vq, ks, vs, tables, lengths):
+    """The nearest two-call yardstick (not a library call): ``dequantize_kv``
+    of each lane's table pages into a compact bf16 pool, then the bf16 paged
+    kernel over it."""
+    from dynamo_tpu_torch.ops.attention import dequantize_kv
+    from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    S = q.shape[0]
+    _, bs, KVH, D = kq.shape
+    mb = tables.shape[1]
+    n_pages = (lengths.long() + bs - 1) // bs
+    live = torch.arange(mb, device=q.device)[None, :] < n_pages[:, None]
+    t = torch.where(live, tables.long(), 0)
+    compact = torch.arange(S * mb, dtype=torch.int32, device=q.device).reshape(S, mb)
+    k = dequantize_kv(kq[t], ks[t], q.dtype).reshape(S * mb, bs, KVH, D)
+    v = dequantize_kv(vq[t], vs[t], q.dtype).reshape(S * mb, bs, KVH, D)
+    return paged_decode_attention(q, k, v, compact, lengths)
+
+
+def int8_kv_bound(S, H, KVH, D, bs, lengths, rate):
+    """(bound_ms, bound_by, bytes, flops) of the int8 kernel's call: q, the
+    live int8 K and V rows and their fp32 scales read once, o, m and l
+    written once."""
+    total = int(lengths.sum())
+    n_pages = sum(-(-int(x) // bs) for x in lengths)
+    nbytes = (
+        2 * total * KVH * D  # live int8 K and V rows
+        + 2 * total * 4  # their scales
+        + S * H * D * 2  # q (bf16)
+        + S * H * D * 2 + 2 * S * H * 4  # o, m, l
+        + S * 4 + n_pages * 4  # lengths, live table entries
+    )
+    flops = 4 * total * H * D
+    t_bytes, t_ops = nbytes / rate, flops / BF16_PEAK
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def phase_kv_int8_kernel(card: str) -> dict:
+    """Phase 3's int8-KV rows: ``paged_decode_attention_int8`` against its
+    plain version (bf16 compute), bit for bit against the bf16 kernel on
+    ``dequantize_kv(pages)`` at the same split count, and timed eager and
+    graph-replayed beside its bound, its plain version, the bf16 kernel on
+    bf16 pages of the same lengths and the two-call yardstick."""
+    import torch
+
+    from dynamo_tpu_torch.ops.attention import dequantize_kv
+    from dynamo_tpu_torch.ops.paged_attention import (
+        int8_device_launches,
+        paged_decode_attention,
+        paged_decode_attention_int8,
+        paged_decode_attention_int8_plain,
+        reset_launch_counts,
+        splits_launched,
+    )
+
+    rate = hbm_rate(card)
+    result = {}
+    for ri, (name, S, H, KVH, D, bs, max_len) in enumerate(KV_INT8_REGIMES):
+        case = make_case(torch, S, H, KVH, D, bs, max_len, torch.bfloat16, 300 + ri)
+        case8 = int8_pool(torch, case)
+        q, kq, vq, ks, vs, tables, lengths = case8
+        reset_launch_counts()
+        o, m, l = paged_decode_attention_int8(*case8, return_stats=True)
+        torch.cuda.synchronize()
+        (splits,) = splits_launched
+        dev_launches = sum(int8_device_launches.values())
+        po, pm, pl = paged_decode_attention_int8_plain(*case8, return_stats=True)
+        err_o = (o.float() - po.float()).abs().max().item()
+        ok = (torch.isfinite(o.float()).all().item() and err_o <= 2e-2
+              and torch.allclose(m, pm, rtol=1e-3, atol=0)
+              and torch.allclose(l, pl, rtol=1e-3, atol=0))
+        kd, vd = dequantize_kv(kq, ks, torch.bfloat16), dequantize_kv(vq, vs, torch.bfloat16)
+        bo, bm, bl = paged_decode_attention(q, kd, vd, tables, lengths, return_stats=True,
+                                            num_splits=splits)
+        torch.cuda.synchronize()
+        bit_equal = torch.equal(o, bo) and torch.equal(m, bm) and torch.equal(l, bl)
+        print(f"int8 KV kernel vs plain [{name}, bf16 compute, {splits} splits, {dev_launches} "
+              f"device launches]: max|do| {err_o:.3e} max|dm| {(m - pm).abs().max().item():.3e} "
+              f"max|dl| {(l - pl).abs().max().item():.3e} (o atol 2e-2, m/l rtol 1e-3) "
+              f"{'ok' if ok else 'MISMATCH'}; vs the bf16 kernel on dequantize_kv(pages) at "
+              f"{splits} splits: {'bit-equal' if bit_equal else 'NOT bit-equal'}")
+        if not ok:
+            fail(f"paged_decode_attention_int8 disagrees with its plain version: {name}")
+        if not bit_equal:
+            fail(f"paged_decode_attention_int8 is not bit-equal to the bf16 kernel on the "
+                 f"dequantized pages: {name}")
+        del po, pm, pl, bo, bm, bl
+        lens_np = lengths.cpu().numpy()
+        b_ms, b_by, nbytes, _ = int8_kv_bound(S, H, KVH, D, bs, lens_np, rate)
+        live_kv = 2 * int(lens_np.sum()) * KVH * D  # int8 bytes
+        n_sets = min(MAX_SETS, max(4, -(-int(COLD_BYTES) // live_kv)))
+        sets = int8_timing_sets(torch, case8, n_sets, 2000 + ri)
+        kern = [lambda a=a: paged_decode_attention_int8(*a) for a in sets]
+        ms = time_many(torch, kern)
+        graph_ms = time_graph(torch, kern)
+        plain_ms = time_many(torch, [lambda a=a: paged_decode_attention_int8_plain(*a)
+                                     for a in sets[:4]], calls=20, reps=1)
+        two_call_ms = time_many(torch, [lambda a=a: dequant_then_bf16(torch, *a)
+                                        for a in sets[:4]], calls=20, reps=1)
+        del sets, kern
+        torch.cuda.empty_cache()
+        # the bf16 kernel on bf16 pages of the same lengths, as cold
+        bsets = timing_sets(torch, case, min(MAX_SETS, max(4, -(-int(COLD_BYTES) // (2 * live_kv)))),
+                            3000 + ri)
+        bkern = [lambda a=a: paged_decode_attention(*a) for a in bsets]
+        bf16_ms = time_many(torch, bkern)
+        bf16_graph_ms = time_graph(torch, bkern)
+        del bsets, bkern, kd, vd
+        torch.cuda.empty_cache()
+        share = b_ms / ms
+        print(f"  time [{name}, int8 KV, {splits} splits]: kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e9:.3f} TB/s, {share:.1%} of the bytes bound), graph-replayed "
+              f"{graph_ms:.4f} ms ({b_ms / graph_ms:.1%}), bound {b_ms:.4f} ms ({b_by}: "
+              f"{nbytes / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s), plain {plain_ms:.4f} ms, "
+              f"dequantize-then-bf16-kernel (two calls, not a library call) {two_call_ms:.4f} "
+              f"ms; the bf16 kernel on bf16 pages of the same lengths {bf16_ms:.4f} ms "
+              f"(graph {bf16_graph_ms:.4f}); {n_sets} input sets, "
+              f"{n_sets * live_kv / 1e6:.0f} MB of live int8 K/V")
+        result[name] = dict(max_abs_err=err_o, bit_equal_to_bf16_kernel=bit_equal, ms=ms,
+                            graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            bound_share=share, library_ms=None, dequant_then_bf16_ms=two_call_ms,
+                            bf16_kernel_ms=bf16_ms, bf16_kernel_graph_ms=bf16_graph_ms,
+                            splits=splits, device_launches_per_call=dev_launches,
+                            tb_s=nbytes / ms / 1e9, S=S, H=H, KVH=KVH, D=D,
+                            live_tokens=int(lens_np.sum()))
+    return result
+
+
 # -- phase 4: the int8 kernel ----------------------------------------------------
 
 # llama3-8b's int8 products (K, N, out dtype) and how many a decode step runs
@@ -926,7 +1107,7 @@ def phase_expert_kernel(card: str) -> dict:
     return {"cases": result, "per_step": per_step, "prefill_chunk": chunk, "sweep": sweep}
 
 
-# -- the HTTP pipeline (phases 6, 7, 9, 11 and 12) --------------------------------
+# -- the HTTP pipeline (phases 6, 7, 9, 11, 12 and 13) ----------------------------
 
 def _free_port() -> int:
     with socket.socket() as s:
@@ -989,6 +1170,7 @@ def device_intervals_us(trace_path: str):
 # serve int8_weight_matmul and int8_expert_matmul alike
 TRACE_KERNELS = {"paged_decode_attention": ("paged_decode_split_kernel",
                                             "paged_decode_merge_kernel"),
+                 "paged_decode_attention_int8": ("paged_decode_int8_split_kernel",),
                  "int8_weight_matmul": ("w8a16_tile_kernel", "w8a16_splitk_kernel",
                                         "w8f32_kernel")}
 
@@ -1026,7 +1208,10 @@ def profile_decode(port: int, bodies: list, core) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from dynamo_tpu_torch.ops.int8_matmul import int8_expert_matmul, int8_weight_matmul
-    from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_int8,
+    )
 
     bodies = [(path, dict(body, max_tokens=PROFILE_TOKENS)) for path, body in bodies]
     results = [None] * len(bodies)
@@ -1044,10 +1229,11 @@ def profile_decode(port: int, bodies: list, core) -> dict:
         t0 = time.perf_counter()
         d1, s1 = core.decode_dispatches, core.decode_steps_total
         c1, i1 = paged_decode_attention.launches, int8_weight_matmul.launches
-        x1 = int8_expert_matmul.launches
+        x1, q1 = int8_expert_matmul.launches, paged_decode_attention_int8.launches
         _wait_until(lambda: core.decode_dispatches >= d1 + PROFILE_DISPATCHES, threads)
         d2, s2 = core.decode_dispatches, core.decode_steps_total
         calls = paged_decode_attention.launches - c1
+        kv8_calls = paged_decode_attention_int8.launches - q1
         int8_calls = int8_weight_matmul.launches - i1
         expert_calls = int8_expert_matmul.launches - x1
         window_us = (time.perf_counter() - t0) * 1e6
@@ -1091,20 +1277,24 @@ def profile_decode(port: int, bodies: list, core) -> dict:
           f"{busy / steps / 1e3:.3f} ms device time per step")
     print("profile: share of device time " + ", ".join(f"{w} {v:.3f}" for w, v in shares.items())
           + "; device events " + ", ".join(f"{k} {n}" for k, n in events.items() if n)
-          + f" over {calls} paged, {int8_calls} int8 and {expert_calls} expert wrapper calls "
-          f"in the window "
-          f"({events['paged_decode_split_kernel'] / max(calls, 1):.3f} split and "
-          f"{events['paged_decode_merge_kernel'] / max(calls, 1):.3f} merge events per paged call)")
+          + f" over {calls} paged, {kv8_calls} int8-KV paged, {int8_calls} int8 and "
+          f"{expert_calls} expert wrapper calls in the window "
+          f"({events['paged_decode_split_kernel'] / max(calls, 1):.3f} split, "
+          f"{events['paged_decode_int8_split_kernel'] / max(kv8_calls, 1):.3f} int8 split and "
+          f"{events['paged_decode_merge_kernel'] / max(calls + kv8_calls, 1):.3f} merge events "
+          f"per paged call)")
     for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  device {tot / 1e3:9.3f} ms  {n:6d} x  {tot / max(dev_us, 1e-9):6.3f}  "
               f"{name[:100]}")
     return {"measured": True, "steps": steps, "window_ms": window_us / 1e3,
             "device_busy_ms": busy / 1e3, "idle_share": idle,
             "paged_decode_share": shares["paged_decode_attention"],
+            "paged_decode_int8_share": shares["paged_decode_attention_int8"],
             "int8_matmul_share": shares["int8_weight_matmul"],
             "expert_matmul_share": shares.get("int8_expert_matmul"),
             "device_ms_per_step": busy / steps / 1e3,
             "kernels_per_step": len(kernels) / steps, "wrapper_calls": calls,
+            "int8_kv_wrapper_calls": kv8_calls,
             "int8_wrapper_calls": int8_calls, "expert_wrapper_calls": expert_calls,
             "device_events": events}
 
@@ -1398,9 +1588,10 @@ def _parity(label: str, a, b, limit: float = 2e-2) -> float:
     return rel
 
 
-def parity_case(torch, cfg, params):
-    """8 lanes of 100-500 prompt tokens prefilled into a fresh pool with
-    ``params`` (bf16 chunks), and the token at each lane's next position."""
+def parity_case(torch, cfg, params, quantized: bool = False):
+    """8 lanes of 100-500 prompt tokens prefilled into a fresh pool (int8
+    pages with ``quantized``) with ``params`` (bf16 chunks), and the token at
+    each lane's next position."""
     import numpy as np
 
     from dynamo_tpu_torch.models.llama import forward_chunk, make_kv_cache
@@ -1408,7 +1599,7 @@ def parity_case(torch, cfg, params):
     S, bs, per_lane = 8, 16, 32  # 32 pages = 512 tokens of room per lane
     rng = np.random.default_rng(7)
     lens = rng.integers(100, 500, size=S)
-    cache = make_kv_cache(cfg, S * per_lane, bs, device="cuda")
+    cache = make_kv_cache(cfg, S * per_lane, bs, device="cuda", quantized=quantized)
     tables = torch.arange(S * per_lane, dtype=torch.int32, device="cuda").reshape(S, per_lane)
     tables = tables[:, torch.randperm(per_lane, generator=torch.Generator().manual_seed(1))]
     tables = tables.contiguous()
@@ -1583,7 +1774,190 @@ def phase_int8_parity(core) -> dict:
             "chunk_launches": chunk_launches}
 
 
-# -- phases 11-13: mixtral-8x7b in "int8-all" ------------------------------------
+# -- phase 11: int8 KV pages and the host tier ------------------------------------
+
+KV_HOST_NAMES = ("k", "v", "k_scale", "v_scale")
+
+
+def request_words(bodies: list, reverse: bool) -> list:
+    """The bodies with each prompt's words in reverse order: the same lengths
+    and no shared prefix block."""
+    if not reverse:
+        return bodies
+    out = []
+    for path, body in bodies:
+        if "messages" in body:
+            text = " ".join(reversed(body["messages"][0]["content"].split()))
+            out.append((path, dict(body, messages=[{"role": "user", "content": text}])))
+        else:
+            out.append((path, dict(body, prompt=" ".join(reversed(body["prompt"].split())))))
+    return out
+
+
+def pool_blocks_for(bodies: list, bs: int, decode_steps: int) -> int:
+    """An upper bound on the KV blocks one wave of ``bodies`` holds at once,
+    the profiled wave's longer outputs included (byte-level prompts: a token
+    per byte, plus the chat template)."""
+    total = 0
+    for _, body in bodies:
+        text = body["messages"][0]["content"] if "messages" in body else body["prompt"]
+        tokens = len(text.encode()) + 32 + max(MAX_TOKENS, PROFILE_TOKENS) + 2 * decode_steps
+        total += -(-tokens // bs) + 1
+    return total
+
+
+def host_tier_probe(core) -> dict:
+    """Wrap the engine's spill and inject: a device copy of each block as it
+    is spilled (its first spill, which is what the host pool keeps), and
+    after each injection the injected pages and scales held bit for bit
+    against that copy."""
+    import torch
+
+    snap, stats = {}, {"spilled": 0, "injected": 0, "mismatched": 0}
+    offload, inject = core._offload_blocks, core._inject_host_hits
+
+    def spill(pairs):
+        idx = torch.tensor([bid for _, bid, _ in pairs], device=core.device)
+        copies = [core.cache[n][:, idx].clone() for n in KV_HOST_NAMES]
+        for i, (h, _, _) in enumerate(pairs):
+            snap.setdefault(h, tuple(c[:, i] for c in copies))
+        stats["spilled"] += len(pairs)
+        offload(pairs)
+
+    def injected(alloc):
+        hits = [(alloc.block_ids[h[0]], h[1]) for h in alloc.host_hits]
+        inject(alloc)
+        for bid, h in hits:
+            same = all(torch.equal(core.cache[n][:, bid], snap[h][i])
+                       for i, n in enumerate(KV_HOST_NAMES))
+            stats["injected"] += 1
+            stats["mismatched"] += not same
+
+    core.allocator._offload = spill
+    core._inject_host_hits = injected
+    return stats
+
+
+def phase_kv_int8_serve(card: str, int8_core, flags, name: str) -> dict:
+    """The llama3-8b-width bf16 weights of phases 7 and 9 behind an engine
+    with int8 KV pages and the host tier, the int8 engine closed first: 8
+    concurrent streams, then 8 others that evict the first wave's cached
+    blocks to host RAM, then the first wave's prompts again, which find
+    them there. Checks 32 int8 paged launches per decode step and no bf16
+    one, host hits, and every injected page and scale bit-equal to what was
+    spilled; profiles decode; then one full-width int8-pool decode step
+    through the kernel against its plain version (held at 2e-2), and its
+    drift from a bf16 pool (printed, not held)."""
+    import torch
+
+    from dynamo_tpu_torch.cli.run import make_pipelines
+    from dynamo_tpu_torch.engine_torch.engine import TorchServingEngine
+    from dynamo_tpu_torch.ops import paged_attention
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_int8,
+        paged_decode_attention_int8_plain,
+    )
+
+    params, cfg, ecfg = int8_core.params, int8_core.model_config, int8_core.config
+    del int8_core
+    gc.collect()
+    torch.cuda.empty_cache()
+    bodies = request_bodies(name, N_REQUESTS, MAX_TOKENS)
+    evicting = request_words(bodies, reverse=True)
+    blocks = pool_blocks_for(bodies, ecfg.kv_block_size, ecfg.decode_steps) + 16
+    t0 = time.perf_counter()
+    core = TorchServingEngine(cfg, params, dataclasses.replace(
+        ecfg, quantize=None, kv_dtype="int8", num_kv_blocks=blocks,
+        host_cache_blocks=4 * blocks), device="cuda")
+    core.warmup()
+    flags.port = _free_port()
+    chat, comp = make_pipelines(core_card(flags), core)
+    L = cfg.num_layers
+    print(f"kv int8 serve: engine warmed up in {time.perf_counter() - t0:.1f} s (llama3-8b "
+          f"width, bf16 weights, int8 KV pages, {blocks} KV blocks = "
+          f"{sum(x.numel() * x.element_size() for x in core.cache.values()) / 1e9:.3f} GB, "
+          f"host tier of {4 * blocks} blocks)")
+    probe = host_tier_probe(core)
+    with http_server(chat, comp, name, flags) as port:
+        reset_all_counts()
+        steps0 = core.decode_steps_total
+        waves = []
+        for label, wave in (("first", bodies), ("evicting", evicting), ("repeat", bodies)):
+            results, t_sent, wall = run_streams(port, wave, MAX_TOKENS)
+            waves.append(results)
+            m = core.metrics_snapshot()
+            print(f"kv int8 serve: {label} wave, {len(wave)} streams HTTP 200, {MAX_TOKENS} "
+                  f"tokens each, wall {wall:.2f} s; host tier {m['host_cache_blocks']} blocks, "
+                  f"{m['host_cache_hits']} hits; prefix hit rate "
+                  f"{m['gpu_prefix_cache_hit_rate']:.3f}; preemptions {m['preemptions']}")
+            if label == "evicting":  # the spills reach the host pool between waves
+                deadline = time.perf_counter() + 30
+                while not len(core.host_pool) and time.perf_counter() < deadline:
+                    time.sleep(0.01)
+        launches = paged_decode_attention_int8.launches
+        kernels = dict(paged_attention.int8_device_launches)
+        bf16_launches = paged_decode_attention.launches
+        bf16_kernels = dict(paged_attention.device_launches)
+        steps = core.decode_steps_total - steps0
+        ttfts = list(core.recent_ttft_s)[-N_REQUESTS:]
+        metrics = core.metrics_snapshot()
+        profile = profile_decode(port, bodies, core)
+    same_text = sum(a["text"] == b["text"] for a, b in zip(waves[0], waves[2]))
+    print(f"kv int8 serve: paged_decode_attention_int8 launches {launches} over {steps} decode "
+          f"steps x {L} layers = {steps * L} ({launches / max(steps, 1):.0f} per step); device "
+          f"launches " + ", ".join(f"{k} {n}" for k, n in kernels.items())
+          + f"; bf16 paged_decode_attention launches {bf16_launches} ({bf16_kernels}); "
+          f"host tier: {probe['spilled']} blocks spilled, {metrics['host_cache_hits']} hits, "
+          f"{probe['injected']} pages injected, {probe['mismatched']} not bit-equal to their "
+          f"spill (k, v, k_scale, v_scale); repeat wave texts equal to the first wave's: "
+          f"{same_text} of {N_REQUESTS} (not held)")
+    if steps == 0 or launches != L * steps:
+        fail(f"paged_decode_attention_int8 ran {launches} times, expected {L} x {steps}")
+    if any(n != L * steps for n in kernels.values()):
+        fail(f"int8 paged device launches {kernels}, expected {L * steps} each")
+    if bf16_launches or any(bf16_kernels.values()):
+        fail(f"the bf16 paged kernel ran on an int8 pool: {bf16_launches}, {bf16_kernels}")
+    if metrics["host_cache_hits"] <= 0 or probe["injected"] <= 0:
+        fail(f"the host tier served no hit: {metrics['host_cache_hits']} hits, "
+             f"{probe['injected']} injected")
+    if probe["mismatched"]:
+        fail(f"{probe['mismatched']} injected pages differ from what was spilled")
+    core.close()
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one full-width decode step over an int8 pool, kernel against plain
+    case8 = parity_case(torch, cfg, params, quantized=True)
+    kern = window_logits(torch, cfg, params, case8, paged_decode_attention_int8)
+    plain = window_logits(torch, cfg, params, case8, paged_decode_attention_int8_plain)
+    lens = case8[5]
+    ratio = _parity(f"int8-KV decode parity (forward_window over an int8 pool, kernel vs plain, "
+                    f"llama3-8b width, 8 lanes, lengths {int(lens.min())}-{int(lens.max())})",
+                    kern, plain)
+    del case8, plain
+    case = parity_case(torch, cfg, params)
+    bf16_pool = window_logits(torch, cfg, params, case, paged_decode_attention)
+    drift = (kern - bf16_pool).abs().max().item() / bf16_pool.abs().max().item()
+    agree = (kern.argmax(-1) == bf16_pool.argmax(-1)).float().mean().item()
+    print(f"int8-KV pool against a bf16 pool (not held): the same 8 prompts and step, "
+          f"max|dlogits| / max|logits| {drift:.3e}, greedy agreement {agree:.3f}")
+    del case, kern, bf16_pool
+    torch.cuda.empty_cache()
+    first = min(t_sent) + min(ttfts)
+    return {"launches": launches, "device_launches": kernels, "bf16_launches": bf16_launches,
+            "decode_steps": steps, "host_cache_hits": metrics["host_cache_hits"],
+            "host_cache_blocks": metrics["host_cache_blocks"], "spilled": probe["spilled"],
+            "injected": probe["injected"], "injected_mismatched": probe["mismatched"],
+            "repeat_texts_equal": same_text, "kv_blocks": blocks,
+            "ttft_p50_ms": statistics.median(ttfts) * 1e3,
+            "decode_tok_s_last_wave": N_REQUESTS * (MAX_TOKENS - 1)
+            / (max(r["end"] for r in waves[2]) - first),
+            "profile": profile, "parity_ratio": ratio, "bf16_pool_drift": drift,
+            "bf16_pool_greedy_agreement": agree}
+
+
+# -- phases 12-14: mixtral-8x7b in "int8-all" ------------------------------------
 
 MIXTRAL_LOAD_LAYERS = 1  # the checkpoint's depth: mixtral-8x7b widths, ~3.4 GB of bf16
 # int8_weight_matmul calls per forward of mixtral: wq, wk, wv, wo per layer and the LM head
@@ -2051,6 +2425,7 @@ def main() -> int:
     print(f"profiler: first start and stop in {warm_profiler():.1f} s")
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels, card)
+    kv8k = timed("kernels int8 KV", phase_kv_int8_kernel, card)
     int8k = timed("int8 kernel", phase_int8_kernel, card)
     expk = timed("expert kernel", phase_expert_kernel, card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2061,8 +2436,13 @@ def main() -> int:
                        write_model_dir(os.path.join(tmp, "llama3-8b-random")))
         parity = timed("parity", phase_parity, served["core"])
         int8s = timed("int8 serve", phase_int8_serve, card, served)
-    int8p = timed("int8 parity", phase_int8_parity, int8s["core"])
-    int8s.pop("core").close()
+        int8p = timed("int8 parity", phase_int8_parity, int8s["core"])
+        int8_core = int8s.pop("core")
+        int8_core.close()
+        # the model directory is still there: phase 11 reads its card
+        kvs = timed("kv int8 serve", phase_kv_int8_serve, card, int8_core, served["flags"],
+                    served["name"])
+        del int8_core
     # every llama engine is closed: free the card for mixtral's 47 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -2086,6 +2466,7 @@ def main() -> int:
     mixp = timed("mixtral parity", phase_mixtral_parity, mix_params, mix_cfg)
     del mix_params
     main_regime = kern[REGIMES[0][0]]
+    kv8_regime = kv8k[REGIMES[0][0]]
     step, estep, echunk = int8k["per_step"], expk["per_step"], expk["prefill_chunk"]
     decode_cases = [c for c in int8k["cases"] if c["M"] in (1, 8) and c["x"] == "bf16"]
     (chunk_case,) = [c for c in int8k["cases"] if c["M"] == 1024]
@@ -2109,6 +2490,28 @@ def main() -> int:
         "launches_int8_serve": int8s["launches"],
         "launches_mixtral_serve": mixs["launches"],
         "regimes": [dict(name=k, **v) for k, v in kern.items()],
+    }, {
+        "name": "paged_decode_attention_int8",
+        "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "none — XLA `dequantize_kv` + `gather_history` dense tier, "
+                    "`dynamo_tpu/models/llama.py:246, 534`",
+        "launches": kvs["launches"],
+        "max_abs_err": kv8_regime["max_abs_err"],
+        "ms": kv8_regime["ms"],
+        "graph_ms": kv8_regime["graph_ms"],
+        "plain_ms": kv8_regime["plain_ms"],
+        "bound_ms": kv8_regime["bound_ms"],
+        "bound_by": kv8_regime["bound_by"],
+        "library_ms": None,
+        "bound_share": kv8_regime["bound_share"],
+        "bit_equal_to_bf16_kernel": all(r["bit_equal_to_bf16_kernel"] for r in kv8k.values()),
+        "bf16_kernel_ms": kv8_regime["bf16_kernel_ms"],
+        "bf16_kernel_graph_ms": kv8_regime["bf16_kernel_graph_ms"],
+        "dequant_then_bf16_ms": kv8_regime["dequant_then_bf16_ms"],
+        "device_launches": kvs["device_launches"],
+        "decode_steps": kvs["decode_steps"],
+        "regimes": [dict(name=k, **v) for k, v in kv8k.items()],
     }, {
         "name": "int8_weight_matmul",
         "route": "cuda",
@@ -2187,6 +2590,7 @@ def main() -> int:
                   "profile": served["profile"], "parity_ratio": parity},
         "int8_serve": {"ttft_p50_ms": int8s["ttft_p50_ms"], "decode_tok_s": int8s["decode_tok_s"],
                        "profile": int8s["profile"], **int8p},
+        "kv_int8_serve": kvs,
         "mixtral_serve": {k: mixs[k] for k in (
             "ttft_p50_ms", "decode_tok_s", "profile", "peak_gb", "weights_gb", "kv_gb", "build_s",
             "warmup_s", "decode_steps", "chunk_dispatches", "launches", "int8_launches",

@@ -5,7 +5,10 @@ tokenizer.json, tokenizer_config.json, and its weights as ``*.safetensors``
 files) or in a single ``.gguf`` file through the OpenAI HTTP frontend and
 the torch engine. The engine runs on CUDA unless ``--device cpu`` is given;
 without a card and without ``--device cpu`` it raises. A directory without
-weight files gets random weights (``--seed``).
+weight files gets random weights (``--seed``). ``--host-cache-blocks N``
+keeps up to N evicted KV blocks in host RAM for later prefix hits; the KV
+page dtype is ``DYN_TPU_KV_DTYPE`` (``int8`` for int8 pages), as in the
+JAX launcher.
 
 Counterpart of the JAX package's ``cli/run.py`` for ``in=http out=jax``.
 """
@@ -54,6 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--kv-block-size", type=int, default=16)
     p.add_argument("--max-model-len", type=int, default=None)
+    p.add_argument("--host-cache-blocks", type=int, default=0,
+                   help="host-RAM KV tier size in blocks (0 = disabled)")
     p.add_argument("--decode-steps", type=int, default=4,
                    help="decode steps per engine dispatch")
     p.add_argument("--seed", type=int, default=0, help="seed of random weights")
@@ -77,6 +82,7 @@ def build_engine(out_spec: str, flags: argparse.Namespace):
         kv_block_size=flags.kv_block_size,
         max_model_len=flags.max_model_len,
         decode_steps=flags.decode_steps,
+        host_cache_blocks=flags.host_cache_blocks,
         seed=flags.seed,
         device=flags.device,
     )

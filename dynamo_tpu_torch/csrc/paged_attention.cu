@@ -51,6 +51,22 @@
 //   three digits), in the same thread layout, split and merge, so the fp32
 //   checks also hold the split algebra on the card.
 //
+// Int8 pages (paged_decode_int8_split_kernel): the same function over
+// pages stored as int8 with one fp32 scale per token slot ([N, bs], shared
+// by the slot's KVH heads), dequantized as dequantize_kv does it:
+// bf16(float(q) · scale), or fp32 for an fp32 model. It replaces no TPU
+// kernel: the JAX package's Pallas kernel has no fused dequantization, so
+// an int8 pool there runs XLA's gather_history + dequantize_kv dense tier
+// (dynamo_tpu/models/llama.py:534, :246). Each tile crosses the same
+// cp.async ring as int8 rows (D bytes a row, half a bf16 row) with the 4-byte
+// scales of its TK slots, and each warp dequantizes the 16 keys it attends
+// into a compute-dtype tile laid out as the split kernel's (int8 to float by
+// byte permutes, not conversions); the warps' compute, the
+// splits and the merge are the split kernel's, so for one split count the
+// result is bit-equal to the split kernel run on dequantize_kv(pages). What
+// bounds it: bytes again, the int8 K and V rows plus 8 bytes of scales per
+// token, about half of the bf16 pages' bytes.
+//
 // Rounding contract (shared with the plain versions in
 // ops/paged_attention.py): p = 2^(s·log2e − st) with an integer stabilizer
 // st per row, the running ceil(max score · log2e). Every rescale, between
@@ -106,6 +122,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(live ? 16 : 0) : "memory");
+}
+// 4 bytes global -> shared (through L1); live == false reads nothing, writes 0
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(live ? 4 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -234,6 +255,188 @@ __device__ __forceinline__ void pv(float (&acc)[D / 8][4], const float (&p)[2][4
   }
 }
 
+// The split kernels' running state of one warp over its keys: the row max
+// mx, the integer stabilizer st, the denominator lsum (rows g and g+8) and
+// the numerator acc in the mma's C layout.
+template <int D>
+struct WarpAcc {
+  float mx[2] = {kNegBig, kNegBig};
+  float st[2] = {kNegBig, kNegBig};
+  float lsum[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+  __device__ __forceinline__ WarpAcc() {
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
+  }
+};
+
+// One warp's 16 keys of a tile in shared memory (ks, vs: [TK, D], swizzled),
+// the first of them the split's token kb: scores, online softmax, P·V.
+// Keys at or past t1 are masked.
+template <typename T, int D>
+__device__ __forceinline__ void attend_tile(WarpAcc<D>& w, const T* qs, const T* ks,
+                                            const T* vs, int key0, int kb, int t1,
+                                            float scale, int lane) {
+  const int cq = (lane & 3) * 2;
+  float sc[2][4];
+  qk<D>(sc, qs, ks, key0, lane);
+  float top[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = kb + j * 8 + cq + e < t1;
+      sc[j][e] = ok ? sc[j][e] * scale : -INFINITY;
+      sc[j][2 + e] = ok ? sc[j][2 + e] * scale : -INFINITY;
+      top[0] = fmaxf(top[0], sc[j][e]);
+      top[1] = fmaxf(top[1], sc[j][2 + e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 1));
+    top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 2));
+    w.mx[r] = fmaxf(w.mx[r], top[r]);
+    const float st_new = fmaxf(w.st[r], ceilf(top[r] * kLog2e));
+    const float alpha = exp2f(w.st[r] - st_new);  // a power of two (or 0)
+    w.lsum[r] *= alpha;
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t) {
+      w.acc[t][2 * r] *= alpha;
+      w.acc[t][2 * r + 1] *= alpha;
+    }
+    w.st[r] = st_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[j][e] = exp2f(sc[j][e] * kLog2e - w.st[0]);
+      sc[j][2 + e] = exp2f(sc[j][2 + e] * kLog2e - w.st[1]);
+      w.lsum[0] += sc[j][e];
+      w.lsum[1] += sc[j][2 + e];
+    }
+  }
+  pv<D>(w.acc, sc, vs, key0, lane);
+}
+
+// Where a block writes its split's partial: numerators [S, H, NS, D], then
+// stabilizer, max and l, [S, H, NS] each.
+struct Partial {
+  float* num;
+  float* st;
+  float* mx;
+  float* l;
+  __device__ __forceinline__ Partial(float* part, int S, int H, int NS, int D) {
+    const size_t rows = (size_t)S * H;
+    num = part;
+    st = part + rows * NS * D;
+    mx = st + rows * NS;
+    l = mx + rows * NS;
+  }
+};
+
+// An empty split (or lane): l = 0 and stabilizer -1e30 for its gb rows.
+template <int THREADS>
+__device__ __forceinline__ void write_empty(const Partial& p, size_t row0, int gb, int NS,
+                                            int sp, int tid) {
+  for (int i = tid; i < gb; i += THREADS) {
+    const size_t hrow = row0 + i;
+    p.st[hrow * NS + sp] = kNegBig;
+    p.mx[hrow * NS + sp] = kNegBig;
+    p.l[hrow * NS + sp] = 0.f;
+  }
+}
+
+// The block's epilogue, once its cp.async groups are drained and no thread
+// reads the tiles any more: the warps' partials are combined through mbuf
+// (shared memory of NW·16·D floats) by exact powers of two and the split's
+// partial is written for rows row0 .. row0 + gb - 1.
+template <int NW, int THREADS, int D>
+__device__ __forceinline__ void write_partial(const Partial& p, WarpAcc<D>& w, float* mbuf,
+                                              float (*sm_mx)[kGroup], float (*sm_st)[kGroup],
+                                              float (*sm_l)[kGroup], size_t row0, int gb,
+                                              int NS, int sp, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2;
+  const int cq = (lane & 3) * 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    w.lsum[r] += __shfl_xor_sync(0xffffffffu, w.lsum[r], 1);
+    w.lsum[r] += __shfl_xor_sync(0xffffffffu, w.lsum[r], 2);
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sm_mx[warp][g + 8 * r] = w.mx[r];
+      sm_st[warp][g + 8 * r] = w.st[r];
+      sm_l[warp][g + 8 * r] = w.lsum[r];
+    }
+  }
+  float* mw = mbuf + (size_t)warp * kGroup * D;
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    const int d = t * 8 + cq;
+    *reinterpret_cast<float2*>(mw + g * D + d) = make_float2(w.acc[t][0], w.acc[t][1]);
+    *reinterpret_cast<float2*>(mw + (g + 8) * D + d) = make_float2(w.acc[t][2], w.acc[t][3]);
+  }
+  __syncthreads();
+
+  for (int i = tid; i < gb * D; i += THREADS) {
+    const int row = i / D, d = i % D;
+    float mxb = kNegBig, stb = kNegBig;
+#pragma unroll
+    for (int v = 0; v < NW; ++v) {
+      mxb = fmaxf(mxb, sm_mx[v][row]);
+      stb = fmaxf(stb, sm_st[v][row]);
+    }
+    float lt = 0.f, num = 0.f;
+#pragma unroll
+    for (int v = 0; v < NW; ++v) {
+      const float a = exp2f(sm_st[v][row] - stb);
+      lt += a * sm_l[v][row];
+      num += a * mbuf[((size_t)v * kGroup + row) * D + d];
+    }
+    const size_t hrow = row0 + row;
+    p.num[(hrow * NS + sp) * D + d] = num;
+    if (d == 0) {
+      p.st[hrow * NS + sp] = stb;
+      p.mx[hrow * NS + sp] = mxb;
+      p.l[hrow * NS + sp] = lt;
+    }
+  }
+}
+
+// The run of a lane's live tokens that split sp of NS takes: an equal share
+// of its tiles of TK keys. Empty when t0 >= t1.
+struct SplitRun {
+  int t0, t1, nt;
+  __device__ __forceinline__ SplitRun(int length, int MB, int bs, int TK, int NS, int sp) {
+    const int len = min(max(length, 0), MB * bs);
+    const int tiles = (len + TK - 1) / TK;
+    const int per_split = (tiles + NS - 1) / NS;
+    const long long t0_ll = (long long)sp * per_split * TK;
+    t0 = t0_ll >= len ? len : (int)t0_ll;
+    t1 = t0_ll >= len ? len : min(t0 + per_split * TK, len);
+    nt = (t1 - t0 + TK - 1) / TK;
+  }
+  __device__ __forceinline__ bool empty() const { return t0 >= t1; }
+};
+
+// The group's Q rows (zeros past gb) into shared memory, in the caller's
+// first cp.async group.
+template <typename T, int D>
+__device__ __forceinline__ void load_q(T* qs, const T* q, size_t row0, int gb, int tid) {
+  using Gm = Geo<T, D>;
+  for (int i = tid; i < kGroup * Gm::CH; i += Gm::THREADS) {
+    const int r = i / Gm::CH, c = i % Gm::CH;
+    const bool live = r < gb;
+    cp_async16(qs + Gm::off(r, c), q + (row0 + (live ? r : 0)) * D + c * Gm::EPC, live);
+  }
+}
+
 // One block: lane s (blockIdx.x), kv head n and group of <= 16 of its query
 // heads (blockIdx.y), split sp of NS (blockIdx.z). part: numerators
 // [S, H, NS, D], then stabilizer, max and l, [S, H, NS] each.
@@ -261,40 +464,20 @@ paged_decode_split_kernel(
   const int n = blockIdx.y / HG;
   const int g0 = (blockIdx.y % HG) * kGroup;
   const int gb = min(kGroup, G - g0);
-  const int head0 = n * G + g0;
+  const size_t row0 = (size_t)s * H + n * G + g0;
   const int sp = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t rows = (size_t)gridDim.x * H;
-  float* p_st = part + rows * NS * D;
-  float* p_mx = p_st + rows * NS;
-  float* p_l = p_mx + rows * NS;
+  const Partial p(part, gridDim.x, H, NS, D);
 
-  // this split's run of the lane's live tokens: an equal share of its tiles
-  const int len = min(max(lengths[s], 0), MB * bs);
-  const int tiles = (len + TK - 1) / TK;
-  const int per_split = (tiles + NS - 1) / NS;
-  const long long t0_ll = (long long)sp * per_split * TK;
-  if (t0_ll >= len) {  // an empty split (or an empty lane)
-    for (int i = tid; i < gb; i += Gm::THREADS) {
-      const size_t hrow = (size_t)s * H + head0 + i;
-      p_st[hrow * NS + sp] = kNegBig;
-      p_mx[hrow * NS + sp] = kNegBig;
-      p_l[hrow * NS + sp] = 0.f;
-    }
+  const SplitRun run(lengths[s], MB, bs, TK, NS, sp);
+  if (run.empty()) {
+    write_empty<Gm::THREADS>(p, row0, gb, NS, sp, tid);
     return;
   }
-  const int t0 = (int)t0_ll;
-  const int t1 = min(t0 + per_split * TK, len);
-  const int nt = (t1 - t0 + TK - 1) / TK;
+  const int t0 = run.t0, t1 = run.t1, nt = run.nt;
   const int* trow = tables + (size_t)s * MB;
 
-  // Q rows of the group (zeros past gb), in the first cp.async group
-  for (int i = tid; i < kGroup * Gm::CH; i += Gm::THREADS) {
-    const int r = i / Gm::CH, c = i % Gm::CH;
-    const bool live = r < gb;
-    cp_async16(qs + Gm::off(r, c), q + ((size_t)s * H + head0 + (live ? r : 0)) * D + c * Gm::EPC,
-               live);
-  }
+  load_q<T, D>(qs, q, row0, gb, tid);
   auto load_tile = [&](int it, int buf) {
     T* ks = ring + (size_t)buf * 2 * Gm::TILE_ELEMS;
     T* vs = ks + Gm::TILE_ELEMS;
@@ -318,15 +501,7 @@ paged_decode_split_kernel(
     cp_async_commit();
   }
 
-  const int g = lane >> 2;
-  const int cq = (lane & 3) * 2;
-  float mx[2] = {kNegBig, kNegBig}, st[2] = {kNegBig, kNegBig}, lsum[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
-
+  WarpAcc<D> w;
   for (int it = 0; it < nt; ++it) {
     cp_async_wait<Gm::STAGES - 2>();  // this thread's copies of tile it have landed
     __syncthreads();                  // everyone's have; buffer (it-1) is free again
@@ -336,96 +511,188 @@ paged_decode_split_kernel(
     const T* vs = ks + Gm::TILE_ELEMS;
     const int kb = t0 + it * TK + warp * 16;  // the warp's first key
     if (kb >= t1) continue;                   // warp-uniform: all 16 keys dead
-
-    float sc[2][4];
-    qk<D>(sc, qs, ks, warp * 16, lane);
-    float top[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = kb + j * 8 + cq + e < t1;
-        sc[j][e] = ok ? sc[j][e] * scale : -INFINITY;
-        sc[j][2 + e] = ok ? sc[j][2 + e] * scale : -INFINITY;
-        top[0] = fmaxf(top[0], sc[j][e]);
-        top[1] = fmaxf(top[1], sc[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 1));
-      top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 2));
-      mx[r] = fmaxf(mx[r], top[r]);
-      const float st_new = fmaxf(st[r], ceilf(top[r] * kLog2e));
-      const float alpha = exp2f(st[r] - st_new);  // a power of two (or 0)
-      lsum[r] *= alpha;
-#pragma unroll
-      for (int t = 0; t < D / 8; ++t) {
-        acc[t][2 * r] *= alpha;
-        acc[t][2 * r + 1] *= alpha;
-      }
-      st[r] = st_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sc[j][e] = exp2f(sc[j][e] * kLog2e - st[0]);
-        sc[j][2 + e] = exp2f(sc[j][2 + e] * kLog2e - st[1]);
-        lsum[0] += sc[j][e];
-        lsum[1] += sc[j][2 + e];
-      }
-    }
-    pv<D>(acc, sc, vs, warp * 16, lane);
+    attend_tile<T, D>(w, qs, ks, vs, warp * 16, kb, t1, scale, lane);
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
-    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
-  }
   cp_async_wait<0>();
   __syncthreads();  // the ring is drained: its memory becomes mbuf
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sm_mx[warp][g + 8 * r] = mx[r];
-      sm_st[warp][g + 8 * r] = st[r];
-      sm_l[warp][g + 8 * r] = lsum[r];
-    }
-  }
-  float* mw = mbuf + (size_t)warp * kGroup * D;
-#pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
-    const int d = t * 8 + cq;
-    *reinterpret_cast<float2*>(mw + g * D + d) = make_float2(acc[t][0], acc[t][1]);
-    *reinterpret_cast<float2*>(mw + (g + 8) * D + d) = make_float2(acc[t][2], acc[t][3]);
-  }
-  __syncthreads();
+  write_partial<Gm::NW, Gm::THREADS, D>(p, w, mbuf, sm_mx, sm_st, sm_l, row0, gb, NS, sp, tid);
+}
 
-  for (int i = tid; i < gb * D; i += Gm::THREADS) {
-    const int row = i / D, d = i % D;
-    float mxb = kNegBig, stb = kNegBig;
+// The int8 kernel's shared memory past Q: the dequantized K and V tile
+// (compute dtype, swizzled as the split kernel's), the cp.async ring of
+// int8 K and V tiles, and the ring's per-token scales. Each warp
+// dequantizes the 16 rows of K and V that it attends, so only the warp
+// waits for them.
+template <typename T, int D>
+struct Geo8 {
+  using Gm = Geo<T, D>;
+  static constexpr int CH8 = D / 16;  // 16-byte chunks of an int8 row
+  static constexpr size_t TILE = 2 * (size_t)Gm::TILE_ELEMS * sizeof(T);
+  static constexpr size_t RING8 = (size_t)Gm::STAGES * 2 * Gm::TK * D;
+  static constexpr size_t SCALES = (size_t)Gm::STAGES * 2 * Gm::TK * sizeof(float);
+  static constexpr size_t BODY = TILE + RING8 + SCALES;
+  static constexpr size_t SMEM =
+      Gm::Q_ELEMS * sizeof(T) + (BODY > Gm::MERGE ? BODY : Gm::MERGE);
+};
+
+// float(b) of the four signed bytes of w, exactly, without the
+// integer-to-float conversion (which runs at a quarter of the fp32 rate):
+// each byte, offset by 128 into 0..255, becomes the low mantissa byte of
+// 2^23 (one byte permute), and 2^23 + 128 is subtracted (an exact add).
+__device__ __forceinline__ float4 i8x4_to_f32(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;  // b + 128 in each byte
+  constexpr float kOff = 8388736.f;    // 2^23 + 128
+  return make_float4(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - kOff,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - kOff,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - kOff,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - kOff);
+}
+
+// One 16-byte chunk of T from the int8 values in words w[0 .. EPC/4 - 1]
+// times scale, each product in fp32 rounded to T (round to nearest even):
+// dequantize_kv's arithmetic.
+template <typename T> __device__ __forceinline__ uint4 dq_chunk(const uint32_t* w, float scale);
+template <> __device__ __forceinline__ uint4 dq_chunk<float>(const uint32_t* w, float scale) {
+  const float4 f = i8x4_to_f32(w[0]);
+  return make_uint4(__float_as_uint(f.x * scale), __float_as_uint(f.y * scale),
+                    __float_as_uint(f.z * scale), __float_as_uint(f.w * scale));
+}
+template <>
+__device__ __forceinline__ uint4 dq_chunk<__nv_bfloat16>(const uint32_t* w, float scale) {
+  const float4 a = i8x4_to_f32(w[0]), b = i8x4_to_f32(w[1]);
+  return make_uint4(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale),
+                    pack_bf16(b.x * scale, b.y * scale), pack_bf16(b.z * scale, b.w * scale));
+}
+
+// The 16 int8 values of 16-byte chunk c of row r, dequantized into 16 / EPC
+// swizzled 16-byte chunks of the compute-dtype tile.
+template <typename T, int D>
+__device__ __forceinline__ void dequant16(T* tile, int r, int c, int4 raw, float scale) {
+  using Gm = Geo<T, D>;
+  const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z, (uint32_t)raw.w};
 #pragma unroll
-    for (int w = 0; w < Gm::NW; ++w) {
-      mxb = fmaxf(mxb, sm_mx[w][row]);
-      stb = fmaxf(stb, sm_st[w][row]);
-    }
-    float lt = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < Gm::NW; ++w) {
-      const float a = exp2f(sm_st[w][row] - stb);
-      lt += a * sm_l[w][row];
-      num += a * mbuf[((size_t)w * kGroup + row) * D + d];
-    }
-    const size_t hrow = (size_t)s * H + head0 + row;
-    part[(hrow * NS + sp) * D + d] = num;
-    if (d == 0) {
-      p_st[hrow * NS + sp] = stb;
-      p_mx[hrow * NS + sp] = mxb;
-      p_l[hrow * NS + sp] = lt;
-    }
+  for (int j = 0; j < 16 / Gm::EPC; ++j) {
+    *reinterpret_cast<uint4*>(tile + Gm::off(r, c * (16 / Gm::EPC) + j)) =
+        dq_chunk<T>(w + j * Gm::EPC / 4, scale);
   }
+}
+
+// paged_decode_split_kernel over int8 pages: k_cache / v_cache [N, bs, KVH,
+// D] int8 and their per-token scales [N, bs] fp32 (one per physical slot,
+// shared by the slot's KVH heads). Each tile arrives through the cp.async
+// ring as int8 rows and 4-byte scales; each warp then dequantizes its own 16
+// keys into the compute-dtype tile and attends them exactly as the split
+// kernel attends a tile of the same values. Grid, splits, partials and
+// merge are the split kernel's, so on the same split count the result is
+// bit-equal to paged_decode_split_kernel run on dequantize_kv(pages).
+template <typename T, int D>
+__global__ void __launch_bounds__(Geo<T, D>::THREADS)
+paged_decode_int8_split_kernel(
+    const T* __restrict__ q,              // [S, H, D] compute dtype
+    const int8_t* __restrict__ k_cache,   // [N, bs, KVH, D]
+    const int8_t* __restrict__ v_cache,
+    const float* __restrict__ k_scale,    // [N, bs]
+    const float* __restrict__ v_scale,
+    const int* __restrict__ tables,       // [S, MB]
+    const int* __restrict__ lengths,      // [S]
+    float* __restrict__ part,
+    int H, int KVH, int bs, int MB, int NS, float scale) {
+  using Gm = Geo<T, D>;
+  using G8 = Geo8<T, D>;
+  constexpr int TK = Gm::TK;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* kt = qs + Gm::Q_ELEMS;  // the dequantized tile: K, then V
+  T* vt = kt + Gm::TILE_ELEMS;
+  int8_t* ring8 = reinterpret_cast<int8_t*>(vt + Gm::TILE_ELEMS);
+  float* ring_sc = reinterpret_cast<float*>(ring8 + G8::RING8);
+  float* mbuf = reinterpret_cast<float*>(kt);  // reused once the ring is drained
+  __shared__ float sm_mx[Gm::NW][kGroup], sm_st[Gm::NW][kGroup], sm_l[Gm::NW][kGroup];
+
+  const int s = blockIdx.x;
+  const int G = H / KVH;
+  const int HG = (G + kGroup - 1) / kGroup;
+  const int n = blockIdx.y / HG;
+  const int g0 = (blockIdx.y % HG) * kGroup;
+  const int gb = min(kGroup, G - g0);
+  const size_t row0 = (size_t)s * H + n * G + g0;
+  const int sp = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const Partial p(part, gridDim.x, H, NS, D);
+
+  const SplitRun run(lengths[s], MB, bs, TK, NS, sp);
+  if (run.empty()) {
+    write_empty<Gm::THREADS>(p, row0, gb, NS, sp, tid);
+    return;
+  }
+  const int t0 = run.t0, t1 = run.t1, nt = run.nt;
+  const int* trow = tables + (size_t)s * MB;
+
+  load_q<T, D>(qs, q, row0, gb, tid);
+  // rows past the split's end read nothing: zero bytes and a zero scale
+  auto load_tile = [&](int it, int buf) {
+    int8_t* k8 = ring8 + (size_t)buf * 2 * TK * D;
+    int8_t* v8 = k8 + TK * D;
+    float* ksc = ring_sc + (size_t)buf * 2 * TK;
+    float* vsc = ksc + TK;
+    const int tt = t0 + it * TK;
+    for (int i = tid; i < TK * G8::CH8; i += Gm::THREADS) {
+      const int r = i / G8::CH8, c = i % G8::CH8;
+      const int tok = tt + r;
+      const bool live = tok < t1;
+      size_t g = 0;
+      if (live) {
+        const int pid = __ldg(trow + tok / bs);
+        g = (((size_t)pid * bs + tok % bs) * KVH + n) * D + c * 16;
+      }
+      cp_async16(k8 + r * D + c * 16, k_cache + g, live);
+      cp_async16(v8 + r * D + c * 16, v_cache + g, live);
+    }
+    for (int r = tid; r < TK; r += Gm::THREADS) {
+      const int tok = tt + r;
+      const bool live = tok < t1;
+      size_t g = 0;
+      if (live) g = (size_t)__ldg(trow + tok / bs) * bs + tok % bs;
+      cp_async4(ksc + r, k_scale + g, live);
+      cp_async4(vsc + r, v_scale + g, live);
+    }
+  };
+  // the warp's own 16 keys of the tile in ring buffer buf: the rows it
+  // attends, so no other warp waits for them
+  auto dequant_rows = [&](int buf, int key0) {
+    const int8_t* k8 = ring8 + (size_t)buf * 2 * TK * D;
+    const int8_t* v8 = k8 + TK * D;
+    const float* ksc = ring_sc + (size_t)buf * 2 * TK;
+    const float* vsc = ksc + TK;
+    for (int i = lane; i < 16 * G8::CH8; i += 32) {
+      const int r = key0 + i / G8::CH8, c = i % G8::CH8;
+      dequant16<T, D>(kt, r, c, *reinterpret_cast<const int4*>(k8 + r * D + c * 16), ksc[r]);
+      dequant16<T, D>(vt, r, c, *reinterpret_cast<const int4*>(v8 + r * D + c * 16), vsc[r]);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < Gm::STAGES - 1; ++i) {
+    if (i < nt) load_tile(i, i);
+    cp_async_commit();
+  }
+
+  WarpAcc<D> w;
+  for (int it = 0; it < nt; ++it) {
+    cp_async_wait<Gm::STAGES - 2>();  // this thread's copies of tile it have landed
+    __syncthreads();  // everyone's have; tile it-1 is attended: its ring buffer is free
+    if (it + Gm::STAGES - 1 < nt) load_tile(it + Gm::STAGES - 1, (it + Gm::STAGES - 1) % Gm::STAGES);
+    cp_async_commit();
+    const int kb = t0 + it * TK + warp * 16;  // the warp's first key
+    if (kb >= t1) continue;                   // warp-uniform: all 16 keys dead
+    dequant_rows(it % Gm::STAGES, warp * 16);
+    __syncwarp();  // the warp's dequantized rows are whole
+    attend_tile<T, D>(w, qs, kt, vt, warp * 16, kb, t1, scale, lane);
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // nothing reads the tiles any more: their memory becomes mbuf
+  write_partial<Gm::NW, Gm::THREADS, D>(p, w, mbuf, sm_mx, sm_st, sm_l, row0, gb, NS, sp, tid);
 }
 
 // One block per (lane, query head): the splits' partials rescaled by
@@ -462,6 +729,38 @@ __global__ void paged_decode_merge_kernel(const float* __restrict__ part, T* __r
   }
 }
 
+// Allow kernel Kern `smem` bytes of dynamic shared memory: once per device
+// (and so not again while a CUDA graph is being captured).
+template <auto Kern>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  static unsigned long long set_on = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && ((set_on >> dev) & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && dev < 64) set_on |= 1ull << dev;
+  return err;
+}
+
+// After a split kernel's launch (err: its cudaGetLastError()): count it in
+// launched[0], its split count in [2], then launch the merge and count it
+// in [1].
+template <typename T>
+cudaError_t merge_after(cudaError_t err, const float* part, void* o, float* m, float* l,
+                        int S, int H, int D, int NS, cudaStream_t stream, int* launched) {
+  if (err != cudaSuccess) return err;
+  launched[0] += 1;
+  launched[2] = NS;
+  const int threads = D < 32 ? 32 : (D > 128 ? 128 : D);
+  paged_decode_merge_kernel<T><<<S * H, threads, 0, stream>>>(part, static_cast<T*>(o), m, l,
+                                                              S * H, D, NS);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) launched[1] += 1;
+  return err;
+}
+
 // launched[0] and [1] count the split and merge kernels launched, [2] is
 // the split kernel's grid z (its split count)
 template <typename T, int D>
@@ -470,36 +769,14 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* tab
                      int H, int KVH, int bs, int MB, int NS, float scale,
                      cudaStream_t stream, int* launched) {
   using Gm = Geo<T, D>;
-  auto kern = paged_decode_split_kernel<T, D>;
-  cudaError_t err;
-  if (Gm::SMEM > 48 * 1024) {
-    // once per device (and not again while a CUDA graph is being captured)
-    static unsigned long long set_on = 0;
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev >= 64 || !((set_on >> dev) & 1ull)) {
-      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)Gm::SMEM);
-      if (err != cudaSuccess) return err;
-      if (dev < 64) set_on |= 1ull << dev;
-    }
-  }
+  cudaError_t err = allow_smem<paged_decode_split_kernel<T, D>>(Gm::SMEM);
+  if (err != cudaSuccess) return err;
   const int G = H / KVH;
   dim3 grid(S, KVH * ((G + kGroup - 1) / kGroup), NS);
-  kern<<<grid, Gm::THREADS, Gm::SMEM, stream>>>(
+  paged_decode_split_kernel<T, D><<<grid, Gm::THREADS, Gm::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), tables,
       lengths, part, H, KVH, bs, MB, NS, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  launched[0] += 1;
-  launched[2] = (int)grid.z;
-  const int threads = D < 32 ? 32 : (D > 128 ? 128 : D);
-  paged_decode_merge_kernel<T><<<S * H, threads, 0, stream>>>(part, static_cast<T*>(o), m, l,
-                                                              S * H, D, NS);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) launched[1] += 1;
-  return err;
+  return merge_after<T>(cudaGetLastError(), part, o, m, l, S, H, D, NS, stream, launched);
 }
 
 template <typename T>
@@ -520,6 +797,43 @@ cudaError_t launch_t(int D, const void* q, const void* k, const void* v, const i
     default: return cudaErrorInvalidValue;
   }
 #undef PDA_CASE
+}
+
+// The int8 kernel's launch: as launch_d, with int8 pages and their scales.
+template <typename T, int D>
+cudaError_t launch_d8(const void* q, const void* k, const void* v, const float* ks,
+                      const float* vs, const int* tables, const int* lengths, void* o, float* m,
+                      float* l, float* part, int S, int H, int KVH, int bs, int MB, int NS,
+                      float scale, cudaStream_t stream, int* launched) {
+  using G8 = Geo8<T, D>;
+  cudaError_t err = allow_smem<paged_decode_int8_split_kernel<T, D>>(G8::SMEM);
+  if (err != cudaSuccess) return err;
+  const int G = H / KVH;
+  dim3 grid(S, KVH * ((G + kGroup - 1) / kGroup), NS);
+  paged_decode_int8_split_kernel<T, D><<<grid, Geo<T, D>::THREADS, G8::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+      ks, vs, tables, lengths, part, H, KVH, bs, MB, NS, scale);
+  return merge_after<T>(cudaGetLastError(), part, o, m, l, S, H, D, NS, stream, launched);
+}
+
+template <typename T>
+cudaError_t launch_t8(int D, const void* q, const void* k, const void* v, const float* ks,
+                      const float* vs, const int* tables, const int* lengths, void* o, float* m,
+                      float* l, float* part, int S, int H, int KVH, int bs, int MB, int NS,
+                      float scale, cudaStream_t stream, int* launched) {
+#define PDA8_CASE(DD)                                                                     \
+  case DD:                                                                                \
+    return launch_d8<T, DD>(q, k, v, ks, vs, tables, lengths, o, m, l, part, S, H, KVH, bs, \
+                            MB, NS, scale, stream, launched);
+  switch (D) {
+    PDA8_CASE(16)
+    PDA8_CASE(32)
+    PDA8_CASE(64)
+    PDA8_CASE(128)
+    PDA8_CASE(256)
+    default: return cudaErrorInvalidValue;
+  }
+#undef PDA8_CASE
 }
 
 }  // namespace
@@ -552,6 +866,42 @@ extern "C" int paged_decode_attention_launch(
   } else if (dtype == 1) {
     err = launch_t<__nv_bfloat16>(D, q, k_cache, v_cache, tb, ln, o, m, l, pt, S, H, KVH, bs,
                                   MB, num_splits, scale, st, launched);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// paged_decode_attention_launch over int8 pages: k_cache / v_cache [N, bs,
+// KVH, D] int8, k_scale / v_scale [N, bs] fp32. dtype is the compute dtype
+// (q's and o's: 0 = float32, 1 = bfloat16); the pages are dequantized into
+// it. part, launched and the return value as paged_decode_attention_launch:
+// launched[0] counts paged_decode_int8_split_kernel, [1] the merge kernel.
+extern "C" int paged_decode_attention_int8_launch(
+    const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+    const void* v_scale, const void* tables, const void* lengths, void* o, void* m_out,
+    void* l_out, void* part, int S, int H, int KVH, int D, int bs, int MB, int num_splits,
+    float scale, int dtype, void* stream, int* launched) {
+  if (S <= 0) return 0;
+  if (KVH <= 0 || H % KVH != 0 || bs <= 0 || MB <= 0 || num_splits <= 0 || part == nullptr ||
+      launched == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  float* m = static_cast<float*>(m_out);
+  float* l = static_cast<float*>(l_out);
+  float* pt = static_cast<float*>(part);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_t8<float>(D, q, k_cache, v_cache, ks, vs, tb, ln, o, m, l, pt, S, H, KVH, bs,
+                           MB, num_splits, scale, st, launched);
+  } else if (dtype == 1) {
+    err = launch_t8<__nv_bfloat16>(D, q, k_cache, v_cache, ks, vs, tb, ln, o, m, l, pt, S, H,
+                                   KVH, bs, MB, num_splits, scale, st, launched);
   } else {
     err = cudaErrorInvalidValue;
   }

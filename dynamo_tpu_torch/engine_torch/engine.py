@@ -29,10 +29,20 @@ Counterpart of the main path of the JAX package's ``engine_jax/engine.py``:
 - **The mixtral family** needs nothing of its own here: the model's MLP
   block routes through ``ops/moe.py``, padding lanes masked out of routing
   by their positions.
+- **Int8 KV pages** (``EngineConfig.kv_dtype`` or ``DYN_TPU_KV_DTYPE``, the
+  JAX knobs): the pool stores int8 pages and per-token fp32 scales
+  (``models/llama.py``); decode reads it through the int8 paged kernel.
+- **The host-RAM KV tier** (``EngineConfig.host_cache_blocks``): blocks
+  evicted from the device pool are gathered on the engine's stream and
+  copied to pinned host memory behind a CUDA event (``_offload_blocks``),
+  moved into the allocator's ``HostKvPool`` once the copy is done
+  (``_harvest_spills``), and written back into a new sequence's pages on a
+  prefix hit before any compute touches it (``_inject_host_hits``). An
+  int8 pool's scales travel with their pages.
 
-Not in this engine yet (later slices, ROADMAP.md): speculative verify, int8
-KV, the host KV tier, disaggregated prefill, live migration,
-integrity, QoS, profiling/straggler hooks, meshes.
+Not in this engine yet (later slices, ROADMAP.md): speculative verify,
+disaggregated prefill, live migration, integrity (the spilled pages carry
+no checksum), QoS, profiling/straggler hooks, meshes.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import math
+import os
 import threading
 import time
 from collections import deque
@@ -62,10 +73,17 @@ from ..models.llama import (
 )
 from ..ops import int8_matmul, paged_attention
 from ..ops.build import build_all
-from ..ops.paged_attention import paged_decode_attention
+from ..ops.paged_attention import paged_decode_attention, paged_decode_attention_int8
 from ..runtime.annotated import Annotated
 from ..runtime.engine import AsyncEngine, Context
-from .allocator import BlockAllocator, InflightPrefix, KvEventSink, SequenceAllocation
+from .allocator import (
+    BlockAllocator,
+    HostKvPool,
+    InflightPrefix,
+    KvDtypeMismatch,
+    KvEventSink,
+    SequenceAllocation,
+)
 from .sampling import (
     apply_penalties,
     gumbel_noise,
@@ -94,6 +112,19 @@ def resolve_device(device: Optional[str]) -> torch.device:
     return dev
 
 
+KV_DTYPES = (None, "bf16", "int8")
+# pending host-tier spills past which the engine waits for them (JAX :1630)
+MAX_PENDING_SPILLS = 8
+
+
+def env_kv_dtype(default: str = "bf16") -> str:
+    """``DYN_TPU_KV_DTYPE``: only ``int8`` (any case, spaces stripped)
+    selects int8 pages; any other value, a typo included, is the native
+    layout, so that a typo never quantizes a fleet's KV."""
+    raw = (os.environ.get("DYN_TPU_KV_DTYPE") or "").strip().lower()
+    return "int8" if raw == "int8" else default
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     max_slots: int = 8
@@ -113,6 +144,19 @@ class EngineConfig:
     # (1.5x weight residency); "int8-all" keeps only int8 for both phases
     # (the fit mode); None serves the weights as given
     quantize: Optional[str] = None
+    # KV page storage: "bf16" (the native layout, in the model's dtype) or
+    # "int8" (int8 pages and per-token fp32 scales); None reads
+    # DYN_TPU_KV_DTYPE
+    kv_dtype: Optional[str] = None
+    # host-RAM KV tier, in blocks (0 = off): evicted device blocks spill
+    # there and serve later prefix hits
+    host_cache_blocks: int = 0
+
+    def __post_init__(self) -> None:
+        # the env knob degrades a typo to the native layout; an explicit
+        # value outside the set is a programming error
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype={self.kv_dtype!r} not in {{None, 'bf16', 'int8'}}")
 
     def resolve_num_blocks(self) -> int:
         if self.num_kv_blocks is not None:
@@ -261,12 +305,22 @@ class TorchServingEngine(AsyncEngine):
             self.params_decode = params
         self.params = params
         self.num_blocks = engine_config.resolve_num_blocks()
+        self.host_pool = (
+            HostKvPool(engine_config.host_cache_blocks)
+            if engine_config.host_cache_blocks > 0 else None
+        )
+        # spills on their way to the host pool: (pairs, host k, v, k_scale,
+        # v_scale, CUDA event or None), oldest first
+        self._pending_spills: Deque[tuple] = deque()
         self.allocator = BlockAllocator(
             self.num_blocks, engine_config.kv_block_size, event_sink=event_sink,
+            host_pool=self.host_pool,
+            offload=self._offload_blocks if self.host_pool is not None else None,
         )
+        self.kv_quantized = (engine_config.kv_dtype or env_kv_dtype()) == "int8"
         self.cache = make_kv_cache(
             model_config, self.num_blocks, engine_config.kv_block_size,
-            device=self.device,
+            device=self.device, quantized=self.kv_quantized,
         )
 
         S = engine_config.max_slots
@@ -558,6 +612,7 @@ class TorchServingEngine(AsyncEngine):
                             and not any(self._slots)
                             and self._inflight is None
                             and self._counts is None  # idle pass frees it first
+                            and not self._pending_spills  # idle pass drains them
                         ):
                             self._cond.wait()
                         if self._shutdown:
@@ -566,6 +621,9 @@ class TorchServingEngine(AsyncEngine):
                         not self._pending and not any(self._slots)
                         and self._inflight is None
                     )
+                    # an idle engine drains every spill, so that a request
+                    # after an idle gap finds its prefix in the host tier
+                    self._harvest_spills(force=idle)
                     if idle:
                         self._release_counts()
                     self._coalesce_admission_wave()
@@ -664,6 +722,10 @@ class TorchServingEngine(AsyncEngine):
                     self._pending.appendleft(seq)  # retry when blocks free up
                 return
             seq.alloc = alloc
+            if alloc.host_hits:
+                # cached_tokens counts them as device KV: they land before
+                # any compute touches the sequence
+                self._inject_host_hits(alloc)
             if seq.joined_inflight:
                 self.allocator.shared_prefill_tokens += alloc.cached_tokens
                 seq.joined_inflight = False
@@ -1027,6 +1089,102 @@ class TorchServingEngine(AsyncEngine):
         with self._cond:
             self._pending.append(seq)
 
+    # -- KV pages in and out of the pool ---------------------------------------
+
+    def inject_blocks(self, block_ids: List[int], k, v, k_scale=None, v_scale=None) -> None:
+        """Write KV pages into the pool at the given physical pages, in place
+        (engine thread only): ``k``/``v`` [L, n, bs, KVH, D] and, for an int8
+        pool, ``k_scale``/``v_scale`` [L, n, bs], as host or device tensors
+        or numpy arrays. A layout that disagrees with the pool (scales with a
+        native pool, none with an int8 one) or a shape that does not fit
+        raises before any byte lands."""
+        if self.kv_quantized != (k_scale is not None):
+            raise KvDtypeMismatch(
+                "pool kv_dtype is %s but injected pages %s scale tables" % (
+                    "int8" if self.kv_quantized else "native",
+                    "lack" if k_scale is None else "carry",
+                )
+            )
+        vals = {"k": k, "v": v}
+        if k_scale is not None:
+            vals.update(k_scale=k_scale, v_scale=v_scale)
+        vals = {n: torch.as_tensor(x) for n, x in vals.items()}
+        n = len(block_ids)
+        for name, x in vals.items():
+            dst = self.cache[name]
+            want = (dst.shape[0], n) + tuple(dst.shape[2:])
+            if tuple(x.shape) != want:
+                raise ValueError(f"inject_blocks: {name} is {tuple(x.shape)}, the pool takes "
+                                 f"{want} for {n} pages")
+        idx = torch.tensor(block_ids, dtype=torch.int64, device=self.device)
+        for name, x in vals.items():
+            self.cache[name][:, idx] = x.to(self.device, self.cache[name].dtype)
+
+    def _offload_blocks(self, pairs: List[Tuple[int, int, Any]]) -> None:
+        """Spill evicted device blocks to the host tier without waiting for
+        the copy (the allocator calls this inside admission and decode
+        growth, engine thread only). The gather into fresh device buffers is
+        enqueued on the engine's stream before any later dispatch can
+        overwrite the freed pages; the copy into pinned host memory follows
+        on the same stream behind an event, and :meth:`_harvest_spills`
+        moves it into the host pool once the event has passed. ``pairs``
+        are ``(hash, block_id, crc)``; ``crc`` is None (no integrity plane
+        yet). On the CPU the gather is the copy and there is no event."""
+        idx = torch.tensor([bid for _, bid, _ in pairs], dtype=torch.int64, device=self.device)
+        names = ("k", "v", "k_scale", "v_scale") if self.kv_quantized else ("k", "v")
+        bufs = [self.cache[n][:, idx] for n in names]
+        event = None
+        if self.device.type == "cuda":
+            host = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
+            for h, b in zip(host, bufs):
+                h.copy_(b, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            bufs = host
+        if not self.kv_quantized:
+            bufs += [None, None]
+        self._pending_spills.append((pairs, *bufs, event))
+
+    def _harvest_spills(self, force: bool = False) -> None:
+        """Move finished spills into the host pool (engine thread), oldest
+        first, stopping at the first whose copy is still running; ``force``
+        (an idle engine, or more than ``MAX_PENDING_SPILLS`` pending) waits
+        for every one. Each block is stored as a copy of its slice, never a
+        view that would pin the whole spill."""
+        if not self._pending_spills:
+            return
+        if len(self._pending_spills) > MAX_PENDING_SPILLS:
+            force = True
+        while self._pending_spills:
+            pairs, k, v, ks, vs, event = self._pending_spills[0]
+            if event is not None:
+                if not force and not event.query():
+                    return
+                event.synchronize()
+            self._pending_spills.popleft()
+            for i, (h, _, crc) in enumerate(pairs):
+                self.host_pool.put(
+                    h, k[:, i].clone(), v[:, i].clone(),
+                    ks[:, i].clone() if ks is not None else None,
+                    vs[:, i].clone() if vs is not None else None,
+                    crc=crc,
+                )
+
+    def _inject_host_hits(self, alloc: SequenceAllocation) -> None:
+        """Write a new sequence's host-tier prefix hits (content captured by
+        the allocator at probe time) into its pages; an int8 pool's scales
+        come along."""
+        hits = alloc.host_hits
+        block_ids = [alloc.block_ids[h[0]] for h in hits]
+        k = torch.stack([h[2] for h in hits], dim=1)
+        v = torch.stack([h[3] for h in hits], dim=1)
+        ks = vs = None
+        if hits[0][4] is not None:
+            ks = torch.stack([h[4] for h in hits], dim=1)
+            vs = torch.stack([h[5] for h in hits], dim=1)
+        alloc.host_hits = []
+        self.inject_blocks(block_ids, k, v, ks, vs)
+
     # -- metrics ----------------------------------------------------------------
 
     def metrics_snapshot(self) -> Dict[str, Any]:
@@ -1053,6 +1211,11 @@ class TorchServingEngine(AsyncEngine):
                 "decode_dispatches": self.decode_dispatches,
                 "decode_steps_total": self.decode_steps_total,
                 "paged_decode_launches": paged_decode_attention.launches,
+                "paged_decode_int8_launches": paged_decode_attention_int8.launches,
+                "kv_quantized": int(self.kv_quantized),
+                **({"host_cache_blocks": len(self.host_pool),
+                    "host_cache_hits": self.host_pool.hits}
+                   if self.host_pool is not None else {}),
             }
 
 
@@ -1085,9 +1248,13 @@ def build_torch_serving_engine(
     device: Optional[str] = None,
     dtype: torch.dtype = torch.bfloat16,
     quantize: Optional[str] = None,
+    kv_dtype: Optional[str] = None,
+    host_cache_blocks: int = 0,
 ) -> TorchServingEngine:
     """CLI entry: model + engine from a ModelDeploymentCard, on CUDA unless
-    ``device="cpu"``. ``quantize`` is :class:`EngineConfig`'s; with
+    ``device="cpu"``. ``quantize``, ``kv_dtype`` and ``host_cache_blocks``
+    are :class:`EngineConfig`'s (``kv_dtype=None`` reads
+    ``DYN_TPU_KV_DTYPE``); with
     ``"int8-all"`` the weights are quantized as they are loaded (or drawn),
     so the bf16 tree never exists on the device: how a model too large for
     the card in bf16 (mixtral-8x7b) is served."""
@@ -1104,6 +1271,8 @@ def build_torch_serving_engine(
         num_kv_blocks=num_kv_blocks,
         decode_steps=decode_steps,
         quantize=quantize,
+        kv_dtype=kv_dtype,
+        host_cache_blocks=host_cache_blocks,
     )
     return TorchServingEngine(
         model_config, params, engine_config, device=dev, event_sink=event_sink

@@ -27,7 +27,12 @@ one launch).
 The KV cache is ``{"k": [L, N, bs, KVH, D], "v": ...}`` (the JAX layout) and
 is updated in place. Decode history always goes through the paged flash-decode
 kernel (``ops/paged_attention.py``); the JAX package's dense history tier is
-not ported (its choice was tuned on a TPU).
+not ported (its choice was tuned on a TPU). An int8 pool
+(``make_kv_cache(..., quantized=True)``, the JAX layout and key names) adds
+``k_scale``/``v_scale`` ``[L, N, bs]`` fp32, one absmax scale per token slot;
+fresh K/V are quantized per token as they are written (a prefill chunk's
+before its scatter, a decode window once at its flush), and decode reads the
+pool through the int8 paged kernel.
 """
 
 from __future__ import annotations
@@ -40,12 +45,19 @@ from typing import Dict, Iterator, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..ops.attention import gather_pages, paged_attention, write_kv_to_pages
+from ..ops.attention import (
+    dequantize_kv,
+    gather_pages,
+    paged_attention,
+    quantize_kv,
+    write_kv_to_pages,
+)
 from ..ops.int8_matmul import Int8Weight, int8_weight_matmul
 from ..ops.moe import MoeConfig, moe_mlp
-from ..ops.paged_attention import paged_decode_attention
+from ..ops.paged_attention import paged_decode_attention, paged_decode_attention_int8
 
-KVCache = Dict[str, torch.Tensor]  # {"k": [L,N,bs,KVH,D], "v": ...}
+# {"k": [L,N,bs,KVH,D], "v": ...}, and for an int8 pool "k_scale"/"v_scale" [L,N,bs]
+KVCache = Dict[str, torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -276,16 +288,53 @@ def init_params_int8(config: LlamaConfig, seed: int = 0, device="cpu") -> LlamaP
 
 def make_kv_cache(
     config: LlamaConfig, num_blocks: int, block_size: int,
-    dtype: Optional[torch.dtype] = None, device="cpu",
+    dtype: Optional[torch.dtype] = None, device="cpu", quantized: bool = False,
 ) -> KVCache:
-    """Allocate the paged KV pool: [layers, blocks, block_size, kv_heads, head_dim]."""
+    """Allocate the paged KV pool: [layers, blocks, block_size, kv_heads, head_dim].
+
+    ``quantized=True`` is the JAX int8 page layout: int8 ``k``/``v`` and
+    per-token scale tables ``k_scale``/``v_scale`` [layers, blocks,
+    block_size] float32, grouped by physical block so that the scales
+    travel with their pages (prefix reuse, the host tier)."""
     c = config
     shape = (c.num_layers, num_blocks, block_size, c.num_kv_heads, c.head_dim)
+    if quantized:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+        }
     dt = dtype or c.dtype
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
+
+
+def kv_cache_quantized(kv_cache: KVCache) -> bool:
+    """Is this pool the int8 page layout?"""
+    return "k_scale" in kv_cache
+
+
+def _layer_pool(kv_cache: KVCache, i: int) -> Tuple[torch.Tensor, ...]:
+    """Layer ``i``'s pages: (k, v), and for an int8 pool (k, v, k_scale,
+    v_scale). Views, no copies."""
+    names = ("k", "v", "k_scale", "v_scale") if kv_cache_quantized(kv_cache) else ("k", "v")
+    return tuple(kv_cache[n][i] for n in names)
+
+
+def _write_pool(pool: Tuple[torch.Tensor, ...], k: torch.Tensor, v: torch.Tensor,
+                positions: torch.Tensor, block_tables: torch.Tensor) -> None:
+    """Scatter fresh K/V into one layer's pages (in place); an int8 pool
+    takes them quantized per token, and the scales go through the same index
+    math (the scatter is trailing-dim agnostic)."""
+    if len(pool) == 4:
+        kq, vq, ks, vs = quantize_kv(k, v)
+        write_kv_to_pages(pool[0], pool[1], kq, vq, positions, block_tables)
+        write_kv_to_pages(pool[2], pool[3], ks, vs, positions, block_tables)
+    else:
+        write_kv_to_pages(pool[0], pool[1], k, v, positions, block_tables)
 
 
 def _quantize(w: torch.Tensor, contract_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -545,22 +594,27 @@ def forward_chunk(
     b, t = positions.shape
     for i in range(c.num_layers):
         lp = params.layer(i)
-        k_page, v_page = kv_cache["k"][i], kv_cache["v"][i]
+        pool = _layer_pool(kv_cache, i)
         q, k, v = project_qkv(lp, c, h, positions)
+        # the self partial attends the exact fresh K/V, an int8 pool or not
         num, m, l = _chunk_self_partial(q, k, v, positions, scale)
         if with_history:
             # masked to < chunk_start, the history pages are untouched by
-            # this chunk's scatter either way
+            # this chunk's scatter either way; an int8 pool dequantizes the
+            # gathered lanes only
+            gk, gv = (gather_pages(x, block_tables) for x in pool[:2])
+            if len(pool) == 4:
+                gk = dequantize_kv(gk, gather_pages(pool[2], block_tables), h.dtype)
+                gv = dequantize_kv(gv, gather_pages(pool[3], block_tables), h.dtype)
             num_h, m_h, l_h = _history_partial(
-                q, gather_pages(k_page, block_tables),
-                gather_pages(v_page, block_tables), chunk_start, positions, scale,
+                q, gk, gv, chunk_start, positions, scale,
             )
             tr = lambda x: x.transpose(1, 2)  # noqa: E731  [B,H,T] → [B,T,H]
             attn = _merge(num_h, tr(m_h), tr(l_h), num, tr(m), tr(l))
         else:
             den = l.transpose(1, 2)[..., None]
             attn = torch.where(den > 0, num / den.clamp(min=1e-30), torch.zeros_like(num))
-        write_kv_to_pages(k_page, v_page, k, v, positions, block_tables)
+        _write_pool(pool, k, v, positions, block_tables)
         h = h + matw(attn.to(h.dtype).reshape(b, t, c.q_dim), lp["wo"])
         h = mlp_block(lp, c, h, positions)
     h = rms_norm(h, params.final_norm, c.rms_norm_eps)
@@ -588,15 +642,15 @@ def _window_only_attention(c, q, base, wk, wv, wslot):
     return num.reshape(b, h_, d), m.reshape(b, h_), l.reshape(b, h_)
 
 
-def _paged_window_attention(c, q, k_page, v_page, block_tables, base, wk, wv,
-                            wslot, decode_attention):
+def _paged_window_attention(c, q, pool, block_tables, base, wk, wv, wslot,
+                            decode_attention):
     """Decode-window attention: the paged flash-decode kernel computes the
-    pool partial and its softmax stats; the window partial is merged with
-    the flash-decoding combine. The pool is read-only here."""
+    pool partial and its softmax stats over the layer's ``pool`` (k, v, and
+    for an int8 pool its scales); the window partial is merged with the
+    flash-decoding combine. The pool is read-only here."""
     lengths = base.clamp(min=0).to(torch.int32)
     o_p, m_p, l_p = decode_attention(
-        q[:, 0].contiguous(), k_page, v_page, block_tables, lengths,
-        return_stats=True,
+        q[:, 0].contiguous(), *pool, block_tables, lengths, return_stats=True,
     )
     num_w, m_w, l_w = _window_only_attention(c, q, base, wk, wv, wslot)
     m_p = m_p.clamp(min=-1e30)
@@ -619,17 +673,23 @@ def forward_window(
     window_k: torch.Tensor,  # [L, B, W, KVH, D]
     window_v: torch.Tensor,
     wslot: int,  # window slot of this step
-    *, decode_attention=paged_decode_attention,
+    *, decode_attention=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step over the read-only pool plus the window of fresh K/V
     (the JAX ``forward_window`` in its paged history mode).
 
-    The step's K/V go into ``window_k/v[:, :, wslot]`` (in place); the
-    engine flushes the window into the pages once per dispatch
-    (:func:`flush_window`). ``decode_attention`` is the pool-attention
-    function (the kernel's wrapper; a caller may pass its plain version to
-    compare the two). Returns (logits [B, vocab] f32, window_k, window_v)."""
+    The step's K/V go into ``window_k/v[:, :, wslot]`` (in place), in the
+    compute dtype for an int8 pool too; the engine flushes the window into
+    the pages once per dispatch (:func:`flush_window`). ``decode_attention``
+    is the pool-attention function: by default the kernel's wrapper,
+    :func:`paged_decode_attention` or, for an int8 pool,
+    :func:`paged_decode_attention_int8`; a caller may pass a plain version
+    to compare the two. Returns (logits [B, vocab] f32, window_k,
+    window_v)."""
     c = config
+    if decode_attention is None:
+        decode_attention = (paged_decode_attention_int8 if kv_cache_quantized(kv_cache)
+                            else paged_decode_attention)
     h = embed_lookup(params, tokens)[:, None]  # [B, 1, E]
     pos2 = positions[:, None]
     b = h.shape[0]
@@ -640,8 +700,8 @@ def forward_window(
         wk[:, wslot] = k[:, 0]
         wv[:, wslot] = v[:, 0]
         attn = _paged_window_attention(
-            c, q, kv_cache["k"][i], kv_cache["v"][i], block_tables, base,
-            wk, wv, wslot, decode_attention,
+            c, q, _layer_pool(kv_cache, i), block_tables, base, wk, wv, wslot,
+            decode_attention,
         )
         h = h + matw(attn.reshape(b, 1, c.q_dim), lp["wo"])
         h = mlp_block(lp, c, h, pos2)
@@ -656,15 +716,13 @@ def flush_window(
     window_v: torch.Tensor, max_pos: int,
 ) -> KVCache:
     """Scatter a decode dispatch's window into the paged pool (in place), one
-    scatter per layer per dispatch. Padding lanes (base < 0) and positions
-    past ``max_pos`` are dropped."""
+    scatter per layer per dispatch; an int8 pool takes the window quantized
+    per token, values and scales through the same scatter. Padding lanes
+    (base < 0) and positions past ``max_pos`` are dropped."""
     w = window_k.shape[2]
     fpos = base[:, None] + torch.arange(w, device=base.device)[None, :]
     valid = (base[:, None] >= 0) & (fpos <= max_pos)
     fpos = torch.where(valid, fpos, torch.full_like(fpos, -1))
     for i in range(window_k.shape[0]):
-        write_kv_to_pages(
-            kv_cache["k"][i], kv_cache["v"][i], window_k[i], window_v[i],
-            fpos, block_tables,
-        )
+        _write_pool(_layer_pool(kv_cache, i), window_k[i], window_v[i], fpos, block_tables)
     return kv_cache

@@ -5,7 +5,10 @@ num_kv_heads, head_dim]`` per layer. A request owns a *block table*, the list
 of physical page ids backing its logical context. Counterpart of the JAX
 package's ``ops/attention.py``; the pool is updated in place here (a JAX
 array is immutable, a torch tensor is not, and an in-place scatter saves a
-pool-sized copy per layer).
+pool-sized copy per layer). An int8 pool's per-token quantization
+(:func:`quantize_kv`, :func:`dequantize_kv`) is the JAX ``models/llama.py``
+pair, kept here so that the model and the int8 decode kernel's plain version
+share it.
 """
 
 from __future__ import annotations
@@ -13,6 +16,28 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-token absmax int8 quantization of fresh K/V ([..., KVH, D] → int8
+    values and fp32 scales over the last two axes): the JAX ``quantize_kv``.
+    ``scale = max(absmax, 1e-12) / 127``, ``q = clip(round(x / scale), -127,
+    127)`` with rounding half to even; the floor keeps all-zero rows
+    (padding lanes) exact, 0 / 1e-12 quantizing to 0."""
+    kf, vf = k.float(), v.float()
+    ks = kf.abs().amax(dim=(-2, -1)).clamp(min=1e-12) / 127.0
+    vs = vf.abs().amax(dim=(-2, -1)).clamp(min=1e-12) / 127.0
+    kq = torch.round(kf / ks[..., None, None]).clamp(-127, 127).to(torch.int8)
+    vq = torch.round(vf / vs[..., None, None]).clamp(-127, 127).to(torch.int8)
+    return kq, vq, ks, vs
+
+
+def dequantize_kv(kq: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 values and per-token scales → compute-dtype values (the JAX
+    ``dequantize_kv``): the scale multiply runs in fp32, then the product is
+    rounded to ``dtype``."""
+    return (kq.float() * scale[..., None, None]).to(dtype)
 
 
 def write_kv_to_pages(

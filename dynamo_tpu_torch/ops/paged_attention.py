@@ -14,6 +14,16 @@ The split count is planned on the host from shapes alone
 (:func:`plan_splits`): the wrapper never reads ``lengths``, so it never
 waits for the card and a CUDA graph can capture it.
 
+``paged_decode_attention_int8`` is the same function over an int8 pool
+(pages int8, one fp32 scale per token slot, the layout of the JAX
+``make_kv_cache(..., quantized=True)``): on a CUDA tensor the int8 split
+kernel dequantizes each tile on its way into shared memory and shares the
+split kernel's compute and merge; on a CPU tensor
+:func:`paged_decode_attention_int8_plain` runs ``dequantize_kv`` on the
+gathered pages and then :func:`paged_decode_attention_plain`. The JAX
+package has no Pallas kernel for it (its int8 pools decode through XLA's
+dense tier).
+
 The kernels are built at first use with ``nvcc`` for ``sm_90a``
 (``ops/build.py``) and bound with ``ctypes``; they launch on PyTorch's
 current stream and never synchronise.
@@ -28,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from .attention import dequantize_kv
 from .build import KernelLibrary
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -40,33 +51,42 @@ MIN_SPLIT_TILES = 2  # tiles of the longest context per split, at the least
 
 _Launched = ctypes.c_int * 3  # the C entry's report: split, merge launches; splits
 
-# Kernels launched on the card by the wrapper, by __global__ name, as the C
+# Kernels launched on the card by each wrapper, by __global__ name, as the C
 # entry reports them, and the split counts the split kernel ran with
-# (splits -> launches). ``paged_decode_attention.launches`` counts calls.
+# (splits -> launches). ``paged_decode_attention.launches`` and
+# ``paged_decode_attention_int8.launches`` count calls. The int8 wrapper's
+# merge launches are counted in its own dict: the merge kernel is shared.
 device_launches = {"paged_decode_split_kernel": 0, "paged_decode_merge_kernel": 0}
+int8_device_launches = {"paged_decode_int8_split_kernel": 0, "paged_decode_merge_kernel": 0}
 splits_launched: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
-    """Zero the wrapper's call count and the device launch counts."""
+    """Zero both wrappers' call counts and the device launch counts."""
     paged_decode_attention.launches = 0
-    for name in device_launches:
-        device_launches[name] = 0
+    paged_decode_attention_int8.launches = 0
+    for counts in (device_launches, int8_device_launches):
+        for name in counts:
+            counts[name] = 0
     splits_launched.clear()
 
 
 def _bind(lib) -> None:
+    tail = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn = lib.paged_decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-    ]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + tail
+    fn.restype = ctypes.c_int
+    fn = lib.paged_decode_attention_int8_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + tail
     fn.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("paged_attention", _bind)
 
 
-def _check(q, k_cache, v_cache, block_tables, lengths) -> None:
+def _check(q, k_cache, v_cache, block_tables, lengths, k_scale=None, v_scale=None) -> None:
+    """Raise on what the kernels do not take; with scales, the int8 layout
+    (int8 pages, [N, bs] fp32 scales, q in the compute dtype)."""
     s, h, d = q.shape
     n, bs, kvh, d2 = k_cache.shape
     if d != d2 or v_cache.shape != k_cache.shape:
@@ -76,14 +96,26 @@ def _check(q, k_cache, v_cache, block_tables, lengths) -> None:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if h % kvh:
         raise ValueError(f"num_heads {h} is not a multiple of num_kv_heads {kvh}")
-    if k_cache.dtype not in _DTYPES or q.dtype != k_cache.dtype or v_cache.dtype != k_cache.dtype:
-        raise ValueError(f"dtypes q {q.dtype}, k {k_cache.dtype}, v {v_cache.dtype}: "
-                         "the kernel takes one of float32/bfloat16 for all three")
+    scales = ()
+    if k_scale is None:
+        if (k_cache.dtype not in _DTYPES or q.dtype != k_cache.dtype
+                or v_cache.dtype != k_cache.dtype):
+            raise ValueError(f"dtypes q {q.dtype}, k {k_cache.dtype}, v {v_cache.dtype}: "
+                             "the kernel takes one of float32/bfloat16 for all three")
+    else:
+        if q.dtype not in _DTYPES or k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+            raise ValueError(f"dtypes q {q.dtype}, k {k_cache.dtype}, v {v_cache.dtype}: "
+                             "the int8 kernel takes int8 pages and a float32/bfloat16 q")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != (n, bs):
+                raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)}: the scales are "
+                                 f"float32 [{n}, {bs}], one per token slot")
+        scales = (("k_scale", k_scale), ("v_scale", v_scale))
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("block_tables and lengths must be int32")
     if block_tables.shape[0] != s or lengths.shape != (s,):
         raise ValueError("block_tables/lengths do not match the lane count")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache), *scales,
                     ("block_tables", block_tables), ("lengths", lengths)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -132,8 +164,7 @@ def paged_decode_attention(
     outside the pool (the engine's decode window). ``num_splits`` forces the
     kernel's split count (``None`` lets :func:`plan_splits` choose it); it
     changes only the order of the sums, and the CPU path ignores it."""
-    if num_splits is not None and (not isinstance(num_splits, int) or num_splits < 1):
-        raise ValueError(f"num_splits must be a positive int, got {num_splits!r}")
+    _check_splits(num_splits)
     dev = q.device
     if dev.type == "cpu":
         return paged_decode_attention_plain(
@@ -144,14 +175,32 @@ def paged_decode_attention(
         raise ValueError(f"paged_decode_attention: unsupported device {dev}")
     _check(q, k_cache, v_cache, block_tables, lengths)
     lib = LIBRARY.load()
+    return _launch(lib.paged_decode_attention_launch, paged_decode_attention,
+                   device_launches, "paged_decode_split_kernel", q,
+                   (k_cache.data_ptr(), v_cache.data_ptr()), k_cache.shape, block_tables,
+                   lengths, scale, return_stats, num_splits)
+
+
+def _check_splits(num_splits) -> None:
+    if num_splits is not None and (not isinstance(num_splits, int) or num_splits < 1):
+        raise ValueError(f"num_splits must be a positive int, got {num_splits!r}")
+
+
+def _launch(entry, wrapper, counts: dict, split_name: str, q, pages: tuple, page_shape,
+            block_tables, lengths, scale, return_stats: bool, num_splits):
+    """Allocate the outputs and scratch, launch the split and merge kernels
+    through the C ``entry`` (``pages``: the pointers it takes between q and
+    the tables) on PyTorch's current stream, and count the launches in
+    ``counts`` and on ``wrapper``."""
+    dev = q.device
     s, h, d = q.shape
-    _, bs, kvh, _ = k_cache.shape
+    _, bs, kvh, _ = page_shape
     mb = block_tables.shape[1]
     if scale is None:
         scale = d ** -0.5
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     if num_splits is None:
-        num_splits = _planned_splits(s, h, kvh, mb, bs, k_cache.dtype, index)
+        num_splits = _planned_splits(s, h, kvh, mb, bs, q.dtype, index)
     o = torch.empty_like(q)
     # m, l, then the per-split numerators [S, H, NS, D] and stabilizer, max
     # and l [S, H, NS]: one allocation
@@ -163,21 +212,19 @@ def paged_decode_attention(
     # a Stream object once per layer per decode step)
     stream = torch._C._cuda_getCurrentRawStream(index)
     launched = _Launched()
-    err = lib.paged_decode_attention_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+    err = entry(
+        q.data_ptr(), *pages, block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
         m_ptr, l_ptr, l_ptr + s * h * 4,
-        s, h, kvh, d, bs, mb, num_splits, float(scale), _DTYPES[k_cache.dtype], stream,
-        launched,
+        s, h, kvh, d, bs, mb, num_splits, float(scale), _DTYPES[q.dtype], stream, launched,
     )
-    device_launches["paged_decode_split_kernel"] += launched[0]
-    device_launches["paged_decode_merge_kernel"] += launched[1]
+    counts[split_name] += launched[0]
+    counts["paged_decode_merge_kernel"] += launched[1]
     if launched[0]:
         splits_launched[launched[2]] += 1
     if err != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: cudaError {err} "
+        raise RuntimeError(f"{wrapper.__name__} launch failed: cudaError {err} "
                            f"({num_splits} splits)")
-    paged_decode_attention.launches += 1
+    wrapper.launches += 1
     if return_stats:
         return o, stats[0], stats[1]
     return o
@@ -231,6 +278,76 @@ def paged_decode_attention_plain(
     if return_stats:
         return o, m.reshape(s, h), l.reshape(s, h)
     return o
+
+
+def paged_decode_attention_int8(
+    q: torch.Tensor,  # [S, H, D] compute dtype
+    k_cache: torch.Tensor,  # [N, bs, KVH, D] int8
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # [N, bs] float32, one per token slot
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, MB] int32
+    lengths: torch.Tensor,  # [S] int32
+    *,
+    scale: Optional[float] = None,
+    return_stats: bool = False,
+    num_splits: Optional[int] = None,
+):
+    """:func:`paged_decode_attention` over an int8 pool, the pages
+    dequantized to q's dtype as ``dequantize_kv`` does it. On a CUDA tensor
+    it launches the int8 split kernel and the merge (the same split plan as
+    the bf16 kernel for the same shapes) or raises; on a CPU tensor it runs
+    :func:`paged_decode_attention_int8_plain`."""
+    _check_splits(num_splits)
+    dev = q.device
+    if dev.type == "cpu":
+        return paged_decode_attention_int8_plain(
+            q, k_cache, v_cache, k_scale, v_scale, block_tables, lengths, scale=scale,
+            return_stats=return_stats,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"paged_decode_attention_int8: unsupported device {dev}")
+    _check(q, k_cache, v_cache, block_tables, lengths, k_scale, v_scale)
+    lib = LIBRARY.load()
+    return _launch(lib.paged_decode_attention_int8_launch, paged_decode_attention_int8,
+                   int8_device_launches, "paged_decode_int8_split_kernel", q,
+                   (k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+                    v_scale.data_ptr()), k_cache.shape, block_tables, lengths, scale,
+                   return_stats, num_splits)
+
+
+paged_decode_attention_int8.launches = 0
+
+
+def paged_decode_attention_int8_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    return_stats: bool = False,
+):
+    """The int8 kernel's function in plain PyTorch: each lane's live pages
+    gathered (entries past them never indexed) and dequantized to q's dtype
+    with ``dequantize_kv``, then :func:`paged_decode_attention_plain` over
+    them."""
+    s = q.shape[0]
+    _, bs, kvh, d = k_cache.shape
+    mb = block_tables.shape[1]
+    n_pages = (lengths.to(torch.int64) + bs - 1) // bs
+    live_block = torch.arange(mb, device=q.device)[None, :] < n_pages[:, None]
+    tables = torch.where(live_block, block_tables.to(torch.int64), 0)
+    k = dequantize_kv(k_cache[tables], k_scale[tables], q.dtype)  # [S, MB, bs, KVH, D]
+    v = dequantize_kv(v_cache[tables], v_scale[tables], q.dtype)
+    gathered = torch.arange(s * mb, dtype=torch.int32, device=q.device).reshape(s, mb)
+    return paged_decode_attention_plain(
+        q, k.reshape(s * mb, bs, kvh, d), v.reshape(s * mb, bs, kvh, d), gathered, lengths,
+        scale=scale, return_stats=return_stats,
+    )
 
 
 def paged_decode_split_plain(

@@ -158,6 +158,117 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                v[..., :8].contiguous(), t, n)  # D=8 has no kernel
 
 
+# -- paged_decode_attention_int8 -----------------------------------------------
+
+from dynamo_tpu_torch.ops.attention import dequantize_kv, quantize_kv  # noqa: E402
+from dynamo_tpu_torch.ops.paged_attention import (  # noqa: E402
+    int8_device_launches,
+    paged_decode_attention_int8,
+    paged_decode_attention_int8_plain,
+)
+
+
+def _int8_pool_case(H, KVH, D, bs, lengths, dtype, seed, device):
+    """An int8 pool (the per-token quantization of normal K/V) under
+    ``_hard_case``'s tables and lengths, q in ``dtype``. The scales of the
+    dead slots of each lane's last page are NaN (stale), so a kernel that
+    read one would put NaN into its sums."""
+    q, k, v, tables, lens = _hard_case(H, KVH, D, bs, lengths, torch.float32, seed, device)
+    kq, vq, ks, vs = quantize_kv(torch.nan_to_num(k), torch.nan_to_num(v))
+    t = tables.cpu().numpy()
+    for s_, n in enumerate(lengths):
+        if n % bs:
+            page = t[s_, -(-n // bs) - 1]
+            ks[page, n % bs:] = float("nan")
+            vs[page, n % bs:] = float("nan")
+    return q.to(dtype), kq, vq, ks, vs, tables, lens
+
+
+@pytest.mark.parametrize("num_splits", [1, 3, None])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kv_kernel_matches_plain(cuda, D, dtype, num_splits):
+    args = _int8_pool_case(8, 2, D, 16, HARD_LENGTHS, dtype, 20 + D, cuda)
+    before = paged_decode_attention_int8.launches
+    kernels_before = dict(int8_device_launches)
+    o, m, l = paged_decode_attention_int8(*args, return_stats=True, num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_int8.launches == before + 1
+    assert all(int8_device_launches[k] == n + 1 for k, n in kernels_before.items())
+    po, pm, pl = paged_decode_attention_int8_plain(*args, return_stats=True)
+    assert torch.isfinite(o.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=0)
+        torch.testing.assert_close(m, pm, atol=1e-5, rtol=0)
+        torch.testing.assert_close(l, pl, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=0)
+        torch.testing.assert_close(m, pm, atol=0, rtol=1e-3)
+        torch.testing.assert_close(l, pl, atol=0, rtol=1e-3)
+    assert (o[0] == 0).all() and (m[0] == -1e30).all() and (l[0] == 0).all()  # length 0
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 7, None])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kv_kernel_bit_equal_to_bf16_kernel_on_dequantized_pages(cuda, D, dtype,
+                                                                      num_splits):
+    """Same split count, same compute: the int8 kernel's only extra step is
+    the dequantization, which must be dequantize_kv's to the bit."""
+    q, kq, vq, ks, vs, tables, lens = _int8_pool_case(8, 2, D, 16, HARD_LENGTHS, dtype, D,
+                                                      cuda)
+    got = paged_decode_attention_int8(q, kq, vq, ks, vs, tables, lens, return_stats=True,
+                                      num_splits=num_splits)
+    want = paged_decode_attention(q, dequantize_kv(kq, ks, dtype), dequantize_kv(vq, vs, dtype),
+                                  tables, lens, return_stats=True, num_splits=num_splits)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_int8_kv_kernel_rejects_what_it_does_not_take(cuda):
+    q, kq, vq, ks, vs, t, n = _int8_pool_case(4, 2, 16, 8, [5, 9], torch.bfloat16, 1, cuda)
+    with pytest.raises(ValueError):  # bf16 pages
+        paged_decode_attention_int8(q, kq.bfloat16(), vq.bfloat16(), ks, vs, t, n)
+    with pytest.raises(ValueError):  # scales of the wrong shape
+        paged_decode_attention_int8(q, kq, vq, ks[:, :4].contiguous(), vs, t, n)
+    with pytest.raises(ValueError):  # scales on the CPU
+        paged_decode_attention_int8(q, kq, vq, ks.cpu(), vs, t, n)
+    with pytest.raises(ValueError):  # fp16 q
+        paged_decode_attention_int8(q.half(), kq, vq, ks, vs, t, n)
+
+
+def test_host_tier_round_trip_is_bit_equal_on_the_card(cuda):
+    """Spill two blocks of an int8 pool (gather on the stream, pinned copy,
+    event), harvest them into the host pool and inject them into two other
+    pages: k, v and both scale tables arrive bit for bit."""
+    from dynamo_tpu_torch.engine_torch.engine import EngineConfig, TorchServingEngine
+    from dynamo_tpu_torch.models.llama import init_params
+
+    cfg = LLAMA_PRESETS["tiny"]
+    eng = TorchServingEngine(cfg, init_params(cfg, seed=0, device=cuda), EngineConfig(
+        max_slots=2, kv_block_size=16, max_model_len=64, num_kv_blocks=8, kv_dtype="int8",
+        host_cache_blocks=4), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for name, x in eng.cache.items():
+        if x.dtype == torch.int8:
+            x.copy_(torch.randint(-127, 128, x.shape, generator=gen, device=cuda))
+        else:
+            x.copy_(torch.rand(x.shape, generator=gen, device=cuda))
+    before = {n: x.clone() for n, x in eng.cache.items()}
+    eng._offload_blocks([(101, 2, None), (102, 5, None)])
+    for x in eng.cache.values():  # the pages are reused at once
+        x[:, [2, 5]] = 0
+    eng._harvest_spills(force=True)
+    assert len(eng.host_pool) == 2 and not eng._pending_spills
+    hits = [eng.host_pool.get(h) for h in (101, 102)]
+    names = ("k", "v", "k_scale", "v_scale")
+    eng.inject_blocks([6, 1], *(torch.stack([hit[i] for hit in hits], dim=1)
+                                for i in range(4)))
+    for i, n in enumerate(names):
+        assert hits[0][i].device.type == "cpu"
+        assert torch.equal(eng.cache[n][:, [6, 1]], before[n][:, [2, 5]]), n
+
+
 # -- int8_weight_matmul ----------------------------------------------------------
 
 from dynamo_tpu_torch.models.llama import LLAMA_PRESETS, Int8Weight, LlamaParams, lm_head  # noqa: E402

@@ -2,10 +2,12 @@
 fp32: the same parameters (carried across with ``params_from_numpy``) and
 the same requests give equal greedy token streams, through recompute
 preemption, a prefix-cache hit, chunked prefill and multi-step decode
-dispatches."""
+dispatches; and, with bf16 and int8 KV pages, through a prefix hit served
+from the host-RAM KV tier."""
 
 import asyncio
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -77,6 +79,56 @@ def test_greedy_streams_equal_jax_engine():
     m = teng.metrics_snapshot()
     assert m["gpu_prefix_cache_hit_rate"] > 0
     assert m["decode_dispatches"] > 0 and m["decode_steps_total"] == 2 * m["decode_dispatches"]
+
+
+# 8 blocks of 8: the second wave's two 17-token prompts need every block, so
+# the first wave's two sealed blocks are evicted to the host tier; the third
+# wave repeats the first prompt and finds them there
+HOST_TIER = dict(max_slots=2, kv_block_size=8, max_model_len=48, num_kv_blocks=8,
+                 prefill_chunk=16, decode_steps=2, host_cache_blocks=16)
+REPEATED = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2]
+EVICTING = [[2, 7, 1, 8, 2, 8, 1, 8, 4, 5, 9, 0, 4, 5, 2, 3, 5],
+            [1, 4, 1, 4, 2, 1, 3, 5, 6, 2, 3, 7, 3, 0, 9, 5, 7]]
+
+
+def _drive_host_tier(engine, common, ctx_cls):
+    def wave(prompts, n):
+        async def go():
+            return await asyncio.gather(
+                *[_tokens(engine, common, ctx_cls, p, n) for p in prompts])
+        return asyncio.run(go())
+
+    out = wave([REPEATED], 6) + wave(EVICTING, 6)
+    deadline = time.monotonic() + 30  # spills reach the host pool off the step
+    while len(engine.host_pool) < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return out + wave([REPEATED], 6)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_greedy_streams_equal_jax_engine_with_host_tier(kv_dtype):
+    """A pool too small for two waves: blocks evicted by the second wave
+    spill to host RAM (an int8 pool's scales with them) and serve the third
+    wave's prefix hit, in both engines, with equal greedy streams."""
+    jparams = init_params(jax.random.PRNGKey(1), JCFG)
+    jeng = JaxServingEngine(JCFG, jparams, JaxEngineConfig(**HOST_TIER, kv_dtype=kv_dtype))
+    teng = TorchServingEngine(
+        TCFG, params_from_numpy(jax.tree.map(np.asarray, jparams), TCFG),
+        EngineConfig(**HOST_TIER, kv_dtype=kv_dtype), device="cpu",
+    )
+    try:
+        want = _drive_host_tier(jeng, jcommon, JaxContext)
+        got = _drive_host_tier(teng, tcommon, Context)
+        jm, tm = jeng.metrics_snapshot(), teng.metrics_snapshot()
+    finally:
+        jeng.close()
+        teng.close()
+    assert got == want
+    assert all(len(t) == 6 and f == "length" for t, f in got)
+    assert tm["kv_quantized"] == int(kv_dtype == "int8")
+    assert teng.cache["k"].dtype == (torch.int8 if kv_dtype == "int8" else torch.float32)
+    assert jm["host_cache_hits"] > 0 and tm["host_cache_hits"] > 0
+    assert tm["host_cache_blocks"] >= 2
 
 
 def test_cuda_default_raises_without_a_card():
