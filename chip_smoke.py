@@ -26,7 +26,9 @@ non-zero:
    plan (kernel, block, splits) and checks that the call launched it, times
    it eager and graph-replayed beside the plain version and bf16
    ``torch.matmul`` on the same activations (eager and graph-replayed), and
-   times both kernels forced on either side of the planner's threshold;
+   times both kernels forced on either side of the planner's threshold; M =
+   40 is a speculative verify dispatch (8 lanes x 5 positions), summed over
+   its 225 products like a decode step at M = 8;
 5. expert kernel: holds ``int8_expert_matmul`` against its plain version
    over 8 experts at mixtral-8x7b's 4096->14336 and 14336->4096, C = 2, 4
    (decode at 8 lanes), 5, 17, 130 and 512 (a 1024-row prefill chunk), with
@@ -68,21 +70,48 @@ non-zero:
     bit-equal to what was spilled; profiles decode; then one full-width
     ``forward_window`` step over an int8 pool through the kernel against its
     plain version, and prints (not held) its drift from a bf16 pool;
-12. mixtral load (every llama engine closed first): writes a
+    the integrity plane is on in every phase, as by default;
+12. integrity (every llama engine closed, the bf16 weights kept; each run a
+    fresh engine at llama3-8b width and full depth, 8 lanes of 100-500
+    random prompt tokens driven through ``generate``): a ``poison`` fault on
+    the third decode dispatch ends every lane with the watchdog's resume
+    directive after exactly the tokens of the dispatches before it, equal
+    to a clean run's; TTFT p50, decode tok/s and the seal checksums' seconds
+    with ``DYN_TPU_KV_INTEGRITY=0`` against the default (printed); a
+    ``corrupt`` fault on the first host-tier spill of phase 11's three-wave
+    layout (int8 pages, a pool that holds one wave): one entry fails its
+    checksum, the third wave takes fewer host hits, one ``kv`` trip is
+    counted, and its tokens equal a clean run's third wave;
+13. spec serve: ``spec_k = 4`` on 8 streams of 64 tokens over prompts that
+    repeat a phrase, bf16 and then ``quantize="int8"``, each beside a
+    spec-off engine: drafted and accepted tokens (held), accept rate, tokens
+    per verify dispatch, TTFT and tok/s on and off, stream agreement
+    (printed); each spec-on wave's launches against its dispatches (held:
+    225 W8A16 products per int8 verify dispatch and decode step, 32 paged
+    calls per decode step; M = 40 plans printed); one verify and one decode
+    dispatch profiled on the idle engine (device ms); then the verify
+    forward's logits against the same positions decoded one step at a
+    time: bf16 weights held at 2e-2; int8 weights printed (2.020e-2 on the
+    H100, over the limit) beside its parts (plain products on both sides,
+    verify on the split-K kernel); held at 2e-2: the int8 verify forward
+    through the W8A16 kernels against the same forward through their plain
+    version, and each path, bf16 and int8, against an fp32 evaluation of
+    the same weights;
+14. mixtral load (every llama engine closed first): writes a
     mixtral-8x7b-width checkpoint cut to 1 layer (bf16, HF
     ``block_sparse_moe`` names), loads it straight to int8, checks every q
     and s on the card bit for bit against the quantization of what was
     written, and serves 2 streaming requests from it in ``"int8-all"``;
-13. mixtral serve: mixtral-8x7b at full width and depth, random weights
+15. mixtral serve: mixtral-8x7b at full width and depth, random weights
     drawn straight to int8 on the card, behind the HTTP server in
     ``"int8-all"``, its prompts read by a mixtral-shaped tokenizer.json
     (``mixtral_tokenizer_json``: SentencePiece-style BPE with byte
-    fallback; phase 12 reads it too): peak memory, 8 concurrent streams of
+    fallback; phase 14 reads it too): peak memory, 8 concurrent streams of
     32 tokens, launch counts (129 ``int8_weight_matmul``, 96
     ``int8_expert_matmul`` per forward, 32 paged per decode step; each
     prefill chunk's expert products on the expert tile kernel), TTFT,
     decode tok/s and a profile;
-14. mixtral parity: one MoE layer at 8 and 1024 tokens, and one full-depth
+16. mixtral parity: one MoE layer at 8 and 1024 tokens, and one full-depth
     ``forward_window`` step through the kernels against the same step
     through every kernel's plain version, and through the int8 products'
     plain versions alone; routing choices that differ are counted, with the
@@ -92,7 +121,7 @@ non-zero:
     expert choices, and the logits are held on every lane; last, one
     full-depth prefill chunk is timed with the expert products on the
     expert tile kernel and on the dense tile kernel, in turns;
-15. prints the kernels' JSON line and, last, the device JSON line.
+17. prints the kernels' JSON line and, last, the device JSON line.
 Each phase prints its seconds.
 """
 
@@ -734,7 +763,10 @@ INT8_SHAPES = [
     ("lm_head: 4096->128256", 4096, 128256, "fp32", 1),
 ]
 INT8_LAUNCHES_PER_STEP = sum(n for *_, n in INT8_SHAPES)  # 7 per layer x 32 + 1 = 225
-INT8_DECODE_M = (1, 8)  # a lone user, the slice's 8 lanes
+# a lone user, the slice's 8 lanes, and a speculative verify dispatch of 8
+# lanes x (k + 1) positions at k = 4
+INT8_DECODE_M = (1, 8, 40)
+SPEC_K = 4
 # prefill rows of one shape: up to an "int8-all" chunk of 8 lanes x 128 tokens
 INT8_PREFILL = ("w_gate, w_up: 4096->14336", 4096, 14336, (64, 256, 1024))
 # both kernels forced at these M, to place the planner's choice between them
@@ -862,22 +894,27 @@ def phase_int8_kernel(card: str) -> dict:
                   f"{times['splitk']:.4f} ms, tile {times['tile']:.4f} ms (the plan takes "
                   f"{plan_int8(M, N, K, sms).path})")
     torch.cuda.empty_cache()
-    # one decode step at M = 8: 225 launches over the five shapes
+    # one forward's 225 launches over the five shapes: a decode step at
+    # M = 8, a verify dispatch at M = 40
     keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")
-    per_step = {key: 0.0 for key in keys}
-    for name, K, N, out, count in INT8_SHAPES:
-        (row,) = [r for r in result if r["name"] == name and r["M"] == 8 and r["x"] == "bf16"]
-        for key in keys:
-            per_step[key] += count * row[key]
-    per_step["bound_share"] = per_step["bound_ms"] / per_step["ms"]
-    per_step["bound_share_graph"] = per_step["bound_ms"] / per_step["graph_ms"]
-    print(f"int8 decode step (M=8, {INT8_LAUNCHES_PER_STEP} launches): kernel "
-          f"{per_step['ms']:.3f} ms ({per_step['bound_share']:.1%} of the bound), "
-          f"graph-replayed {per_step['graph_ms']:.3f} ms ({per_step['bound_share_graph']:.1%}), "
-          f"bound {per_step['bound_ms']:.3f} ms, bf16 torch.matmul {per_step['library_ms']:.3f} ms "
-          f"(graph-replayed {per_step['library_graph_ms']:.3f} ms), plain "
-          f"{per_step['plain_ms']:.3f} ms, on {card}")
-    return {"cases": result, "per_step": per_step, "sweep": sweep}
+    sums = {}
+    for M, label in ((8, "decode step"), (8 * (SPEC_K + 1), "verify dispatch")):
+        total = {key: 0.0 for key in keys}
+        for name, K, N, out, count in INT8_SHAPES:
+            (row,) = [r for r in result if r["name"] == name and r["M"] == M and r["x"] == "bf16"]
+            for key in keys:
+                total[key] += count * row[key]
+        total["bound_share"] = total["bound_ms"] / total["ms"]
+        total["bound_share_graph"] = total["bound_ms"] / total["graph_ms"]
+        print(f"int8 {label} (M={M}, {INT8_LAUNCHES_PER_STEP} launches): kernel "
+              f"{total['ms']:.3f} ms ({total['bound_share']:.1%} of the bound), "
+              f"graph-replayed {total['graph_ms']:.3f} ms ({total['bound_share_graph']:.1%}), "
+              f"bound {total['bound_ms']:.3f} ms, bf16 torch.matmul {total['library_ms']:.3f} ms "
+              f"(graph-replayed {total['library_graph_ms']:.3f} ms), plain "
+              f"{total['plain_ms']:.3f} ms, on {card}")
+        sums[M] = total
+    return {"cases": result, "per_step": sums[8], "per_verify": sums[8 * (SPEC_K + 1)],
+            "sweep": sweep}
 
 
 # -- phase 5: the expert kernel --------------------------------------------------
@@ -1863,6 +1900,7 @@ def phase_kv_int8_serve(card: str, int8_core, flags, name: str) -> dict:
     del int8_core
     gc.collect()
     torch.cuda.empty_cache()
+    weights = {"params": params, "cfg": cfg, "ecfg": ecfg}
     bodies = request_bodies(name, N_REQUESTS, MAX_TOKENS)
     evicting = request_words(bodies, reverse=True)
     blocks = pool_blocks_for(bodies, ecfg.kv_block_size, ecfg.decode_steps) + 16
@@ -1954,10 +1992,669 @@ def phase_kv_int8_serve(card: str, int8_core, flags, name: str) -> dict:
             "decode_tok_s_last_wave": N_REQUESTS * (MAX_TOKENS - 1)
             / (max(r["end"] for r in waves[2]) - first),
             "profile": profile, "parity_ratio": ratio, "bf16_pool_drift": drift,
-            "bf16_pool_greedy_agreement": agree}
+            "bf16_pool_greedy_agreement": agree, "weights": weights}
 
 
-# -- phases 12-14: mixtral-8x7b in "int8-all" ------------------------------------
+# -- phases 12-13: the integrity plane and speculative decoding -------------------
+
+SPEC_TOKENS = 64  # the speculative serve's output per stream
+
+
+def token_prompts(rng, lengths, vocab: int) -> list:
+    return [rng.integers(0, vocab, size=int(n)).tolist() for n in lengths]
+
+
+def engine_wave(core, prompts: list, max_tokens: int) -> dict:
+    """Every prompt at once straight into ``core.generate`` (the engine's
+    own entry point, no HTTP), greedy, ``max_tokens`` each with EOS
+    ignored. Per stream: tokens, the ``migrating`` marker or None, the
+    finish reason; the engine's TTFT p50 (enqueue -> first token) and the
+    decode tok/s of the wave (tokens after each stream's first, over the
+    span from the first first token to the last stream's end)."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(prompt):
+        req = PreprocessedRequest(
+            token_ids=list(prompt),
+            stop_conditions=StopConditions(max_tokens=max_tokens, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0))
+        toks, marker, finish, first = [], None, None, None
+        async for item in core.generate(Context(req)):
+            if item.is_error:
+                fail(f"engine error: {item.error_message()}")
+            d = item.data or {}
+            if "migrating" in d:
+                marker = d["migrating"]
+                continue
+            if d.get("token_ids") and first is None:
+                first = time.perf_counter()
+            toks.extend(d.get("token_ids", []))
+            finish = d.get("finish_reason") or finish
+        return toks, marker, finish, first, time.perf_counter()
+
+    async def wave():
+        return await asyncio.gather(*[one(p) for p in prompts])
+
+    n0 = len(core.recent_ttft_s)
+    out = asyncio.run(wave())
+    ttfts = list(core.recent_ttft_s)[n0:]
+    firsts = [r[3] for r in out if r[3] is not None]
+    span = max(r[4] for r in out) - min(firsts) if firsts else 0.0
+    decoded = sum(max(len(r[0]) - 1, 0) for r in out)
+    return {"tokens": [r[0] for r in out], "markers": [r[1] for r in out],
+            "finish": [r[2] for r in out],
+            "ttft_p50_ms": statistics.median(ttfts) * 1e3 if ttfts else None,
+            "decode_tok_s": decoded / span if span > 0 else None}
+
+
+def fresh_engine(params, cfg, ecfg, **changes):
+    from dynamo_tpu_torch.engine_torch.engine import TorchServingEngine
+
+    core = TorchServingEngine(cfg, params, dataclasses.replace(ecfg, **changes), device="cuda")
+    core.warmup()
+    return core
+
+
+def close_engine(core) -> None:
+    import torch
+
+    core.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextmanager
+def integrity_env(on: bool):
+    """``DYN_TPU_KV_INTEGRITY`` as the engine's construction reads it:
+    unset (the default, on) or 0."""
+    old = os.environ.pop("DYN_TPU_KV_INTEGRITY", None)
+    if not on:
+        os.environ["DYN_TPU_KV_INTEGRITY"] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("DYN_TPU_KV_INTEGRITY", None)
+        if old is not None:
+            os.environ["DYN_TPU_KV_INTEGRITY"] = old
+
+
+def first_difference(a: list, b: list) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def three_waves(core, prompts, evicting, rule=None, seed=0) -> dict:
+    """Phase 11's layout at engine level: the prompts, then as many others
+    that evict their cached blocks to the host tier, then the prompts
+    again; with ``rule``, a fault injector holding it (seeded with ``seed``)
+    is active throughout. Returns the first and third waves' tokens, each
+    spill's size and first block's hash, the host hits of the third wave,
+    the kv trips counted, and the host-tier entries whose bytes no longer
+    hash to their seal checksum before the third wave (the corrupted
+    ones), by the prompt whose chain holds them."""
+    from dynamo_tpu_torch.engine_torch.allocator import resolve_crc
+    from dynamo_tpu_torch.kv.tokens import compute_block_hashes_for_seq
+    from dynamo_tpu_torch.runtime import faults, integrity
+
+    spills, offload = [], core.allocator._offload
+
+    def spill(pairs):
+        spills.append((len(pairs), pairs[0][0]))
+        offload(pairs)
+
+    core.allocator._offload = spill
+    trips0 = integrity.counters()["kv_integrity_failures_total"]
+    inj = faults.FaultInjector([rule] if rule is not None else [], seed=seed)
+    with faults.active(inj):
+        first = engine_wave(core, prompts, MAX_TOKENS)
+        engine_wave(core, evicting, MAX_TOKENS)
+        deadline = time.perf_counter() + 30  # the idle engine harvests its spills
+        while core._pending_spills and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        bad = [h for h, e in list(core.host_pool._data.items())
+               if e[4] is not None and integrity.entry_checksum(*e[:4]) != resolve_crc(e[4])]
+        hits0 = core.host_pool.hits
+        third = engine_wave(core, prompts, MAX_TOKENS)
+    chains = [compute_block_hashes_for_seq(p, core.config.kv_block_size) for p in prompts]
+    return {"first": first["tokens"], "third": third["tokens"], "spills": spills,
+            "chains": chains, "corrupted_blocks": [
+                (i, c.index(h)) for h in bad for i, c in enumerate(chains) if h in c],
+            "host_hits": core.host_pool.hits - hits0, "spilled": core.host_pool.offloaded,
+            "kv_trips": integrity.counters()["kv_integrity_failures_total"] - trips0,
+            "corrupted": len(bad),
+            "fault_log": [(d.op_index, d.detail) for d in inj.log]}
+
+
+def phase_integrity(card: str, weights: dict) -> dict:
+    """The integrity plane at llama3-8b width and full depth, random bf16
+    weights, 8 lanes of 100-500 random prompt tokens: (a) a ``poison`` rule
+    on one decode dispatch; (b) integrity off against the default (TTFT,
+    decode tok/s, the checksums' seconds); (c) a ``corrupt`` rule on one
+    host-tier spill in phase 11's three-wave layout (int8 KV pages, a pool
+    that holds one wave, a host tier of 4x the pool). Each run is a fresh
+    engine over the same weights."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.runtime import faults, integrity
+
+    params, cfg, ecfg = weights["params"], weights["cfg"], weights["ecfg"]
+    rng = np.random.default_rng(12)
+    lens = [int(n) for n in rng.integers(100, 500, size=N_REQUESTS)]
+    prompts = token_prompts(rng, lens, cfg.vocab_size)
+    evicting = token_prompts(rng, lens, cfg.vocab_size)
+    ds = ecfg.decode_steps
+
+    # (a) the default engine, then a poisoned third decode dispatch
+    runs = {}
+    for label, on in [(f"{'on' if on else 'off'} {i}", on) for i in range(3) for on in (1, 0)]:
+        with integrity_env(on):
+            core = fresh_engine(params, cfg, ecfg)
+        if (core._integrity is not None) != on:
+            fail(f"integrity {label}: the engine's plane is {core._integrity}")
+        wave = engine_wave(core, prompts, MAX_TOKENS)
+        wave.update(chunks=core.chunk_dispatches, crc_s=core.crc_seconds,
+                    crc_blocks=core.crc_blocks, crc_flush_s=core.crc_flush_seconds,
+                    trips=core.watchdog_trips)
+        runs[label] = wave
+        close_engine(core)
+    clean = runs["on 0"]
+    if any(f != "length" or len(t) != MAX_TOKENS for f, t in zip(clean["finish"], clean["tokens"])):
+        fail("integrity: the clean wave did not finish every stream at max_tokens")
+    D = clean["chunks"] + 2  # the third decode dispatch: two decode dispatches before it
+    core = fresh_engine(params, cfg, ecfg)
+    core._fault_addr = "chip-smoke"
+    rule = faults.FaultRule(plane="engine", point="dispatch", action="poison",
+                            match_addr="chip-smoke", after_ops=2 * D, max_fires=1)
+    inj = faults.FaultInjector([rule])
+    # each lane's tokens from the dispatches before the poisoned one: those
+    # emitted when it is made, plus the in-flight dispatch's
+    before, all_decoding, wd_args = {}, [], core._wd_args
+
+    def watched():
+        n = len(inj.log)
+        args = wd_args()
+        if len(inj.log) > n:
+            ahead = core._inflight
+            for i, seq in enumerate(core._slots):
+                if seq is not None:
+                    inflight = ahead is not None and ahead.lanes[i] is seq
+                    before[prompts.index(seq.prompt)] = seq.emitted + (ds if inflight else 0)
+            all_decoding.append(all(s is not None and s.prefill_pos is None
+                                    for s in core._slots))
+        return args
+
+    core._wd_args = watched
+    trips0 = integrity.counters()["watchdog_trips_total"]
+    with faults.active(inj):
+        pois = engine_wave(core, prompts, MAX_TOKENS)
+    wd_trips, wd_counted = core.watchdog_trips, integrity.counters()["watchdog_trips_total"] - trips0
+    close_engine(core)
+    marker = {"resume": True, "error": "output watchdog: non-finite or exploding logits"}
+    counts = [len(t) for t in pois["tokens"]]
+    exact = [len(t) == before.get(i) and t == c[:len(t)]
+             for i, (t, c) in enumerate(zip(pois["tokens"], clean["tokens"]))]
+    held = (all(m == marker for m in pois["markers"]) and not any(pois["finish"])
+            and all(exact) and all_decoding == [True] and wd_trips == N_REQUESTS == wd_counted)
+    print(f"integrity poison drill: dispatch {D} poisoned ({clean['chunks']} prefill chunks, "
+          f"then decode dispatches of {ds} steps; every lane decoding: {all_decoding}): every "
+          f"lane ended with the watchdog's resume directive: "
+          f"{all(m == marker for m in pois['markers'])}, finish reasons "
+          f"{sorted(set(map(str, pois['finish'])))}, tokens per lane {counts} (those of the "
+          f"dispatches before the poisoned one: {[before.get(i) for i in range(N_REQUESTS)]}), "
+          f"each equal to the clean run's first ones: {all(exact)}; watchdog trips {wd_trips} "
+          f"(engine), {wd_counted} (tracker)")
+    if not held:
+        fail("integrity poison drill")
+    same = sum(a == b for a, b in zip(runs["off 0"]["tokens"], clean["tokens"]))
+    block_bytes = sum(x.numel() * x.element_size() for x in (
+        torch.empty((cfg.num_layers, ecfg.kv_block_size, cfg.num_kv_heads, cfg.head_dim),
+                    dtype=cfg.dtype),) * 2)
+    for label, r in runs.items():
+        print(f"integrity {label}: TTFT p50 {r['ttft_p50_ms']:.1f} ms, decode "
+              f"{r['decode_tok_s']:.1f} tok/s over {N_REQUESTS} lanes; seal checksums "
+              f"{r['crc_blocks']} blocks ({r['crc_blocks'] * block_bytes / 2**20:.0f} MiB) in "
+              f"{r['crc_s']:.3f} s of the crc thread, {r['crc_flush_s'] * 1e3:.1f} ms of the "
+              f"engine thread starting them, on {card}")
+    # the pinned copy's rate: the stream time the checksums' copies take
+    src = torch.empty(64 * block_bytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty(src.shape, dtype=torch.uint8, pin_memory=True)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(5):
+        dst.copy_(src, non_blocking=True)
+    t1.record()
+    t1.synchronize()
+    d2h = 5 * src.numel() / (t0.elapsed_time(t1) * 1e-3)
+    del src, dst
+    on = [r for lab, r in runs.items() if lab.startswith("on")]
+    off = [r for lab, r in runs.items() if lab.startswith("off")]
+    ttft_on = statistics.median(r["ttft_p50_ms"] for r in on)
+    ttft_off = statistics.median(r["ttft_p50_ms"] for r in off)
+    print(f"integrity on against off (medians of 3 alternating runs each): TTFT p50 "
+          f"{ttft_on:.1f} vs {ttft_off:.1f} ms, decode "
+          f"{statistics.median(r['decode_tok_s'] for r in on):.1f} vs "
+          f"{statistics.median(r['decode_tok_s'] for r in off):.1f} tok/s; the checksums' "
+          f"pinned copies {on[0]['crc_blocks'] * block_bytes / d2h * 1e3:.1f} ms of stream time "
+          f"per wave at {d2h / 1e9:.1f} GB/s (device to pinned host, measured); streams with "
+          f"integrity off equal to the default's: {same} of {N_REQUESTS} (not held)")
+
+    # (c) the corrupt drill on the three-wave layout, with prompts of one
+    # prefill chunk each. The clean run first: its spills are the corrupt
+    # run's (the allocator is deterministic), so the injector's seed is
+    # chosen, by running the injector on zeros of the first spill's shape,
+    # to put the flipped byte in the first spill's first block, the
+    # block 0 of the prompt whose blocks the LRU evicts first. The prefix
+    # miss there recomputes that prompt from position 0 in one chunk, as the
+    # first wave computed it, and every lane's dispatches stay those of the
+    # clean run
+    lens = [int(n) for n in rng.integers(100, ecfg.prefill_chunk + 1, size=N_REQUESTS)]
+    prompts = token_prompts(rng, lens, cfg.vocab_size)
+    evicting = token_prompts(rng, lens, cfg.vocab_size)
+    blocks = sum(-(-(n + MAX_TOKENS + 2 * ds) // ecfg.kv_block_size) + 1 for n in lens) + 16
+    layout = dict(kv_dtype="int8", num_kv_blocks=blocks, host_cache_blocks=4 * blocks)
+    core = fresh_engine(params, cfg, ecfg, **layout)
+    c = three_waves(core, prompts, evicting)
+    close_engine(core)
+    n0, h0 = c["spills"][0]
+    (target,) = [(i, ch.index(h0)) for i, ch in enumerate(c["chains"]) if h0 in ch] or [None]
+
+    def corrupt_rule():
+        return faults.FaultRule(plane="engine", point="pages", action="corrupt", max_fires=1)
+
+    def flipped_block(seed):
+        """The block of the first spill (k pages [L, n0, bs, KVH, D]) whose
+        byte ``corrupt_array`` flips under an injector seeded with
+        ``seed``, found by running it on zeros of that shape."""
+        zeros = torch.zeros((cfg.num_layers, n0, ecfg.kv_block_size * cfg.num_kv_heads
+                             * cfg.head_dim), dtype=torch.int8)
+        with faults.active(faults.FaultInjector([corrupt_rule()], seed=seed)):
+            out = faults.corrupt_array("engine", "engine", zeros)
+        return int(out.nonzero()[0, 1])
+
+    seed = next(s_ for s_ in range(100000) if flipped_block(s_) == 0)
+    core = fresh_engine(params, cfg, ecfg, **layout)
+    k = three_waves(core, prompts, evicting, corrupt_rule(), seed=seed)
+    close_engine(core)
+    # the target lane recomputes its prompt as the first wave computed it, so
+    # its third wave equals its first wave's; every other lane's third wave
+    # is computed as in the clean run and equals the clean third wave. The
+    # target against the clean third wave is printed: there the lane
+    # attends its cached bytes plus a tail computed against them, which
+    # rounds otherwise in bf16 (as other lanes' third waves differ from
+    # their first waves in both runs)
+    tgt = target[0] if target is not None else -1
+    equal = sum(a == b for i, (a, b) in enumerate(zip(c["third"], k["third"])) if i != tgt)
+    replayed = tgt >= 0 and k["third"][tgt] == k["first"][tgt] == c["first"][tgt]
+    lanes = [(int(a == b), int(a == f), int(b == g), first_difference(a, b))
+             for a, b, f, g in zip(k["third"], c["third"], k["first"], c["first"])]
+    print(f"integrity corrupt drill, per lane (corrupt third == clean third, corrupt third == "
+          f"its first, clean third == its first, first difference): {lanes}")
+    print(f"integrity corrupt drill (int8 KV pool of {blocks} blocks, host tier "
+          f"{4 * blocks}, prompts of {min(lens)}-{max(lens)} tokens; the first spill: {n0} "
+          f"blocks, the first (prompt, block) {target}; seed {seed}): clean: "
+          f"{len(c['spills'])} spills, third wave {c['host_hits']} host hits, {c['kv_trips']} kv "
+          f"trips; corrupt: fault log {k['fault_log']}, host entries failing their checksum "
+          f"(prompt, block) {k['corrupted_blocks']}, third wave {k['host_hits']} host hits, "
+          f"{k['kv_trips']} kv trips; third-wave tokens of the other lanes equal to the clean "
+          f"third wave's: {equal} of {N_REQUESTS - 1}; the recomputed lane's equal to its first "
+          f"wave's: {replayed}, to the clean third wave's: "
+          f"{tgt >= 0 and k['third'][tgt] == c['third'][tgt]} (not held); first waves equal: "
+          f"{c['first'] == k['first']}")
+    if (c["kv_trips"] or c["corrupted"] or c["host_hits"] <= 0 or k["kv_trips"] != 1
+            or target is None or target[1] != 0 or k["corrupted_blocks"] != [target]
+            or k["host_hits"] >= c["host_hits"] or c["first"] != k["first"]
+            or equal != N_REQUESTS - 1 or not replayed):
+        fail("integrity corrupt drill")
+    drill = lambda d: {f: d[f] for f in ("host_hits", "kv_trips", "corrupted_blocks",  # noqa: E731
+                                         "fault_log")}
+    return {"poisoned_dispatch": D, "tokens_before_poison": counts, "watchdog_trips": wd_trips,
+            "runs": {k_: {f: r[f] for f in ("ttft_p50_ms", "decode_tok_s", "crc_s", "crc_blocks",
+                                            "crc_flush_s")} for k_, r in runs.items()},
+            "ttft_p50_ms_on_off": [ttft_on, ttft_off], "d2h_gb_s": d2h / 1e9,
+            "off_streams_equal": same, "corrupt_drill": {
+                "clean": drill(c), "corrupt": drill(k), "seed": seed, "first_spill": n0,
+                "target": target,
+                "spills": len(c["spills"]), "third_wave_equal_other_lanes": equal,
+                "recomputed_lane_replays_first_wave": replayed,
+                "recomputed_lane_equal_clean_third": k["third"][tgt] == c["third"][tgt],
+                "lanes": lanes, "pool_blocks": blocks}}
+
+
+def repeating_prompts(rng, vocab: int) -> list:
+    """8 prompts that repeat a phrase: a random lead, then a phrase of 6-13
+    random tokens repeated to 100-300 tokens."""
+    out = []
+    for i in range(N_REQUESTS):
+        phrase = rng.integers(0, vocab, size=6 + i).tolist()
+        n = int(rng.integers(100, 300))
+        body = (phrase * (n // len(phrase) + 1))[:n]
+        out.append(rng.integers(0, vocab, size=8).tolist() + body)
+    return out
+
+
+def profile_call(fn) -> dict:
+    """torch.profiler (CUDA) over one call of ``fn`` on an idle card: device
+    busy ms (the union of device events), kernels, and the call's wall ms;
+    "not measured" when the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        kernels, dev = device_intervals_us(path)
+    if not kernels:
+        return {"measured": False, "wall_ms": wall}
+    busy, end = 0.0, -1.0
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"measured": True, "device_ms": busy / 1e3, "kernels": len(kernels), "wall_ms": wall,
+            "top": [(name[:90], us / 1e3) for name, us in top]}
+
+
+def dispatch_inputs(core, lens, k1):
+    """Engine-shaped inputs of one verify dispatch (tokens/positions [S, k1])
+    and of one decode dispatch (tokens/positions [S]) over lanes of the given
+    lengths, with tables as wide as the engine's (max_model_len)."""
+    import numpy as np
+
+    S, MB = core.config.max_slots, core.config.max_blocks_per_seq
+    rng = np.random.default_rng(13)
+    tables = rng.permutation(core.num_blocks)[: S * MB].reshape(S, MB).astype(np.int32)
+    toks = rng.integers(0, core.model_config.vocab_size, size=(S, k1)).astype(np.int32)
+    pos = (np.asarray(lens)[:, None] + np.arange(k1)[None, :]).astype(np.int32)
+    return core._put(toks), core._put(pos), core._put(tables)
+
+
+def profile_dispatches(core, lens, k1) -> tuple:
+    """One verify and one decode dispatch on the idle engine over lanes of
+    the given lengths, each profiled (:func:`profile_call`); the launches
+    they make are not the main path's. Returns (verify, decode) profiles."""
+    import numpy as np
+
+    vt, vp, tables = dispatch_inputs(core, lens, k1)
+    zero = core._put(np.zeros((N_REQUESTS,), np.int32))
+    samp = core._sampling_args()
+    wd = core._wd_args()
+    verify = core._verify(False, False, False)
+    decode = core._decode(False, False, False)
+    with core._device_scope():
+        verify(vt, vp, tables, 1, *samp, core._dummy_counts(), *wd)  # warm
+        vprof = profile_call(lambda: verify(vt, vp, tables, 1, *samp, core._dummy_counts(), *wd))
+        dprof = profile_call(lambda: decode(zero, vp[:, 0].contiguous(), tables, 1, *samp,
+                                            core._dummy_counts(), *wd))
+    return vprof, dprof
+
+
+def chunk_logits(torch, cfg, params, case, k1):
+    """The verify dispatch's forward on a parity case: [next token, k1 - 1
+    following tokens] per lane through ``forward_chunk`` and the LM head on
+    every position, [S, k1, V] fp32. Writes those positions' K/V into the
+    pool, above what any parity read attends."""
+    from dynamo_tpu_torch.models.llama import forward_chunk, lm_head
+
+    cache, tables, base, _, toks, _ = case
+    S = len(base)
+    rows = base[:, None].long() + torch.arange(k1, device="cuda")[None, :]
+    fed = torch.gather(toks, 1, rows).int()
+    with torch.no_grad():
+        h, _ = forward_chunk(params, cfg, fed, rows.int(), cache, tables, hidden_only=True)
+        out = lm_head(params, cfg, h.reshape(S * k1, -1)).reshape(S, k1, -1).float()
+    torch.cuda.synchronize()
+    return out
+
+
+def verify_logits(torch, cfg, params, case, k1):
+    """:func:`chunk_logits`, and the same positions decoded one step at a
+    time through ``forward_window`` (the paged kernel). Returns both
+    [S, k1, V]."""
+    from dynamo_tpu_torch.models.llama import forward_window
+
+    cache, tables, base, _, toks, _ = case
+    S = len(base)
+    rows = base[:, None].long() + torch.arange(k1, device="cuda")[None, :]
+    fed = torch.gather(toks, 1, rows).int()
+    shape = (cfg.num_layers, S, k1, cfg.num_kv_heads, cfg.head_dim)
+    wk = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+    wv = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+    with torch.no_grad():
+        seq = []
+        for j in range(k1):  # reads the pool below base only: the verify writes come after
+            logits, wk, wv = forward_window(params, cfg, fed[:, j], base + j, cache, tables,
+                                            base, wk, wv, j)
+            seq.append(logits.float())
+    torch.cuda.synchronize()
+    return chunk_logits(torch, cfg, params, case, k1), torch.stack(seq, 1)
+
+
+def fp32_tree(torch, cfg, params):
+    """The fp32 tree of the model function that ``params`` (bf16 or int8
+    weights) computes: each matrix upcast, or dequantized as ``q * s``, in
+    the ``[in, out]`` layout; norms upcast. Built one layer at a time on
+    the card (32 GB at llama3-8b width)."""
+    from dynamo_tpu_torch.models.llama import Int8Weight, LlamaParams
+
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    out = LlamaParams(c32, torch.device("cuda"))
+
+    def f32(w, per_row=False):
+        if not isinstance(w, Int8Weight):
+            return w.float()
+        deq = w.q.float() * w.s[:, None]
+        return deq if per_row else deq.T  # [out, in] -> [in, out]
+
+    with torch.no_grad():
+        out.final_norm.copy_(params.final_norm)
+        out.embed.copy_(f32(params.weight("embed"), per_row=True))
+        if not cfg.tie_embeddings:
+            out.lm_head.copy_(f32(params.weight("lm_head")))
+        for i in range(cfg.num_layers):
+            for k, w in params.layer(i).items():
+                out.layers[k][i].copy_(f32(w))
+    return c32, out
+
+
+def verify_parity(torch, cfg, params, k1) -> dict:
+    """The verify forward (``forward_chunk`` over k1 positions, the LM head
+    on each) against the same positions decoded one step at a time
+    (``forward_window``, the paged kernel), at full width and depth, bf16
+    weights and then their int8 tree. Held at 2e-2: bf16 verify against
+    sequential; int8 verify through the W8A16 kernels (M = 8 x k1) against
+    the same forward through the int8 products' plain version; each path,
+    bf16 and int8, against the fp32 evaluation of the same weights (the
+    model function without bf16 rounding). The int8 verify against
+    sequential is printed beside its parts: both through the plain
+    products, and verify with every product on the split-K kernel (the
+    one-step path's kernel)."""
+    from dynamo_tpu_torch.models.llama import quantize_params_int8
+    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul, plan_int8
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def splitk_only(x, q, s, **kw):
+        n, k = q.shape
+        plan = plan_int8(x.numel() // k, n, k, sms, path="splitk")
+        return int8_weight_matmul(x, q, s, plan=plan, **kw)
+
+    case = parity_case(torch, cfg, params)
+    lens = case[5]
+    where = (f"llama3-8b width, 8 lanes x {k1} positions, lengths "
+             f"{int(lens.min())}-{int(lens.max())}")
+    out = {}
+    for label in ("bf16", "int8"):
+        p = params if label == "bf16" else quantize_params_int8(params, cfg)
+        ver, seq = verify_logits(torch, cfg, p, case, k1)
+        name = f"verify parity [{label} weights] (forward_chunk vs forward_window one step at a time, {where})"
+        held = label == "bf16"
+        out[label] = _parity(name + ("" if held else " (printed)"), ver, seq,
+                             limit=2e-2 if held else float("inf"))
+        scale = seq.abs().max().item()
+        per_pos = [((ver[:, j] - seq[:, j]).abs().max().item() / scale) for j in range(k1)]
+        print(f"  per position (max|dlogits| / max|logits|): "
+              + ", ".join(f"{r:.3e}" for r in per_pos))
+        out[label + "_per_position"] = per_pos
+        if label == "int8":
+            with plain_int8():
+                ver_p, seq_p = verify_logits(torch, cfg, p, case, k1)
+            out["int8_kernel_vs_plain"] = _parity(
+                f"verify parity [int8 weights] (forward_chunk through the W8A16 kernels vs "
+                f"through their plain version, M = {len(lens) * k1}, {where})", ver, ver_p)
+            out["int8_plain"] = _parity(
+                f"verify parity [int8 weights, plain products] (forward_chunk vs forward_window "
+                f"one step at a time, both through the int8 products' plain version, {where}) "
+                f"(printed)", ver_p, seq_p, limit=float("inf"))
+            del ver_p, seq_p
+            with plain_int8(splitk_only):
+                ver_s = chunk_logits(torch, cfg, p, case, k1)
+            out["int8_splitk"] = _parity(
+                f"verify parity [int8 weights] (forward_chunk with every product on the split-K "
+                f"kernel, as one step at a time runs them, vs forward_window one step at a time, "
+                f"{where}) (printed)", ver_s, seq, limit=float("inf"))
+            del ver_s
+        c32, p32 = fp32_tree(torch, cfg, p)
+        ref = chunk_logits(torch, c32, p32, case, k1)
+        del p32
+        for path, x in (("verify", ver), ("sequential", seq)):
+            out[f"{label}_{path}_vs_fp32"] = _parity(
+                f"  {path} [{label} weights] vs the fp32 evaluation of the same weights", x, ref)
+        del ver, seq, ref, p
+        torch.cuda.empty_cache()
+    del case
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_serve(card: str, weights: dict) -> dict:
+    """Self-draft speculative decoding at llama3-8b width and full depth,
+    random bf16 weights: 8 concurrent streams of SPEC_TOKENS over prompts
+    that repeat a phrase, bf16 and then ``quantize="int8"``, each with
+    ``spec_k`` = SPEC_K and 0 (fresh engines over the same weights). Holds:
+    drafted and accepted tokens in both; each spec-on wave's launches, with
+    every count set to 0 just before it: 225 W8A16 products per verify
+    dispatch and decode step of the int8 engine, none of the bf16 one, 32
+    paged calls per decode step; then :func:`verify_parity`. Prints the
+    accept rate, tokens per verify dispatch, one verify and one decode
+    dispatch's device time, TTFT and tok/s with speculation on and off,
+    and stream agreement."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.ops import int8_matmul
+    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul, plan_int8
+    from dynamo_tpu_torch.ops.paged_attention import device_launches as paged_device_launches
+    from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    params, cfg, ecfg = weights["params"], weights["cfg"], weights["ecfg"]
+    rng = np.random.default_rng(13)
+    prompts = repeating_prompts(rng, cfg.vocab_size)
+    k1 = SPEC_K + 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for quant in (None, "int8"):
+        label = quant or "bf16"
+        waves = {}
+        for k in (SPEC_K, 0):
+            core = fresh_engine(params, cfg, ecfg, quantize=quant, spec_k=k)
+            reset_all_counts()
+            wave = engine_wave(core, prompts, SPEC_TOKENS)
+            m = core.metrics_snapshot()
+            wave.update(drafted=m["spec_drafted_tokens"], accepted=m["spec_accepted_tokens"],
+                        verify=m["verify_dispatches"], rate=m["spec_accept_rate"],
+                        verify_tokens=core.verify_tokens, decode_dispatches=m["decode_dispatches"],
+                        chunks=core.chunk_dispatches, decode_steps=core.decode_steps_total,
+                        int8_launches=int8_weight_matmul.launches,
+                        int8_kernels={n: c for n, c in int8_matmul.device_launches.items() if c},
+                        paged_launches=paged_decode_attention.launches,
+                        paged_kernels={n: c for n, c in paged_device_launches.items() if c})
+            if k:
+                vprof, dprof = profile_dispatches(
+                    core, [len(p) + SPEC_TOKENS // 2 for p in prompts], k1)
+                wave.update(verify_profile=vprof, decode_profile=dprof)
+            close_engine(core)
+            waves[k] = wave
+        on, off = waves[SPEC_K], waves[0]
+        agree = sum(a == b for a, b in zip(on["tokens"], off["tokens"]))
+        firsts = [first_difference(a, b) for a, b in zip(on["tokens"], off["tokens"])]
+        vprof, dprof = on["verify_profile"], on["decode_profile"]
+        print(f"spec serve [{label}, spec_k {SPEC_K}]: {N_REQUESTS} streams of {SPEC_TOKENS}; "
+              f"drafted {on['drafted']}, accepted {on['accepted']} (accept rate EMA "
+              f"{on['rate']:.3f}, overall {on['accepted'] / max(on['drafted'], 1):.3f}), "
+              f"{on['verify']} verify dispatches emitting {on['verify_tokens']} tokens "
+              f"({on['verify_tokens'] / max(on['verify'], 1):.2f} per dispatch, "
+              f"{on['verify_tokens'] / max(on['verify'], 1) / N_REQUESTS:.2f} per lane), "
+              f"{on['decode_dispatches']} decode dispatches; TTFT p50 {on['ttft_p50_ms']:.1f} "
+              f"vs {off['ttft_p50_ms']:.1f} ms, decode {on['decode_tok_s']:.1f} vs "
+              f"{off['decode_tok_s']:.1f} tok/s (spec on vs off); streams equal to spec off: "
+              f"{agree} of {N_REQUESTS}, first difference at tokens {firsts} (not held), on {card}")
+        if vprof["measured"]:
+            print(f"spec serve [{label}]: one verify dispatch ({N_REQUESTS} lanes x {k1} "
+                  f"positions, tables of {ecfg.max_model_len} tokens): device "
+                  f"{vprof['device_ms']:.3f} ms, {vprof['kernels']} kernels, wall "
+                  f"{vprof['wall_ms']:.3f} ms; one decode dispatch ({ecfg.decode_steps} steps): "
+                  f"device {dprof['device_ms']:.3f} ms = {dprof['device_ms'] / ecfg.decode_steps:.3f} "
+                  f"ms per step, {dprof['kernels']} kernels, wall {dprof['wall_ms']:.3f} ms")
+            for name, ms in vprof["top"]:
+                print(f"  verify device {ms:9.3f} ms  {name}")
+        else:
+            print(f"spec serve [{label}]: verify device time not measured (wall "
+                  f"{vprof['wall_ms']:.3f} ms)")
+        if on["drafted"] <= 0 or on["accepted"] <= 0 or on["verify"] <= 0:
+            fail(f"spec serve [{label}]: drafted {on['drafted']}, accepted {on['accepted']}")
+        # the wave's own launches: the int8 products of every verify and
+        # decode step on the W8A16 kernels (prefill chunks run the bf16
+        # tree in "int8"), 32 paged calls per decode step (verify attends
+        # through forward_chunk)
+        L, steps = cfg.num_layers, on["decode_steps"]
+        want_int8 = INT8_LAUNCHES_PER_STEP * (on["verify"] + steps) if quant else 0
+        print(f"spec serve [{label}]: the spec-on wave launched int8_weight_matmul "
+              f"{on['int8_launches']} times (expected {INT8_LAUNCHES_PER_STEP} x ({on['verify']} "
+              f"verify + {steps} decode steps) = {want_int8}), device launches "
+              f"{on['int8_kernels']}; paged_decode_attention {on['paged_launches']} (expected "
+              f"{L} x {steps} decode steps = {L * steps}), device launches {on['paged_kernels']}; "
+              f"{on['chunks']} prefill chunks")
+        if (on["int8_launches"] != want_int8 or sum(on["int8_kernels"].values()) != want_int8
+                or on["paged_launches"] != L * steps
+                or on["paged_kernels"].get("paged_decode_split_kernel") != L * steps):
+            fail(f"spec serve [{label}]: the wave's launches differ from its dispatches'")
+        if quant:
+            M = N_REQUESTS * k1
+            plans = {name: plan_label(plan_int8(M, N, K, sms)) for name, K, N, _, _ in INT8_SHAPES}
+            print(f"spec serve [int8]: plans at M={M}: "
+                  + "; ".join(f"{n}: {p}" for n, p in plans.items()))
+            out["verify_plans"] = plans
+        out[label] = {key: on[key] for key in (
+            "drafted", "accepted", "rate", "verify", "verify_tokens", "ttft_p50_ms",
+            "decode_tok_s", "verify_profile", "decode_profile")}
+        out[label].update(off_ttft_p50_ms=off["ttft_p50_ms"], off_decode_tok_s=off["decode_tok_s"],
+                          streams_equal=agree, first_difference=firsts)
+        out[label].update({key: on[key] for key in (
+            "chunks", "decode_steps", "int8_launches", "int8_kernels", "paged_launches",
+            "paged_kernels")})
+    # verify vs sequential decode at full width
+    out["verify_parity"] = verify_parity(torch, cfg, params, k1)
+    return out
+
+
+# -- phases 14-16: mixtral-8x7b in "int8-all" ------------------------------------
 
 MIXTRAL_LOAD_LAYERS = 1  # the checkpoint's depth: mixtral-8x7b widths, ~3.4 GB of bf16
 # int8_weight_matmul calls per forward of mixtral: wq, wk, wv, wo per layer and the LM head
@@ -2443,6 +3140,10 @@ def main() -> int:
         kvs = timed("kv int8 serve", phase_kv_int8_serve, card, int8_core, served["flags"],
                     served["name"])
         del int8_core
+    weights = kvs.pop("weights")
+    integ = timed("integrity", phase_integrity, card, weights)
+    spec = timed("spec serve", phase_spec_serve, card, weights)
+    del weights
     # every llama engine is closed: free the card for mixtral's 47 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -2533,6 +3234,12 @@ def main() -> int:
         "bound_share": step["bound_share"],
         "launches_per_decode_step": INT8_LAUNCHES_PER_STEP,
         "decode_steps": int8s["decode_steps"],
+        # one speculative verify dispatch at M = 40: its plans and the five
+        # shapes' times summed; the launches of phase 13's int8 spec-on
+        # wave (verify dispatches and decode steps)
+        "verify_dispatch": dict(int8k["per_verify"], plans=spec.get("verify_plans"),
+                                spec_wave_launches=spec["int8"]["int8_launches"],
+                                spec_wave_device_launches=spec["int8"]["int8_kernels"]),
         # each kernel's launches: decode (phase 8) and the int8-all chunk (phase 9)
         "device_launches": int8s["int8_kernel_launches"],
         "device_launches_int8_all_chunk": int8p["chunk_launches"],
@@ -2590,7 +3297,7 @@ def main() -> int:
                   "profile": served["profile"], "parity_ratio": parity},
         "int8_serve": {"ttft_p50_ms": int8s["ttft_p50_ms"], "decode_tok_s": int8s["decode_tok_s"],
                        "profile": int8s["profile"], **int8p},
-        "kv_int8_serve": kvs,
+        "kv_int8_serve": kvs, "integrity": integ, "spec_serve": spec,
         "mixtral_serve": {k: mixs[k] for k in (
             "ttft_p50_ms", "decode_tok_s", "profile", "peak_gb", "weights_gb", "kv_gb", "build_s",
             "warmup_s", "decode_steps", "chunk_dispatches", "launches", "int8_launches",

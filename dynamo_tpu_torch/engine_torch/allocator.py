@@ -20,10 +20,12 @@ not ported: single-threaded host logic driven by the engine loop.
 from __future__ import annotations
 
 from collections import OrderedDict
+from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Protocol, Sequence, Tuple
 
 from ..kv.tokens import TokenBlockSequence, compute_block_hashes_for_seq
+from ..runtime import integrity
 
 
 class KvDtypeMismatch(TypeError):
@@ -218,6 +220,7 @@ class BlockAllocator:
         salt: Optional[bytes] = None,
         host_pool: Optional[HostKvPool] = None,
         offload: Optional[Callable[[List[Tuple[int, int, Any]]], None]] = None,
+        checksum: Optional[Callable[[List[int]], List[Any]]] = None,
     ):
         self.num_blocks = num_blocks
         self.block_size = block_size
@@ -228,6 +231,13 @@ class BlockAllocator:
         # them into `host_pool` (device_get) before they can be overwritten
         self.host_pool = host_pool
         self._offload = offload
+        # integrity plane (runtime/integrity.py): ``checksum([block_ids])``
+        # is the engine's callback giving the content checksums of freshly
+        # SEALED blocks, as ints or as futures of ints that the engine
+        # resolves off its thread (``resolve_crc`` waits for one). None =
+        # integrity off: no crc is ever computed, stored, or verified.
+        self._checksum = checksum
+        self._crc_of: Dict[int, Any] = {}  # physical page id → seal crc
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))
         self._refcount: Dict[int, int] = {}
         # sequence_hash → block id, for every block whose contents are valid
@@ -294,6 +304,13 @@ class BlockAllocator:
         reused pages have none)."""
         return self._hash_of.get(block_id, -1)
 
+    def crc_of_block(self, block_id: int) -> int:
+        """Seal-time content checksum of a physical page, or -1 (unsealed,
+        or sealed while the integrity plane was off); waits for a checksum
+        that is still being computed."""
+        crc = self._crc_of.get(block_id)
+        return -1 if crc is None else resolve_crc(crc)
+
     def blocks_needed(self, n_tokens: int) -> int:
         return (n_tokens + self.block_size - 1) // self.block_size
 
@@ -332,8 +349,10 @@ class BlockAllocator:
 
         # host tier continues the chain where the device tier missed; content
         # is captured now so later evictions from the pool can't invalidate
-        # it. (The seal-checksum verification of the JAX allocator belongs
-        # to the integrity plane, which this engine does not run yet.)
+        # it. With the integrity plane on, each entry's bytes are verified
+        # against its seal-time checksum HERE: a corrupted entry (bad host
+        # RAM) is dropped from the pool and treated as a prefix miss, the
+        # chain ends and the prompt recomputes from there.
         host_hits: List[Tuple[int, int, Any, Any, Any, Any, Any]] = []
         if self.host_pool is not None:
             j = len(reused)
@@ -341,6 +360,11 @@ class BlockAllocator:
                 item = self.host_pool.get(seq_hashes[j])
                 if item is None:
                     break
+                if self._checksum is not None and item[4] is not None:
+                    if integrity.entry_checksum(*item[:4]) != item[4]:
+                        self.host_pool.discard(seq_hashes[j])
+                        integrity.note_trip("kv", where="host_rehit")
+                        break
                 host_hits.append((j, seq_hashes[j]) + tuple(item))
                 j += 1
 
@@ -376,6 +400,10 @@ class BlockAllocator:
             if h not in self._by_hash:
                 self._by_hash[h] = bid
                 self._hash_of[bid] = h
+                if self._checksum is not None and rest[4] is not None:
+                    # the (verified) host entry's seal checksum describes
+                    # the bytes about to be injected into this page
+                    self._crc_of[bid] = rest[4]
                 stored.append(
                     (h, list(token_ids[idx * self.block_size : (idx + 1) * self.block_size]))
                 )
@@ -459,6 +487,13 @@ class BlockAllocator:
                 self._hash_of[bid] = blk.block_hash
                 stored.append((blk.block_hash, list(blk.tokens)))
         alloc.sealed_blocks = len(alloc.token_blocks.blocks)
+        if self._checksum is not None and stored:
+            # seal-time content checksums: computed once, while the owner
+            # can still vouch for the bytes; they travel with the block into
+            # the host tier
+            bids = [self._by_hash[h] for h, _ in stored]
+            for bid, crc in zip(bids, self._checksum(bids)):
+                self._crc_of[bid] = crc
         if stored and self._sink is not None:
             self._sink.blocks_stored(parent, stored)
 
@@ -536,9 +571,12 @@ class BlockAllocator:
             del self._by_hash[h]
             self._block_level.pop(bid, None)
             evicted.append(h)
+            # the seal-time checksum follows the content into the host tier
+            # (verified at rehit); the page itself is being recycled
+            crc = self._crc_of.pop(bid, None)
             if self._offload is not None and self.host_pool is not None:
                 if h not in self.host_pool:
-                    spill.append((h, bid, None))
+                    spill.append((h, bid, crc))
             self._free.append(bid)
         if spill:
             self._offload(spill)
@@ -552,9 +590,17 @@ class BlockAllocator:
             self._by_hash.pop(h, None)
             if self._sink is not None:
                 self._sink.blocks_removed([h])
+        # content replaced ⇒ its seal checksum no longer describes the page
+        self._crc_of.pop(bid, None)
         self._cached.discard(bid)
         # the block's content is being replaced: its class tag must not
         # survive into the new owner's tier (levels only ever go UP via
         # allocate/grow — a stale high tag would shelter a low-class
         # block from eviction forever)
         self._block_level.pop(bid, None)
+
+
+def resolve_crc(crc: Any) -> Optional[int]:
+    """A seal checksum as an int: a future (computed off the engine thread)
+    is waited for; None stays None."""
+    return crc.result() if isinstance(crc, Future) else crc

@@ -40,9 +40,26 @@ Counterpart of the main path of the JAX package's ``engine_jax/engine.py``:
   prefix hit before any compute touches it (``_inject_host_hits``). An
   int8 pool's scales travel with their pages.
 
-Not in this engine yet (later slices, ROADMAP.md): speculative verify,
-disaggregated prefill, live migration, integrity (the spilled pages carry
-no checksum), QoS, profiling/straggler hooks, meshes.
+- **The integrity plane** (``runtime/integrity.py``, on unless
+  ``DYN_TPU_KV_INTEGRITY=0``, as in the JAX engine): each sealed block gets
+  a crc32 of its pages, computed off the engine thread from a pinned copy
+  (``_block_checksums``); the crc travels with the block into the host
+  tier and is verified at the rehit (a corrupt entry is a prefix miss).
+  The step functions carry the output watchdog: a lane whose sampled
+  logits are non-finite or exceed ``logit_limit`` gets
+  ``WATCHDOG_TOKEN``, and the engine ends its stream in-band
+  (``_watchdog_trip``). The engine plane of ``runtime/faults.py`` drives
+  the drills (``poison`` at each dispatch, ``corrupt`` at each spill).
+- **Self-draft speculative decoding** (``EngineConfig.spec_k`` or
+  ``DYN_TPU_SPEC_K``; off by default): each request gets an n-gram drafter
+  (``drafter.py``); when every lane decodes and some drafter has a match,
+  one verify dispatch scores ``[last token, drafts..]`` per lane through
+  ``forward_chunk`` and samples a target at every position
+  (``sampling.speculative_targets``); the matching drafted prefix plus the
+  first target are emitted.
+
+Not in this engine yet (later slices, ROADMAP.md): disaggregated prefill,
+live migration, QoS, profiling/straggler hooks, meshes.
 """
 
 from __future__ import annotations
@@ -54,6 +71,7 @@ import os
 import threading
 import time
 from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, AsyncIterator, Deque, Dict, List, Optional, Set, Tuple
 
@@ -74,8 +92,11 @@ from ..models.llama import (
 from ..ops import int8_matmul, paged_attention
 from ..ops.build import build_all
 from ..ops.paged_attention import paged_decode_attention, paged_decode_attention_int8
+from ..runtime import faults as faults_mod
+from ..runtime import integrity as integrity_mod
 from ..runtime.annotated import Annotated
 from ..runtime.engine import AsyncEngine, Context
+from ..runtime.integrity import WATCHDOG_TOKEN
 from .allocator import (
     BlockAllocator,
     HostKvPool,
@@ -83,11 +104,14 @@ from .allocator import (
     KvDtypeMismatch,
     KvEventSink,
     SequenceAllocation,
+    resolve_crc,
 )
+from .drafter import MAX_SPEC_K, NgramDrafter, env_spec_k, env_spec_ngram
 from .sampling import (
     apply_penalties,
     gumbel_noise,
     sample_tokens,
+    speculative_targets,
     token_logprobs,
     update_counts,
 )
@@ -110,6 +134,17 @@ def resolve_device(device: Optional[str]) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _watchdog_bad(sel: torch.Tensor, wdf: torch.Tensor, limit: float):
+    """The output watchdog on logit rows [..., V]: the poison drill's NaN
+    substitution (``wdf`` > 0, a device scalar), then each row's flag: any
+    non-finite value, or a |logit| above ``limit``. ``full_like`` keeps the
+    rows' dtype, so a healthy dispatch samples exactly what it would
+    without the watchdog."""
+    sel = torch.where(wdf > 0, torch.full_like(sel, float("nan")), sel)
+    bad = ~torch.isfinite(sel).all(dim=-1) | (sel.abs().amax(dim=-1) > limit)
+    return sel, bad
 
 
 KV_DTYPES = (None, "bf16", "int8")
@@ -151,6 +186,13 @@ class EngineConfig:
     # host-RAM KV tier, in blocks (0 = off): evicted device blocks spill
     # there and serve later prefix hits
     host_cache_blocks: int = 0
+    # self-draft speculative decoding (drafter.py): draft tokens verified
+    # per decode dispatch, clamped to [0, MAX_SPEC_K] (0 = off); None reads
+    # DYN_TPU_SPEC_K
+    spec_k: Optional[int] = None
+    # longest trailing n-gram the drafter probes; None reads
+    # DYN_TPU_SPEC_NGRAM
+    spec_ngram: Optional[int] = None
 
     def __post_init__(self) -> None:
         # the env knob degrades a typo to the native layout; an explicit
@@ -177,7 +219,8 @@ class _Seq:
         "generated", "emitted", "max_tokens", "eos_ids", "ignore_eos",
         "temperature", "top_k", "top_p", "seed", "logprobs", "enqueue_t",
         "first_token_t", "admit_t", "prefill_pos", "freq_pen", "pres_pen",
-        "out_tokens", "joined_inflight", "wait_hash",
+        "out_tokens", "joined_inflight", "wait_hash", "drafter",
+        "spec_drafted", "spec_accepted",
     )
 
     def __init__(self, ctx: Context, request: PreprocessedRequest, loop) -> None:
@@ -212,6 +255,10 @@ class _Seq:
         self.wait_hash: Optional[int] = None
         # next prompt position to compute while prefilling; None = decoding
         self.prefill_pos: Optional[int] = None
+        # the request's n-gram drafter (speculation on), and its counts
+        self.drafter: Optional[NgramDrafter] = None
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
     @property
     def total_len(self) -> int:
@@ -304,6 +351,30 @@ class TorchServingEngine(AsyncEngine):
         if engine_config.quantize != "int8":
             self.params_decode = params
         self.params = params
+        # self-draft speculation: the config wins when set, else the
+        # clamped env parsers; spec_k = 0 (the default) never touches a
+        # drafter or builds a verify function
+        sk = engine_config.spec_k if engine_config.spec_k is not None else env_spec_k()
+        self._spec_k = max(0, min(int(sk), MAX_SPEC_K))
+        self._spec_ngram = (
+            engine_config.spec_ngram if engine_config.spec_ngram is not None
+            else env_spec_ngram()
+        )
+        # integrity plane: seal checksums and the output watchdog. None with
+        # DYN_TPU_KV_INTEGRITY=0: no checksum callback, no crc thread, and
+        # the step functions are exactly the ones without the plane
+        self._integrity = integrity_mod.maybe_from_env()
+        # the address the fault rules match on (one worker in a fleet)
+        self._fault_addr = "engine"
+        # seal checksums: blocks sealed since the last flush, as (block ids,
+        # futures); a flush gathers their pages on the engine's stream and
+        # a worker thread computes the crcs once the copy has landed
+        self._crc_batch: List[Tuple[List[int], List[Future]]] = []
+        self._crc_pool: Optional[ThreadPoolExecutor] = None
+        self._wd_zero: Optional[torch.Tensor] = None
+        self.crc_seconds = 0.0  # worker-thread seconds computing crcs
+        self.crc_blocks = 0
+        self.crc_flush_seconds = 0.0  # engine-thread seconds starting them
         self.num_blocks = engine_config.resolve_num_blocks()
         self.host_pool = (
             HostKvPool(engine_config.host_cache_blocks)
@@ -316,6 +387,7 @@ class TorchServingEngine(AsyncEngine):
             self.num_blocks, engine_config.kv_block_size, event_sink=event_sink,
             host_pool=self.host_pool,
             offload=self._offload_blocks if self.host_pool is not None else None,
+            checksum=self._block_checksums if self._integrity is not None else None,
         )
         self.kv_quantized = (engine_config.kv_dtype or env_kv_dtype()) == "int8"
         self.cache = make_kv_cache(
@@ -355,6 +427,7 @@ class TorchServingEngine(AsyncEngine):
         # (with_logprobs, with_penalties, with_sampling) step variants
         self._decode_fns: Dict[Tuple[bool, bool, bool], Any] = {}
         self._chunk_fns: Dict[Tuple[bool, bool, bool, bool], Any] = {}
+        self._verify_fns: Dict[Tuple[bool, bool, bool], Any] = {}
 
         # stats
         self.total_requests = 0
@@ -364,6 +437,12 @@ class TorchServingEngine(AsyncEngine):
         self.decode_dispatches = 0
         self.decode_steps_total = 0
         self.chunk_dispatches = 0
+        self.verify_dispatches = 0
+        self.verify_tokens = 0  # tokens emitted by verify dispatches
+        self.watchdog_trips = 0
+        self.spec_drafted_total = 0
+        self.spec_accepted_total = 0
+        self.spec_accept_rate = 0.0
         # seconds from enqueue to first token of the latest requests
         self.recent_ttft_s: Deque[float] = deque(maxlen=1024)
 
@@ -386,9 +465,14 @@ class TorchServingEngine(AsyncEngine):
         n_top = self.config.top_logprobs
         S = self.config.max_slots
         wshape = (cfg.num_layers, S, k_steps, cfg.num_kv_heads, cfg.head_dim)
+        # output watchdog: with the integrity plane on, the function takes
+        # one more argument (``wdf``, the poison drill's device scalar) and
+        # substitutes WATCHDOG_TOKEN for a lane whose logits trip it
+        wd = self._integrity is not None
+        wd_limit = self._integrity.logit_limit if wd else 0.0
 
         def decode(tokens, positions, tables, step_ctr, seeds, temp_host, topk,
-                   temp, topp, freqp, presp, counts):
+                   temp, topp, freqp, presp, counts, wdf=None):
             # k_steps forward+sample iterations, each sampled token fed back
             # in; the pool is read-only inside, the window is flushed once
             base = positions
@@ -400,6 +484,8 @@ class TorchServingEngine(AsyncEngine):
                 logits, wk, wv = forward_window(
                     self.params_decode, cfg, toks, pos, self.cache, tables, base, wk, wv, k,
                 )
+                if wd:
+                    logits, bad = _watchdog_bad(logits, wdf, wd_limit)
                 sampled_from = (
                     apply_penalties(logits, counts, freqp, presp) if with_pen else logits
                 )
@@ -409,6 +495,9 @@ class TorchServingEngine(AsyncEngine):
                 )
                 nxt = sample_tokens(sampled_from, temp, topk, topp, noise=noise,
                                     greedy_only=not with_sample)
+                if wd:
+                    nxt = torch.where(bad & (pos >= 0),
+                                      torch.full_like(nxt, WATCHDOG_TOKEN), nxt)
                 if with_pen:
                     update_counts(counts, nxt, pos >= 0)
                 if with_lp:
@@ -442,9 +531,11 @@ class TorchServingEngine(AsyncEngine):
         cfg = self.model_config
         S = self.config.max_slots
         n_top = self.config.top_logprobs
+        wd = self._integrity is not None
+        wd_limit = self._integrity.logit_limit if wd else 0.0
 
         def chunk(tokens, positions, tables, sample_at, step_ctr, seeds, temp_host,
-                  topk, temp, topp, freqp, presp, counts):
+                  topk, temp, topp, freqp, presp, counts, wdf=None):
             # tokens/positions [S, C] (-1 positions = padding); sample_at [S]
             # picks the position whose logits are sampled (-1: unused); the
             # LM head runs on those [S, E] rows only
@@ -455,6 +546,8 @@ class TorchServingEngine(AsyncEngine):
             rows = torch.arange(S, device=self.device)
             hs = h[rows, sample_at.clamp(min=0).long()]
             sel = lm_head(self.params, cfg, hs)
+            if wd:
+                sel, bad = _watchdog_bad(sel, wdf, wd_limit)
             sampled_from = apply_penalties(sel, counts, freqp, presp) if with_pen else sel
             noise = (
                 gumbel_noise(seeds, temp_host > 0, step_ctr, 0, device=self.device)
@@ -462,6 +555,9 @@ class TorchServingEngine(AsyncEngine):
             )
             nxt = sample_tokens(sampled_from, temp, topk, topp, noise=noise,
                                 greedy_only=not with_sample)
+            if wd:
+                nxt = torch.where(bad & (sample_at >= 0),
+                                  torch.full_like(nxt, WATCHDOG_TOKEN), nxt)
             if with_pen:
                 update_counts(counts, nxt, sample_at >= 0)
             if with_lp:
@@ -469,6 +565,183 @@ class TorchServingEngine(AsyncEngine):
             return nxt, None, None, None
 
         return chunk
+
+    def _verify(self, want_lp: bool, want_pen: bool = False, want_sample: bool = True):
+        """The speculative-verify variant, built lazily like the decode and
+        chunk variants, and never while spec_k == 0."""
+        key = (want_lp, want_pen, want_sample)
+        fn = self._verify_fns.get(key)
+        if fn is None:
+            fn = self._verify_fns[key] = self._build_verify_fn(*key)
+        return fn
+
+    def _build_verify_fn(self, with_lp: bool, with_pen: bool, with_sample: bool):
+        """One speculative-verify dispatch: ``[last_token, draft_0, ..,
+        draft_{k-1}]`` per lane ([S, K1], -1 positions = padding) through
+        ``forward_chunk`` over the decode weights, the LM head on every fed
+        position, and the engine's own target token sampled at each
+        (``speculative_targets``). The host keeps the drafted prefix that
+        matches the targets plus the first non-matching target."""
+        cfg = self.model_config
+        n_top = self.config.top_logprobs
+        wd = self._integrity is not None
+        wd_limit = self._integrity.logit_limit if wd else 0.0
+
+        def verify(tokens, positions, tables, step_ctr, seeds, temp_host, topk,
+                   temp, topp, freqp, presp, counts, wdf=None):
+            # KV for every fed position is written by the forward; positions
+            # past the accepted prefix hold garbage that later dispatches
+            # overwrite before any position mask lets it be attended
+            params = self.params_decode
+            h, _ = forward_chunk(
+                params, cfg, tokens, positions, self.cache, tables,
+                hidden_only=True, with_history=True,
+            )
+            b, k1 = positions.shape
+            logits_all = lm_head(params, cfg, h.reshape(b * k1, -1)).reshape(b, k1, -1)
+            if wd:
+                logits_all, bad_pos = _watchdog_bad(logits_all, wdf, wd_limit)
+                bad = (bad_pos & (positions >= 0)).any(dim=-1)  # [S]
+            outs = speculative_targets(
+                logits_all, counts, positions >= 0, seeds, temp_host > 0, step_ctr,
+                temp, topk, topp, freqp, presp,
+                with_pen=with_pen, with_sample=with_sample, with_lp=with_lp, n_top=n_top,
+            )
+            tgt = outs[0]
+            if wd:
+                tgt = torch.where(bad[:, None], torch.full_like(tgt, WATCHDOG_TOKEN), tgt)
+            if with_lp:
+                return (tgt,) + tuple(outs[1:4])
+            return tgt, None, None, None
+
+        return verify
+
+    # -- integrity ------------------------------------------------------------
+
+    def _wd_args(self) -> tuple:
+        """Extra dispatch arguments of the output watchdog: none with the
+        integrity plane off, else one device scalar, 1 when the ``poison``
+        fault fires for this dispatch and otherwise the 0 uploaded once."""
+        if self._integrity is not None and faults_mod.current() is not None and (
+            faults_mod.poison_gate("engine", self._fault_addr)
+        ):
+            return (self._put(np.int32(1)),)
+        return self._wd_steady()
+
+    def _wd_steady(self) -> tuple:
+        """The watchdog's arguments when no fault fires: () with the plane
+        off, else the device 0 uploaded once."""
+        if self._integrity is None:
+            return ()
+        if self._wd_zero is None:
+            self._wd_zero = self._put(np.int32(0))
+        return (self._wd_zero,)
+
+    def _dispatch_args(self, lanes: List[Optional[_Seq]]) -> tuple:
+        """What every dispatch settles right before it launches: its
+        variant (logprobs, penalties, sampling), the penalty count rows,
+        and the watchdog's argument; then the ``slow`` fault, and the seal
+        checksums' flush, the last thing before a page can be overwritten.
+        Returns ((want_lp, want_pen, want_sample), counts, watchdog args)."""
+        want = (
+            any(s is not None and s.logprobs is not None for s in lanes),
+            any(s is not None and s.penalized for s in lanes),
+            any(s is not None and s.temperature > 0.0 for s in lanes),
+        )
+        counts = self._sync_counts(lanes) if want[1] else self._dummy_counts()
+        wd = self._wd_args()
+        self._slow_fault()
+        self._flush_crcs()
+        return want, counts, wd
+
+    def _slow_fault(self) -> None:
+        """The ``slow`` fault action at the dispatch point: an injected
+        host-side delay right before the dispatch."""
+        if faults_mod.current() is not None:
+            d = faults_mod.slow_gate("engine", self._fault_addr)
+            if d > 0:
+                time.sleep(d)
+
+    def _block_checksums(self, block_ids: List[int]) -> List[Future]:
+        """The allocator's seal-time checksum callback (engine thread):
+        one future per block, resolved off the engine thread once
+        :meth:`_flush_crcs` has copied the pages out."""
+        futs = [Future() for _ in block_ids]
+        self._crc_batch.append((list(block_ids), futs))
+        return futs
+
+    def _flush_crcs(self) -> None:
+        """Start the checksums of every block sealed since the last flush
+        (engine thread). Called before anything can overwrite a page (each
+        dispatch, each injection) and before any crc is read. One gather
+        per flush into block-major buffers [n, L, bs, ...] (each block's
+        bytes contiguous, in the JAX checksum's order) on the engine's
+        stream; on CUDA a copy into pinned memory behind an event; a worker
+        thread polls the event and computes each block's crc32 (zlib
+        releases the GIL), so the engine thread never waits for the card
+        here."""
+        if not self._crc_batch:
+            return
+        t0 = time.perf_counter()
+        bids = [b for ids, _ in self._crc_batch for b in ids]
+        futs = [f for _, fs in self._crc_batch for f in fs]
+        self._crc_batch = []
+        idx = torch.tensor(bids, dtype=torch.int64, device=self.device)
+        names = ("k", "v", "k_scale", "v_scale") if self.kv_quantized else ("k", "v")
+        bufs = [self.cache[n].transpose(0, 1)[idx].contiguous() for n in names]
+        event = None
+        if self.device.type == "cuda":
+            host = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
+            for h, b in zip(host, bufs):
+                h.copy_(b, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            bufs = host
+        if self._crc_pool is None:
+            self._crc_pool = ThreadPoolExecutor(1, thread_name_prefix="torch-engine-crc")
+        self._crc_pool.submit(self._crc_job, bufs, event, futs)
+        self.crc_flush_seconds += time.perf_counter() - t0
+
+    def _crc_job(self, bufs: List[torch.Tensor], event, futs: List[Future]) -> None:
+        """Worker thread: each block's crc32 over its k | v (| scales)
+        bytes into its future; a failure goes into the futures not yet
+        resolved, where the reader of a checksum raises it."""
+        try:
+            # polled, not waited on: the wait must hold no lock the engine
+            # thread needs
+            while event is not None and not event.query():
+                time.sleep(0.0002)
+            t0 = time.perf_counter()
+            for i, fut in enumerate(futs):
+                fut.set_result(integrity_mod.entry_checksum(*(b[i] for b in bufs)))
+            self.crc_seconds += time.perf_counter() - t0
+            self.crc_blocks += len(futs)
+        except Exception as e:  # noqa: BLE001 - delivered to each checksum's reader
+            for fut in futs:
+                if not fut.done():
+                    fut.set_exception(e)
+
+    def _watchdog_trip(self, seq: "_Seq", defer_free: bool = False) -> None:
+        """The lane's dispatch produced non-finite or exploding logits: end
+        its stream in-band with a resume directive (the JAX engine's items:
+        a ``migrating`` item, then the end of the stream). Nothing of the
+        tripped dispatch is emitted or sealed; the trip counts against this
+        worker's quarantine window. Engine thread only."""
+        self.watchdog_trips += 1
+        integrity_mod.note_trip("watchdog", where="engine")
+        logger.error(
+            "output watchdog tripped for request %s: non-finite or exploding "
+            "logits; ending the stream with a resume directive", seq.ctx.id,
+        )
+        self._release_lane(seq, defer_free)
+        seq.emit(Annotated.from_data(
+            {"migrating": {
+                "resume": True,
+                "error": "output watchdog: non-finite or exploding logits",
+            }},
+            id=seq.ctx.id,
+        ))
+        seq.emit(_FINISHED)
 
     # -- penalty counts -------------------------------------------------------
 
@@ -526,21 +799,33 @@ class TorchServingEngine(AsyncEngine):
         neg = self._put(np.full((S,), -1, np.int32))
         samp = self._sampling_args()
         with self._device_scope():
+            # the watchdog's steady-state 0, never a fault decision
+            wd = self._wd_steady()
             t0 = time.perf_counter()
             self._chunk(False, False, False, False)(
                 self._put(np.zeros((S, C), np.int32)),
                 self._put(np.full((S, C), -1, np.int32)), tables, neg, 0,
-                *samp, self._dummy_counts(),
+                *samp, self._dummy_counts(), *wd,
             )
             self._sync()
             timings["chunk"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             self._decode(False, False, False)(
                 self._put(np.zeros((S,), np.int32)), neg, tables, 0, *samp,
-                self._dummy_counts(),
+                self._dummy_counts(), *wd,
             )
             self._sync()
             timings["decode"] = time.perf_counter() - t0
+            if self._spec_k > 0:
+                k1 = self._spec_k + 1
+                t0 = time.perf_counter()
+                self._verify(False, False, False)(
+                    self._put(np.zeros((S, k1), np.int32)),
+                    self._put(np.full((S, k1), -1, np.int32)), tables, 0, *samp,
+                    self._dummy_counts(), *wd,
+                )
+                self._sync()
+                timings["verify"] = time.perf_counter() - t0
         return timings
 
     def _sync(self) -> None:
@@ -569,6 +854,10 @@ class TorchServingEngine(AsyncEngine):
             return
         self._ensure_thread()
         seq = _Seq(request, req, asyncio.get_running_loop())
+        if self._spec_k > 0:
+            # one suffix index per request (prompt indexed up front, emitted
+            # tokens appended as they stream); spec off keeps it None
+            seq.drafter = NgramDrafter(seq.prompt, self._spec_k, self._spec_ngram)
         with self._cond:
             self._pending.append(seq)
             self._cond.notify()
@@ -600,6 +889,11 @@ class TorchServingEngine(AsyncEngine):
             self._cond.notify()
         if self._thread is not None:
             self._thread.join(timeout=5)
+        if self._crc_batch:  # no reader may wait on a checksum never started
+            with self._device_scope():
+                self._flush_crcs()
+        if self._crc_pool is not None:
+            self._crc_pool.shutdown(wait=True)
 
     def _step_loop(self) -> None:
         try:
@@ -613,6 +907,7 @@ class TorchServingEngine(AsyncEngine):
                             and self._inflight is None
                             and self._counts is None  # idle pass frees it first
                             and not self._pending_spills  # idle pass drains them
+                            and not self._crc_batch  # idle pass starts them
                         ):
                             self._cond.wait()
                         if self._shutdown:
@@ -748,6 +1043,14 @@ class TorchServingEngine(AsyncEngine):
             # chunk prefill needs each decode lane's true last token host-side
             self._drain_inflight()
             self._chunk_step()
+        elif self._spec_k > 0 and any(
+            s.drafter is not None and s.drafter.would_draft() for s in active
+        ):
+            # every lane decodes and some drafter's index holds a usable
+            # match: a verify dispatch (it drains the decode pipeline, so
+            # lanes that cannot propose must not pay for it; it still falls
+            # back to the pipelined decode step when no lane drafts)
+            self._verify_step()
         else:
             self._decode_step()
 
@@ -815,18 +1118,15 @@ class TorchServingEngine(AsyncEngine):
         self._step_counter += 1
         self.chunk_dispatches += 1
         lanes = list(self._slots)
-        want_lp = any(s is not None and s.logprobs is not None for s in lanes)
-        want_pen = any(s is not None and s.penalized for s in lanes)
-        want_sample = any(s is not None and s.temperature > 0.0 for s in lanes)
         # a wave whose lanes all start at position 0 attends nothing in the pool
         want_history = any(
             s is not None and (s.prefill_pos is None or s.prefill_pos > 0)
             for s in lanes
         )
-        counts = self._sync_counts(lanes) if want_pen else self._dummy_counts()
+        (want_lp, want_pen, want_sample), counts, wd = self._dispatch_args(lanes)
         sampled, lp, tids, tlps = self._chunk(want_lp, want_pen, want_sample, want_history)(
             self._put(tokens), self._put(positions), self._put(self._tables),
-            self._put(sample_at), self._step_counter, *self._sampling_args(), counts,
+            self._put(sample_at), self._step_counter, *self._sampling_args(), counts, *wd,
         )
         sampled_np = sampled.cpu().numpy()
         if want_lp:
@@ -845,6 +1145,11 @@ class TorchServingEngine(AsyncEngine):
                 (float(lp_np[i]), tids_np[i], tlps_np[i]) if lp_np is not None else None
             )
             tok = int(sampled_np[i])
+            if self._integrity is not None and tok < 0:
+                # the watchdog's sentinel, on a lane's first token or a
+                # decode lane's next one: the stream ends in-band
+                self._watchdog_trip(seq)
+                continue
             if seq.prefill_pos is not None:
                 seq.prefill_pos += len(consumed[i])
                 if seq.prefill_pos >= len(seq.prompt):
@@ -934,13 +1239,10 @@ class TorchServingEngine(AsyncEngine):
         self._step_counter += 1
         self.decode_dispatches += 1
         self.decode_steps_total += k
-        want_lp = any(s is not None and s.logprobs is not None for s in lanes)
-        want_pen = any(s is not None and s.penalized for s in lanes)
-        want_sample = any(s is not None and s.temperature > 0.0 for s in lanes)
-        counts = self._sync_counts(lanes) if want_pen else self._dummy_counts()
+        (want_lp, want_pen, want_sample), counts, wd = self._dispatch_args(lanes)
         out, lps, tids, tlps, toks2, pos2 = self._decode(want_lp, want_pen, want_sample)(
             toks_in, pos_in, self._put(self._tables), self._step_counter,
-            *self._sampling_args(), counts,
+            *self._sampling_args(), counts, *wd,
         )
         if not want_pen:
             self._release_counts()
@@ -951,12 +1253,148 @@ class TorchServingEngine(AsyncEngine):
         if prev is not None:
             self._process_chunk(prev, defer_free=True)
 
+    def _verify_step(self) -> None:
+        """One speculative-verify dispatch (the JAX ``_verify_step``).
+
+        Drafts each decode lane from its n-gram index, feeds ``[last_token,
+        draft_0..]`` through the verify function (one weight stream for all
+        K1 positions) and emits the longest drafted prefix matching the
+        sampled targets plus the first non-matching target. Not pipelined:
+        the next dispatch's inputs depend on this one's acceptance. When no
+        lane drafts, the plain pipelined decode step runs instead."""
+        cfg = self.config
+        S = cfg.max_slots
+        # the host needs every lane's true last token and the drafters the
+        # emitted suffix before proposing
+        self._drain_inflight()
+        for seq in [s for s in self._slots if s is not None and s.ctx.context.is_stopped]:
+            self._finish(seq, FinishReason.CANCELLED)
+        if not any(self._slots):
+            return
+
+        drafts: List[Optional[List[int]]] = [None] * S
+        n_drafted = 0
+        for i, seq in enumerate(self._slots):
+            if seq is None or seq.drafter is None:
+                continue
+            # fed positions stay under max_model_len, and drafts past the
+            # request's remaining budget are dead weight
+            cap = min(self._spec_k, cfg.max_model_len - seq.total_len,
+                      seq.max_tokens - seq.emitted)
+            if cap <= 0:
+                continue
+            d = seq.drafter.draft()
+            if d:
+                drafts[i] = d[:cap]
+                n_drafted += len(drafts[i])
+        if n_drafted == 0:
+            self._decode_step()
+            return
+
+        # room for the drafted positions (not pipelined: a preemption here
+        # has no in-flight dispatch to wait for)
+        for i, seq in enumerate(self._slots):
+            if seq is None:
+                continue
+            need = min(seq.total_len + len(drafts[i] or []), cfg.max_model_len)
+            if not self.allocator.grow(seq.alloc, need):
+                drafts[i] = None
+                self._preempt(seq)
+        if not any(self._slots):
+            return
+        if not any(drafts[i] for i in range(S) if self._slots[i] is not None):
+            self._decode_step()
+            return
+
+        k1 = self._spec_k + 1
+        tokens = np.zeros((S, k1), np.int32)
+        positions = np.full((S, k1), -1, np.int32)
+        for i in range(S):
+            seq = self._slots[i]
+            self._set_lane(i, seq)
+            if seq is None:
+                continue
+            fed = [seq.generated[-1] if seq.generated else seq.prompt[-1]]
+            fed += drafts[i] or []
+            n = len(fed)
+            tokens[i, :n] = fed
+            positions[i, :n] = np.arange(seq.total_len - 1, seq.total_len - 1 + n)
+
+        self._step_counter += 1
+        self.verify_dispatches += 1
+        lanes = list(self._slots)
+        (want_lp, want_pen, want_sample), counts, wd = self._dispatch_args(lanes)
+        tgt, lps, tids, tlps = self._verify(want_lp, want_pen, want_sample)(
+            self._put(tokens), self._put(positions), self._put(self._tables),
+            self._step_counter, *self._sampling_args(), counts, *wd,
+        )
+        tgt_np = tgt.cpu().numpy()
+        if want_lp:
+            lp_np, tids_np, tlps_np = lps.cpu().numpy(), tids.cpu().numpy(), tlps.cpu().numpy()
+        else:
+            lp_np = tids_np = tlps_np = None
+        if not want_pen:
+            self._release_counts()
+
+        drafted_total = accepted_total = 0
+        fix_rows: List[int] = []
+        fix_toks: List[int] = []
+        for i in range(S):
+            seq = self._slots[i]
+            if seq is None:
+                continue
+            d = drafts[i] or []
+            row = tgt_np[i]
+            a = 0
+            while a < len(d) and int(row[a]) == d[a]:
+                a += 1
+            if d:
+                seq.drafter.note_result(len(d), a)
+                seq.spec_drafted += len(d)
+                seq.spec_accepted += a
+                drafted_total += len(d)
+                accepted_total += a
+            penalized = seq.penalized
+            # the matched drafts + the bonus target, cut as a decode run is
+            n_emitted = self._emit_token_run(
+                seq, [int(t) for t in row[: a + 1]],
+                (lp_np[i], tids_np[i], tlps_np[i]) if lp_np is not None else None,
+            )
+            self.verify_tokens += n_emitted
+            if want_pen and penalized:
+                # the targets loop added EVERY active position's target to
+                # this lane's count row: subtract the ones not emitted
+                # (rejected positions, and any cut by max_tokens / EOS)
+                for j in range(n_emitted, 1 + len(d)):
+                    if row[j] >= 0:
+                        fix_rows.append(i)
+                        fix_toks.append(int(row[j]))
+        if fix_rows and self._counts is not None:
+            rows = torch.tensor(fix_rows, dtype=torch.int64, device=self.device)
+            toks = torch.tensor(fix_toks, dtype=torch.int64, device=self.device)
+            self._counts.index_put_(
+                (rows, toks), torch.full_like(rows, -1, dtype=torch.int32), accumulate=True
+            )
+        self.spec_drafted_total += drafted_total
+        self.spec_accepted_total += accepted_total
+        if drafted_total:
+            rate = accepted_total / drafted_total
+            # the JAX engine's EMA (alpha 0.2, seeded by the first sample)
+            self.spec_accept_rate = (
+                rate if self.spec_accept_rate == 0.0
+                else self.spec_accept_rate + 0.2 * (rate - self.spec_accept_rate)
+            )
+
     def _emit_token_run(self, seq: _Seq, cand: List[int], lp_rows, *,
                         defer_free: bool = False) -> int:
         """Emit one multi-token run for a lane: cut at max_tokens /
         max_model_len / first EOS, register the fed tokens' KV, emit ONE
         item, and finish the lane on a terminal cut. Returns the number of
-        tokens emitted."""
+        tokens emitted. A run holding the watchdog's sentinel emits and
+        seals nothing: the lane ends in-band (:meth:`_watchdog_trip`)."""
+        if self._integrity is not None and any(t < 0 for t in cand):
+            self._watchdog_trip(seq, defer_free=defer_free)
+            return 0
         cfg = self.config
         n_take = min(len(cand), seq.max_tokens - seq.emitted, cfg.max_model_len - seq.total_len)
         finish: Optional[FinishReason] = None
@@ -994,6 +1432,8 @@ class TorchServingEngine(AsyncEngine):
                 ]
         seq.generated.extend(toks)
         seq.out_tokens.extend(toks)
+        if seq.drafter is not None:
+            seq.drafter.extend(toks)
         seq.emitted += len(toks)
         self.total_generated_tokens += len(toks)
         seq.emit(Annotated.from_data(
@@ -1033,6 +1473,8 @@ class TorchServingEngine(AsyncEngine):
     def _emit_token(self, seq: _Seq, tok: int, defer_free: bool = False, lpinfo=None) -> None:
         seq.generated.append(tok)
         seq.out_tokens.append(tok)
+        if seq.drafter is not None:
+            seq.drafter.extend((tok,))
         seq.emitted += 1
         self.total_generated_tokens += 1
         finish: Optional[FinishReason] = None
@@ -1058,7 +1500,8 @@ class TorchServingEngine(AsyncEngine):
         if finish is not None:
             self._finish(seq, finish, defer_free=defer_free)
 
-    def _finish(self, seq: _Seq, reason: FinishReason, defer_free: bool = False) -> None:
+    def _release_lane(self, seq: _Seq, defer_free: bool) -> None:
+        """Free a finished sequence's slot and pages."""
         if seq.slot is not None:
             self._slots[seq.slot] = None
             seq.slot = None
@@ -1069,6 +1512,9 @@ class TorchServingEngine(AsyncEngine):
             else:
                 self.allocator.free_sequence(seq.alloc)
             seq.alloc = None
+
+    def _finish(self, seq: _Seq, reason: FinishReason, defer_free: bool = False) -> None:
+        self._release_lane(seq, defer_free)
         seq.emit(Annotated.from_data(LLMEngineOutput.final(reason).to_dict(), id=seq.ctx.id))
         seq.emit(_FINISHED)
 
@@ -1116,6 +1562,8 @@ class TorchServingEngine(AsyncEngine):
             if tuple(x.shape) != want:
                 raise ValueError(f"inject_blocks: {name} is {tuple(x.shape)}, the pool takes "
                                  f"{want} for {n} pages")
+        # the checksums of pages sealed before must copy them out first
+        self._flush_crcs()
         idx = torch.tensor(block_ids, dtype=torch.int64, device=self.device)
         for name, x in vals.items():
             self.cache[name][:, idx] = x.to(self.device, self.cache[name].dtype)
@@ -1128,8 +1576,9 @@ class TorchServingEngine(AsyncEngine):
         overwrite the freed pages; the copy into pinned host memory follows
         on the same stream behind an event, and :meth:`_harvest_spills`
         moves it into the host pool once the event has passed. ``pairs``
-        are ``(hash, block_id, crc)``; ``crc`` is None (no integrity plane
-        yet). On the CPU the gather is the copy and there is no event."""
+        are ``(hash, block_id, crc)``; ``crc`` is the block's seal checksum
+        (an int, a future of one, or None with the integrity plane off). On
+        the CPU the gather is the copy and there is no event."""
         idx = torch.tensor([bid for _, bid, _ in pairs], dtype=torch.int64, device=self.device)
         names = ("k", "v", "k_scale", "v_scale") if self.kv_quantized else ("k", "v")
         bufs = [self.cache[n][:, idx] for n in names]
@@ -1150,24 +1599,34 @@ class TorchServingEngine(AsyncEngine):
         first, stopping at the first whose copy is still running; ``force``
         (an idle engine, or more than ``MAX_PENDING_SPILLS`` pending) waits
         for every one. Each block is stored as a copy of its slice, never a
-        view that would pin the whole spill."""
+        view that would pin the whole spill, with its seal checksum: a spill
+        whose checksums are still being computed waits like one whose copy
+        is still running (they were started before its copy, on the same
+        stream). The ``corrupt`` fault flips a byte of a spill's k pages
+        here (bad host RAM), after its checksum was taken."""
+        self._flush_crcs()
         if not self._pending_spills:
             return
         if len(self._pending_spills) > MAX_PENDING_SPILLS:
             force = True
         while self._pending_spills:
             pairs, k, v, ks, vs, event = self._pending_spills[0]
+            if not force and (
+                (event is not None and not event.query())
+                or any(isinstance(crc, Future) and not crc.done() for _, _, crc in pairs)
+            ):
+                return
             if event is not None:
-                if not force and not event.query():
-                    return
                 event.synchronize()
             self._pending_spills.popleft()
+            if faults_mod.current() is not None:
+                k = faults_mod.corrupt_array("engine", self._fault_addr, k)
             for i, (h, _, crc) in enumerate(pairs):
                 self.host_pool.put(
                     h, k[:, i].clone(), v[:, i].clone(),
                     ks[:, i].clone() if ks is not None else None,
                     vs[:, i].clone() if vs is not None else None,
-                    crc=crc,
+                    crc=resolve_crc(crc),
                 )
 
     def _inject_host_hits(self, alloc: SequenceAllocation) -> None:
@@ -1213,6 +1672,16 @@ class TorchServingEngine(AsyncEngine):
                 "paged_decode_launches": paged_decode_attention.launches,
                 "paged_decode_int8_launches": paged_decode_attention_int8.launches,
                 "kv_quantized": int(self.kv_quantized),
+                # speculative decoding: cumulative draft counters, and the
+                # acceptance rate per verify dispatch as an EMA (alpha 0.2)
+                "spec_drafted_tokens": self.spec_drafted_total,
+                "spec_accepted_tokens": self.spec_accepted_total,
+                "spec_accept_rate": round(self.spec_accept_rate, 4),
+                "verify_dispatches": self.verify_dispatches,
+                # integrity plane: this engine's output-watchdog trips (the
+                # process-global trip and quarantine counters are
+                # runtime/integrity.py's counters())
+                "watchdog_trips": self.watchdog_trips,
                 **({"host_cache_blocks": len(self.host_pool),
                     "host_cache_hits": self.host_pool.hits}
                    if self.host_pool is not None else {}),

@@ -124,6 +124,75 @@ def sample_tokens(
     return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)
 
 
+def speculative_targets(
+    logits_all: torch.Tensor,  # [B, K1, V] f32, one row per fed position
+    counts: torch.Tensor,  # [B, V] int32 penalty counts (dummy when unused)
+    active: torch.Tensor,  # [B, K1] bool: position actually fed (not padding)
+    seeds: Sequence[int],  # [B] per-request seeds (host)
+    sampled: Sequence[bool],  # [B] lanes that sample (host: temperature > 0)
+    step: int,  # the dispatch's step counter
+    temperature: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    frequency_penalty: torch.Tensor,  # [B]
+    presence_penalty: torch.Tensor,  # [B]
+    *,
+    with_pen: bool,
+    with_sample: bool,
+    with_lp: bool,
+    n_top: int = 0,
+) -> tuple:
+    """Target tokens of a speculative-verify dispatch, position by position
+    (the JAX ``speculative_targets``).
+
+    The verify dispatch feeds ``[last_token, draft_0, .., draft_{k-1}]``
+    through one forward pass; this samples the engine's OWN next token at
+    every fed position: the token the sequential sampler would produce
+    given the same prefix and the same per-position noise. Position j draws
+    its noise as the j-th step of a decode window does
+    (``gumbel_noise(seeds, .., step, j)``). The engine keeps the drafted
+    prefix that MATCHES these targets plus the first non-matching target
+    (the bonus token): every emitted token was drawn from the model's
+    conditional at its position, and greedy output equals non-speculative
+    greedy decode.
+
+    Penalties are sequentially exact along the positions: the count buffer
+    (updated in place) takes each position's target before the next is
+    scored. Rejected positions do add their targets too; the engine
+    subtracts exactly the non-emitted ones after the dispatch.
+
+    Returns ``(targets [B, K1], counts)`` plus, with ``with_lp``,
+    ``(chosen_lp [B, K1], top_ids [B, K1, n_top], top_lps [B, K1, n_top])``
+    inserted before ``counts``.
+    """
+    k1 = logits_all.shape[1]
+    outs, lps, tids, tlps = [], [], [], []
+    for j in range(k1):
+        sel = logits_all[:, j]
+        noise = (
+            gumbel_noise(seeds, sampled, step, j, device=logits_all.device)
+            if with_sample else None
+        )
+        sampled_from = (
+            apply_penalties(sel, counts, frequency_penalty, presence_penalty)
+            if with_pen else sel
+        )
+        nxt = sample_tokens(sampled_from, temperature, top_k, top_p, noise=noise,
+                            greedy_only=not with_sample)
+        if with_pen:
+            update_counts(counts, nxt, active[:, j])
+        if with_lp:
+            lp, ti, tl = token_logprobs(sel, nxt, n_top)
+            lps.append(lp)
+            tids.append(ti)
+            tlps.append(tl)
+        outs.append(nxt)
+    out = torch.stack(outs, dim=1)
+    if with_lp:
+        return out, torch.stack(lps, 1), torch.stack(tids, 1), torch.stack(tlps, 1), counts
+    return out, counts
+
+
 def token_logprobs(
     logits: torch.Tensor,  # [B, V] float32 (raw, temperature-unscaled)
     tokens: torch.Tensor,  # [B]

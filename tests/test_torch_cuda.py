@@ -707,3 +707,126 @@ def test_int8_expert_kernel_layer_views_and_refusals(cuda):
     with pytest.raises(ValueError, match="tiles"):
         int8_expert_matmul(x[..., :32].contiguous(), q[1, :, :, :32].contiguous(), s[1])
     assert int8_expert_matmul.launches == before
+
+
+# -- the integrity plane and speculative verify on the card ------------------------
+
+
+def _tiny_engine(cuda, **kw):
+    from dynamo_tpu_torch.engine_torch.engine import EngineConfig, TorchServingEngine
+    from dynamo_tpu_torch.models.llama import init_params
+
+    cfg = LLAMA_PRESETS["tiny"]
+    ecfg = dict(max_slots=2, kv_block_size=16, max_model_len=128, prefill_chunk=32,
+                decode_steps=2)
+    ecfg.update(kw)
+    return TorchServingEngine(cfg, init_params(cfg, seed=0, device=cuda), EngineConfig(**ecfg),
+                              device=cuda)
+
+
+def _greedy(eng, prompt, max_tokens):
+    import asyncio
+
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def go():
+        toks, marker, finish = [], None, None
+        async for item in eng.generate(Context({
+                "token_ids": prompt, "sampling_options": {"temperature": 0.0},
+                "stop_conditions": {"max_tokens": max_tokens, "ignore_eos": True}})):
+            d = item.data or {}
+            if "migrating" in d:
+                marker = d["migrating"]
+            toks.extend(d.get("token_ids", []))
+            finish = d.get("finish_reason") or finish
+        return toks, marker, finish
+
+    return asyncio.run(go())
+
+
+# a dispatch is two fault decisions (poison, then slow): after_ops = 2 x its
+# index. The 40-token prompt prefills in two chunks of 32; the second emits
+# the first token
+@pytest.mark.parametrize("after_ops,tokens_before", [(2, 0), (6, 3)])
+def test_watchdog_on_the_card(cuda, after_ops, tokens_before):
+    """A poisoned chunk (the one that samples the first token) or decode
+    dispatch (the second):
+    NaN logits on the card, the sentinel substituted there, the stream ends
+    with the resume directive and no token of the dispatch escapes; the
+    clean run's seal checksums equal a host crc32 of the pool's pages."""
+    from dynamo_tpu_torch.runtime import faults, integrity
+
+    prompt = list(range(3, 43))
+    eng = _tiny_engine(cuda)
+    try:
+        clean, marker, finish = _greedy(eng, prompt, 24)
+        assert marker is None and finish == "length" and len(clean) == 24
+        bids = sorted(eng.allocator._crc_of)
+        assert len(bids) >= 3
+        pages = [eng.cache[n][:, bids].cpu() for n in ("k", "v")]
+        assert [eng.allocator.crc_of_block(b) for b in bids] == integrity.page_checksums(*pages)
+    finally:
+        eng.close()
+    eng = _tiny_engine(cuda)
+    rule = faults.FaultRule(plane="engine", point="dispatch", action="poison",
+                            after_ops=after_ops, max_fires=1)
+    try:
+        with faults.active(faults.FaultInjector([rule])):
+            toks, marker, finish = _greedy(eng, prompt, 24)
+        assert marker == {"resume": True,
+                          "error": "output watchdog: non-finite or exploding logits"}
+        assert finish is None and eng.watchdog_trips == 1
+        # the chunk's token and one decode dispatch of 2 before the poisoned one
+        assert toks == clean[:tokens_before]
+    finally:
+        eng.close()
+        integrity.reset_for_tests()
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_verify_dispatch_matches_sequential_decode_on_the_card(cuda, quantize):
+    """The verify forward (``forward_chunk`` over [last token, 4 drafts] and
+    the LM head on every position) against the same 5 positions decoded one
+    step at a time through the paged kernel, on a pool of two lanes
+    prefilled to 37 and 70 tokens; with ``quantize="int8"`` its products are
+    launched on the W8A16 kernels at M = 10 rows."""
+    from dynamo_tpu_torch.models.llama import (
+        forward_chunk,
+        forward_window,
+        init_params,
+        make_kv_cache,
+        quantize_params_int8,
+    )
+
+    cfg = LLAMA_PRESETS["tiny"]
+    params = init_params(cfg, seed=1, device=cuda)
+    dparams = quantize_params_int8(params, cfg) if quantize else params
+    S, bs, mb, K1 = 2, 16, 8, 5
+    lens = torch.tensor([37, 70], dtype=torch.int32, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (S, 128), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda, dtype=torch.int32)
+    cache = make_kv_cache(cfg, S * mb, bs, device=cuda)
+    tables = torch.arange(S * mb, dtype=torch.int32, device=cuda).flip(0).reshape(S, mb)
+    pos = torch.arange(128, device=cuda)[None, :].repeat(S, 1)
+    with torch.no_grad():
+        forward_chunk(params, cfg, toks[:, :128], torch.where(pos < lens[:, None], pos, -1).int(),
+                      cache, tables, hidden_only=True, with_history=False)
+        rows = lens[:, None].long() + torch.arange(K1, device=cuda)[None, :]
+        fed = torch.gather(toks, 1, rows).int()
+        shape = (cfg.num_layers, S, K1, cfg.num_kv_heads, cfg.head_dim)
+        wk = torch.zeros(shape, dtype=cfg.dtype, device=cuda)
+        wv = torch.zeros(shape, dtype=cfg.dtype, device=cuda)
+        seq = []
+        for j in range(K1):
+            logits, wk, wv = forward_window(dparams, cfg, fed[:, j], lens + j, cache, tables,
+                                            lens, wk, wv, j)
+            seq.append(logits.float())
+        seq = torch.stack(seq, 1)
+        before = int8_weight_matmul.launches
+        h, _ = forward_chunk(dparams, cfg, fed, rows.int(), cache, tables, hidden_only=True)
+        ver = lm_head(dparams, cfg, h.reshape(S * K1, -1)).reshape(S, K1, -1).float()
+        launched = int8_weight_matmul.launches - before
+    assert launched == (7 * cfg.num_layers + 1 if quantize else 0)
+    rel = ((ver - seq).abs().max() / seq.abs().max()).item()
+    assert rel <= 2e-2, rel
+    assert torch.isfinite(ver).all()

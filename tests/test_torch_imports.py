@@ -69,14 +69,14 @@ def test_weight_path_module_imports_only_the_allowed(module):
     assert tops <= set(sys.stdlib_module_names) | ALLOWED_THIRD_PARTY | {"dynamo_tpu_torch"}
 
 
-def test_weight_path_modules_load_with_jax_path_dependencies_blocked():
+def _load_blocked(modules):
     script = textwrap.dedent(f"""
         import sys
         for name in {BLOCKED!r}:
             sys.modules[name] = None
         sys.path.insert(0, {ROOT!r})
         import importlib
-        for mod in {WEIGHT_PATH_MODULES!r}:
+        for mod in {modules!r}:
             importlib.import_module(mod)
         loaded = {{m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}}
         assert not loaded & set({BLOCKED!r}), loaded & set({BLOCKED!r})
@@ -86,6 +86,31 @@ def test_weight_path_modules_load_with_jax_path_dependencies_blocked():
                          timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "IMPORTED" in res.stdout
+
+
+def test_weight_path_modules_load_with_jax_path_dependencies_blocked():
+    _load_blocked(WEIGHT_PATH_MODULES)
+
+
+# the integrity plane, the fault plane and speculative decoding: the port's
+# own copies of the JAX package's modules, never imports of them
+INTEGRITY_SPEC_MODULES = ["dynamo_tpu_torch.runtime.envknobs",
+                          "dynamo_tpu_torch.runtime.integrity",
+                          "dynamo_tpu_torch.runtime.faults",
+                          "dynamo_tpu_torch.engine_torch.drafter"]
+
+
+@pytest.mark.parametrize("module", INTEGRITY_SPEC_MODULES)
+def test_integrity_and_spec_module_imports_only_the_allowed(module):
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    assert path in _port_files()
+    tops = {m.split(".")[0] for m in _absolute_imports(path)}
+    assert not tops & set(BLOCKED), tops & set(BLOCKED)
+    assert tops <= set(sys.stdlib_module_names) | ALLOWED_THIRD_PARTY | {"dynamo_tpu_torch"}
+
+
+def test_integrity_and_spec_modules_load_with_jax_path_dependencies_blocked():
+    _load_blocked(INTEGRITY_SPEC_MODULES + ["dynamo_tpu_torch.engine_torch.engine"])
 
 
 def _serve_blocked(model_path, embed_row=None):
