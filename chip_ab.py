@@ -14,8 +14,9 @@ replayed from a CUDA graph.
 - ``paged``: ``paged_decode_attention`` in every regime of
   ``chip_smoke.py`` (bf16, the wrapper's own split plan);
 - ``int8``: ``int8_weight_matmul`` at each llama3-8b shape of
-  ``chip_smoke.py``'s phase 4 at M = 1, 8 and 1024 (bf16 activations, the
-  wrapper's own plan);
+  ``chip_smoke.py``'s phase 4 at M = 1, 8, 40 (a speculative verify
+  dispatch of 8 lanes x 5 positions) and 1024 (bf16 activations, the
+  wrapper's own plan), and each M's 225 products of one forward summed;
 - ``experts``: ``int8_expert_matmul`` over 8 experts at mixtral-8x7b's two
   expert shapes of phase 5 at C = 4 (decode), 130 and 512 (prefill), cycling
   through two stacks (bf16 activations, the wrapper's own plan);
@@ -38,7 +39,7 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-INT8_M = (1, 8, 1024)
+INT8_M = (1, 8, 40, 1024)
 EXPERT_C = (4, 130, 512)
 
 
@@ -60,15 +61,20 @@ def worker(root: str, kernels: str) -> dict:
     if "int8" in kernels:
         gen = torch.Generator(device="cuda").manual_seed(8)
         dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
-        for name, K, N, o, _ in cs.INT8_SHAPES:
+        forward = {M: {"ms": 0.0, "graph_ms": 0.0, "bound_ms": 0.0} for M in INT8_M}
+        for name, K, N, o, count in cs.INT8_SHAPES:
             for M in INT8_M:
                 x, qs, ss = cs.int8_inputs(torch, gen, K, N, M, torch.bfloat16)
                 ms, graph_ms = cs.time_int8(torch, int8_weight_matmul, x, qs, ss, dt[o])
                 b_ms = cs.int8_bound(M, N, K, 4 if o == "fp32" else 2, rate)[0]
                 out["regimes"][f"int8 {name}, M={M}"] = {"ms": ms, "graph_ms": graph_ms,
                                                          "bound_ms": b_ms}
+                for key, t in (("ms", ms), ("graph_ms", graph_ms), ("bound_ms", b_ms)):
+                    forward[M][key] += count * t
                 del x, qs, ss
                 torch.cuda.empty_cache()
+        for M, r in forward.items():
+            out["regimes"][f"int8 one forward's {cs.INT8_LAUNCHES_PER_STEP} products, M={M}"] = r
     if "experts" in kernels:
         gen = torch.Generator(device="cuda").manual_seed(11)
         X = cs.MIXTRAL["experts"]

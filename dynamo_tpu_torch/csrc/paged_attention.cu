@@ -51,33 +51,58 @@
 //   three digits), in the same thread layout, split and merge, so the fp32
 //   checks also hold the split algebra on the card.
 //
-// Int8 pages (paged_decode_int8_split_kernel): the same function over
+// Int8 pages (paged_decode_int8_split_kernel): the same attention over
 // pages stored as int8 with one fp32 scale per token slot ([N, bs], shared
-// by the slot's KVH heads), dequantized as dequantize_kv does it:
-// bf16(float(q) · scale), or fp32 for an fp32 model. It replaces no TPU
-// kernel: the JAX package's Pallas kernel has no fused dequantization, so
-// an int8 pool there runs XLA's gather_history + dequantize_kv dense tier
-// (dynamo_tpu/models/llama.py:534, :246). Each tile crosses the same
-// cp.async ring as int8 rows (D bytes a row, half a bf16 row) with the 4-byte
-// scales of its TK slots, and each warp dequantizes the 16 keys it attends
-// into a compute-dtype tile laid out as the split kernel's (int8 to float by
-// byte permutes, not conversions); the warps' compute, the
-// splits and the merge are the split kernel's, so for one split count the
-// result is bit-equal to the split kernel run on dequantize_kv(pages). What
-// bounds it: bytes again, the int8 K and V rows plus 8 bytes of scales per
-// token, about half of the bf16 pages' bytes.
+// by the slot's KVH heads). It replaces no TPU kernel: the JAX package's
+// Pallas kernel has no fused dequantization, so an int8 pool there runs
+// XLA's gather_history + dequantize_kv dense tier
+// (dynamo_tpu/models/llama.py:534, :246). What bounds it: bytes, the int8 K
+// and V rows plus 8 bytes of scales per token, about half of the bf16
+// pages' bytes. Its design keeps the per-value work off that path:
+//
+// - The scales are folded, not applied per value. A key's score is
+//   (q · k8) · (k_scale · softmax scale): one fp32 multiply per score; each
+//   p is multiplied by its v_scale before it is rounded to the compute dtype
+//   for P·V, and l sums the unscaled p. An int8 value is exact in bf16, so
+//   the only roundings are the fp32 sums and p · v_scale to bf16 (one
+//   rounding per p where dequantize_kv followed by the bf16 kernel rounds
+//   every k, every v and every p).
+// - No dequantized tile. K and V cross shared memory as int8 rows and go
+//   from there straight into mma.sync's B fragments: ldmatrix in its 16-bit
+//   view gives a thread 4 int8 values per register, which become two bf16x2
+//   registers in 3 integer/bf16 operations per pair (i8pair_to_bf16x2). For
+//   K (non-transposed) a register holds d = 4c..4c+3 of one key, so the mma's
+//   k index runs over d in the order 4c, 4c+2 | 4c+1, 4c+3; Q's A fragments
+//   are built once per block in that same order (Q·Kᵀ sums over d, so the
+//   permutation changes nothing). For V (ldmatrix.trans) a register holds
+//   keys 2c, 2c+1 at d = 2j, 2j+1: its even and odd bytes are the B
+//   fragments of two n8 tiles, the even and the odd d of a 16-d block, so
+//   the accumulator's d order is permuted and write_partial undoes it.
+// - Warp-local pipelines. Each of the 4 warps owns a ring of STAGES stages
+//   holding its own 16 rows of K and V and their scales; it copies and
+//   waits for only those (cp.async groups and __syncwarp), so no block-wide
+//   barrier runs between tiles and STAGES - 1 tiles per warp are in flight
+//   while one is attended. A page's 64-byte run of 16 slot scales is copied
+//   in 16-byte pieces.
+// - The fp32 compute path keeps a CUDA-core inner product over the same
+//   ring, the values converted exactly by byte permutes.
+// - The wrapper plans the split count from the blocks per SM that this
+//   kernel's footprint allows (paged_decode_int8_blocks_per_sm).
 //
 // Rounding contract (shared with the plain versions in
 // ops/paged_attention.py): p = 2^(s·log2e − st) with an integer stabilizer
 // st per row, the running ceil(max score · log2e). Every rescale, between
 // tiles, between the warps of a block and between splits, is by an exact
 // power of two, so p rounded to the cache dtype against a partial
-// stabilizer and rescaled equals p rounded against the global one.
+// stabilizer and rescaled equals p rounded against the global one (and so
+// does p · v_scale on the int8 path).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -118,10 +143,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16 bytes global -> shared, of which the first `bytes` are read and the
+// rest written as zeros
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
 // 16 bytes global -> shared; live == false reads nothing and writes zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(live ? 16 : 0) : "memory");
+  cp_async16_n(dst, src, live ? 16 : 0);
 }
 // 4 bytes global -> shared (through L1); live == false reads nothing, writes 0
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
@@ -143,15 +173,31 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
 }
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
+}
 
 // c += a · b over one m16n8k16 tile, bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  mma_bf16(c, a[0], a[1], a[2], a[3], b0, b1);
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a, uint32_t b0,
+                                         uint32_t b1) {
+  mma_bf16(c, a.x, a.y, a.z, a.w, b0, b1);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -272,6 +318,54 @@ struct WarpAcc {
   }
 };
 
+// The online softmax over one warp's 16 scores per row (sc, masked keys at
+// -inf; top: each thread's row maxima of them): the row max, the integer
+// stabilizer and the rescale of lsum and acc by a power of two, then sc
+// becomes p and lsum takes its sum. kSkipUnit skips the rescale of acc when
+// no row of the warp moved its stabilizer (acc · 1 is acc). hi == false
+// (a group of at most 8 query heads, warp-uniform): rows 8-15 are padding,
+// left at their initial state with p = 0.
+template <int D, bool kSkipUnit = false>
+__device__ __forceinline__ void online_softmax(WarpAcc<D>& w, float (&sc)[2][4],
+                                               float (&top)[2], bool hi = true) {
+  float alpha[2] = {1.f, 1.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r == 1 && !hi) break;
+    top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 1));
+    top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 2));
+    w.mx[r] = fmaxf(w.mx[r], top[r]);
+    const float st_new = fmaxf(w.st[r], ceilf(top[r] * kLog2e));
+    alpha[r] = exp2f(w.st[r] - st_new);  // a power of two (or 0)
+    w.lsum[r] *= alpha[r];
+    w.st[r] = st_new;
+  }
+  if (!kSkipUnit || __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int t = 0; t < D / 8; ++t) {
+        w.acc[t][2 * r] *= alpha[r];
+        w.acc[t][2 * r + 1] *= alpha[r];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[j][e] = exp2f(sc[j][e] * kLog2e - w.st[0]);
+      w.lsum[0] += sc[j][e];
+      if (hi) {
+        sc[j][2 + e] = exp2f(sc[j][2 + e] * kLog2e - w.st[1]);
+        w.lsum[1] += sc[j][2 + e];
+      } else {
+        sc[j][2 + e] = 0.f;
+      }
+    }
+  }
+}
+
 // One warp's 16 keys of a tile in shared memory (ks, vs: [TK, D], swizzled),
 // the first of them the split's token kb: scores, online softmax, P·V.
 // Keys at or past t1 are masked.
@@ -294,31 +388,7 @@ __device__ __forceinline__ void attend_tile(WarpAcc<D>& w, const T* qs, const T*
       top[1] = fmaxf(top[1], sc[j][2 + e]);
     }
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 1));
-    top[r] = fmaxf(top[r], __shfl_xor_sync(0xffffffffu, top[r], 2));
-    w.mx[r] = fmaxf(w.mx[r], top[r]);
-    const float st_new = fmaxf(w.st[r], ceilf(top[r] * kLog2e));
-    const float alpha = exp2f(w.st[r] - st_new);  // a power of two (or 0)
-    w.lsum[r] *= alpha;
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
-      w.acc[t][2 * r] *= alpha;
-      w.acc[t][2 * r + 1] *= alpha;
-    }
-    w.st[r] = st_new;
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      sc[j][e] = exp2f(sc[j][e] * kLog2e - w.st[0]);
-      sc[j][2 + e] = exp2f(sc[j][2 + e] * kLog2e - w.st[1]);
-      w.lsum[0] += sc[j][e];
-      w.lsum[1] += sc[j][2 + e];
-    }
-  }
+  online_softmax<D>(w, sc, top);
   pv<D>(w.acc, sc, vs, key0, lane);
 }
 
@@ -354,7 +424,10 @@ __device__ __forceinline__ void write_empty(const Partial& p, size_t row0, int g
 // reads the tiles any more: the warps' partials are combined through mbuf
 // (shared memory of NW·16·D floats) by exact powers of two and the split's
 // partial is written for rows row0 .. row0 + gb - 1.
-template <int NW, int THREADS, int D>
+// kPermD: acc holds the int8 kernel's permuted d order (pv8): acc[2q] and
+// acc[2q+1] are the even and odd d of block q, so a thread's columns are
+// d = 16q + 4·(lane % 4) + {0, 1, 2, 3}.
+template <int NW, int THREADS, int D, bool kPermD = false>
 __device__ __forceinline__ void write_partial(const Partial& p, WarpAcc<D>& w, float* mbuf,
                                               float (*sm_mx)[kGroup], float (*sm_st)[kGroup],
                                               float (*sm_l)[kGroup], size_t row0, int gb,
@@ -376,11 +449,22 @@ __device__ __forceinline__ void write_partial(const Partial& p, WarpAcc<D>& w, f
     }
   }
   float* mw = mbuf + (size_t)warp * kGroup * D;
+  if constexpr (kPermD) {
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
-    const int d = t * 8 + cq;
-    *reinterpret_cast<float2*>(mw + g * D + d) = make_float2(w.acc[t][0], w.acc[t][1]);
-    *reinterpret_cast<float2*>(mw + (g + 8) * D + d) = make_float2(w.acc[t][2], w.acc[t][3]);
+    for (int b = 0; b < D / 16; ++b) {
+      const int d = b * 16 + 2 * cq;
+      const float(&ev)[4] = w.acc[2 * b];
+      const float(&od)[4] = w.acc[2 * b + 1];
+      *reinterpret_cast<float4*>(mw + g * D + d) = make_float4(ev[0], od[0], ev[1], od[1]);
+      *reinterpret_cast<float4*>(mw + (g + 8) * D + d) = make_float4(ev[2], od[2], ev[3], od[3]);
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t) {
+      const int d = t * 8 + cq;
+      *reinterpret_cast<float2*>(mw + g * D + d) = make_float2(w.acc[t][0], w.acc[t][1]);
+      *reinterpret_cast<float2*>(mw + (g + 8) * D + d) = make_float2(w.acc[t][2], w.acc[t][3]);
+    }
   }
   __syncthreads();
 
@@ -519,21 +603,36 @@ paged_decode_split_kernel(
   write_partial<Gm::NW, Gm::THREADS, D>(p, w, mbuf, sm_mx, sm_st, sm_l, row0, gb, NS, sp, tid);
 }
 
-// The int8 kernel's shared memory past Q: the dequantized K and V tile
-// (compute dtype, swizzled as the split kernel's), the cp.async ring of
-// int8 K and V tiles, and the ring's per-token scales. Each warp
-// dequantizes the 16 rows of K and V that it attends, so only the warp
-// waits for them.
+// The int8 kernel's geometry: tiles of TK = 64 keys as the split kernel's,
+// one warp per 16 of them, each warp with its own ring of STAGES stages. A
+// stage holds the warp's 16 int8 K rows, its 16 V rows (each row's 16-byte
+// chunks XOR-swizzled as Geo's, for ldmatrix) and their 16 + 16 scales.
+// Shared memory: Q (bf16: the mma A fragments, [D/16][32 lanes] of 16
+// bytes; fp32: Geo's swizzled [16, D] tile), then the rings, which the
+// block's epilogue reuses as its merge buffer.
 template <typename T, int D>
 struct Geo8 {
-  using Gm = Geo<T, D>;
-  static constexpr int CH8 = D / 16;  // 16-byte chunks of an int8 row
-  static constexpr size_t TILE = 2 * (size_t)Gm::TILE_ELEMS * sizeof(T);
-  static constexpr size_t RING8 = (size_t)Gm::STAGES * 2 * Gm::TK * D;
-  static constexpr size_t SCALES = (size_t)Gm::STAGES * 2 * Gm::TK * sizeof(float);
-  static constexpr size_t BODY = TILE + RING8 + SCALES;
-  static constexpr size_t SMEM =
-      Gm::Q_ELEMS * sizeof(T) + (BODY > Gm::MERGE ? BODY : Gm::MERGE);
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int TK = 64;
+  static constexpr int NW = TK / 16;
+  static constexpr int THREADS = NW * 32;
+  static constexpr int STAGES = 3;
+  static constexpr int CH = D / 16;  // 16-byte chunks of an int8 row
+  static constexpr int RPG = CH >= 8 ? 1 : 8 / CH;
+  static constexpr int SWM = (CH >= 8 ? 8 : CH) - 1;
+  static constexpr int ROWS = 16 * D;                  // bytes of 16 rows
+  static constexpr int STAGE = 2 * ROWS + 2 * 16 * 4;  // K, V, k and v scales
+  static constexpr size_t RING = (size_t)NW * STAGES * STAGE;
+  static constexpr size_t QBYTES = kBf16 ? (size_t)D * 32 : (size_t)kGroup * D * 4;
+  static constexpr size_t MERGE = (size_t)NW * kGroup * D * sizeof(float);
+  static constexpr size_t SMEM = QBYTES + (RING > MERGE ? RING : MERGE);
+  // at most 128 registers a thread up to D = 128, so that 4 blocks fit an SM
+  static constexpr int MIN_BLOCKS = D <= 128 ? 4 : 1;
+
+  // byte offset of 16-byte chunk c of row r in a [16, D] int8 tile
+  static __device__ __forceinline__ int off(int r, int c) {
+    return r * D + ((c ^ ((r / RPG) & SWM)) << 4);
+  }
 };
 
 // float(b) of the four signed bytes of w, exactly, without the
@@ -549,45 +648,246 @@ __device__ __forceinline__ float4 i8x4_to_f32(uint32_t w) {
                      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - kOff);
 }
 
-// One 16-byte chunk of T from the int8 values in words w[0 .. EPC/4 - 1]
-// times scale, each product in fp32 rounded to T (round to nearest even):
-// dequantize_kv's arithmetic.
-template <typename T> __device__ __forceinline__ uint4 dq_chunk(const uint32_t* w, float scale);
-template <> __device__ __forceinline__ uint4 dq_chunk<float>(const uint32_t* w, float scale) {
-  const float4 f = i8x4_to_f32(w[0]);
-  return make_uint4(__float_as_uint(f.x * scale), __float_as_uint(f.y * scale),
-                    __float_as_uint(f.z * scale), __float_as_uint(f.w * scale));
+// The signed bytes 0 and 2 of w as a bf16x2 (byte 0 in the low half),
+// exactly: in each half, 0x4300 | (b & 0x7f) is 128 + (b & 127) and
+// 0xc300 | (b & 0x80) is -128 or, with b's sign bit on the exponent's
+// lowest bit, -256; their sum is b, which bf16 holds exactly. Bytes 1 and 3
+// are the same of w >> 8.
+__device__ __forceinline__ uint32_t i8pair_to_bf16x2(uint32_t w) {
+  const uint32_t x = (w & 0x007f007fu) | 0x43004300u;
+  const uint32_t z = (w & 0x00800080u) | 0xc300c300u;
+  uint32_t y;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(y) : "r"(x), "r"(0x3f803f80u), "r"(z));
+  return y;
 }
-template <>
-__device__ __forceinline__ uint4 dq_chunk<__nv_bfloat16>(const uint32_t* w, float scale) {
-  const float4 a = i8x4_to_f32(w[0]), b = i8x4_to_f32(w[1]);
-  return make_uint4(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale),
-                    pack_bf16(b.x * scale, b.y * scale), pack_bf16(b.z * scale, b.w * scale));
-}
+__device__ __forceinline__ uint32_t i8_even(uint32_t w) { return i8pair_to_bf16x2(w); }
+__device__ __forceinline__ uint32_t i8_odd(uint32_t w) { return i8pair_to_bf16x2(w >> 8); }
 
-// The 16 int8 values of 16-byte chunk c of row r, dequantized into 16 / EPC
-// swizzled 16-byte chunks of the compute-dtype tile.
-template <typename T, int D>
-__device__ __forceinline__ void dequant16(T* tile, int r, int c, int4 raw, float scale) {
-  using Gm = Geo<T, D>;
-  const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z, (uint32_t)raw.w};
+// The block's Q rows as the A fragments of qk8's d order: for each block kk
+// of 16 d and each lane (g = lane / 4, c = lane % 4), a0 = (d 4c, 4c+2) of
+// row g, a1 the same of row g+8, a2 = (d 4c+1, 4c+3) of row g, a3 of row
+// g+8, at qf[kk·32 + lane]; rows past gb are zeros.
+template <int D, int THREADS>
+__device__ __forceinline__ void load_q8(uint4* qf, const __nv_bfloat16* q, size_t row0, int gb,
+                                        int tid) {
+  for (int i = tid; i < D / 16 * 32; i += THREADS) {
+    const int kk = i / 32, g = (i % 32) >> 2, c = i & 3;
+    uint2 w[2];
 #pragma unroll
-  for (int j = 0; j < 16 / Gm::EPC; ++j) {
-    *reinterpret_cast<uint4*>(tile + Gm::off(r, c * (16 / Gm::EPC) + j)) =
-        dq_chunk<T>(w + j * Gm::EPC / 4, scale);
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+      w[r] = row < gb ? *reinterpret_cast<const uint2*>(q + (row0 + row) * D + kk * 16 + 4 * c)
+                      : make_uint2(0u, 0u);
+    }
+    qf[i] = make_uint4(__byte_perm(w[0].x, w[0].y, 0x5410), __byte_perm(w[1].x, w[1].y, 0x5410),
+                       __byte_perm(w[0].x, w[0].y, 0x7632), __byte_perm(w[1].x, w[1].y, 0x7632));
   }
 }
 
-// paged_decode_split_kernel over int8 pages: k_cache / v_cache [N, bs, KVH,
-// D] int8 and their per-token scales [N, bs] fp32 (one per physical slot,
-// shared by the slot's KVH heads). Each tile arrives through the cp.async
-// ring as int8 rows and 4-byte scales; each warp then dequantizes its own 16
-// keys into the compute-dtype tile and attends them exactly as the split
-// kernel attends a tile of the same values. Grid, splits, partials and
-// merge are the split kernel's, so on the same split count the result is
-// bit-equal to paged_decode_split_kernel run on dequantize_kv(pages).
+// fp32: the block's Q rows into Geo's swizzled [16, D] tile; rows past gb
+// are zeros
+template <int D, int THREADS>
+__device__ __forceinline__ void load_q8(float* qs, const float* q, size_t row0, int gb,
+                                        int tid) {
+  using Gq = Geo<float, D>;
+  for (int i = tid; i < kGroup * Gq::CH; i += THREADS) {
+    const int r = i / Gq::CH, c = i % Gq::CH;
+    *reinterpret_cast<float4*>(qs + Gq::off(r, c)) =
+        r < gb ? *reinterpret_cast<const float4*>(q + (row0 + r) * D + c * Gq::EPC)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// S = Q · Kᵀ for a warp's 16 int8 keys (ks: [16, D] swizzled), unscaled, in
+// the C layout of qk. An ldmatrix x4 brings keys 0-7 and 8-15 of two 16-d
+// blocks; a register holds d 4c..4c+3 of key lane / 4, whose even and odd
+// bytes are the B fragment's k = 2c, 2c+1 and 2c+8, 2c+9.
+template <int D>
+__device__ __forceinline__ void qk8(float (&sc)[2][4], const uint4* qf, const int8_t* ks,
+                                    int lane) {
+  using G8 = Geo8<__nv_bfloat16, D>;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
+  const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  if constexpr (D == 16) {
+    uint32_t r[2];
+    ldsm_x2(r, ks + G8::off(krow, 0));
+    const uint4 a = qf[lane];
+    mma_bf16(sc[0], a, i8_even(r[0]), i8_odd(r[0]));
+    mma_bf16(sc[1], a, i8_even(r[1]), i8_odd(r[1]));
+  } else {
+#pragma unroll
+    for (int cc = 0; cc < D / 32; ++cc) {
+      uint32_t r[4];
+      ldsm_x4(r, ks + G8::off(krow, 2 * cc + (lane >> 4)));
+      const uint4 a = qf[2 * cc * 32 + lane], b = qf[(2 * cc + 1) * 32 + lane];
+      mma_bf16(sc[0], a, i8_even(r[0]), i8_odd(r[0]));
+      mma_bf16(sc[1], a, i8_even(r[1]), i8_odd(r[1]));
+      mma_bf16(sc[0], b, i8_even(r[2]), i8_odd(r[2]));
+      mma_bf16(sc[1], b, i8_even(r[3]), i8_odd(r[3]));
+    }
+  }
+}
+
+// acc += a · V for a warp's 16 int8 keys (vs: [16, D] swizzled; a: P's A
+// fragments, already times v_scale and rounded). ldmatrix.trans gives a
+// thread keys 2c, 2c+1 at d = 2j, 2j+1 (j = lane / 4) in one register: its
+// even bytes are the B fragment of the n8 tile of even d, its odd bytes
+// that of odd d, so acc[2b] and acc[2b+1] hold the even and odd d of block
+// b (write_partial<.., true> puts them back in order).
+template <int D>
+__device__ __forceinline__ void pv8(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                    const int8_t* vs, int lane) {
+  using G8 = Geo8<__nv_bfloat16, D>;
+  const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  if constexpr (D == 16) {
+    uint32_t r[2];
+    ldsm_x2_trans(r, vs + G8::off(vrow, 0));
+    mma_bf16(acc[0], a, i8_even(r[0]), i8_even(r[1]));
+    mma_bf16(acc[1], a, i8_odd(r[0]), i8_odd(r[1]));
+  } else {
+#pragma unroll
+    for (int cc = 0; cc < D / 32; ++cc) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, vs + G8::off(vrow, 2 * cc + (lane >> 4)));
+      mma_bf16(acc[4 * cc], a, i8_even(r[0]), i8_even(r[1]));
+      mma_bf16(acc[4 * cc + 1], a, i8_odd(r[0]), i8_odd(r[1]));
+      mma_bf16(acc[4 * cc + 2], a, i8_even(r[2]), i8_even(r[3]));
+      mma_bf16(acc[4 * cc + 3], a, i8_odd(r[2]), i8_odd(r[3]));
+    }
+  }
+}
+
+// fp32: the same products on the CUDA cores, in qk's and pv's layouts
+template <int D>
+__device__ __forceinline__ void qk8(float (&sc)[2][4], const float* qs, const int8_t* ks,
+                                    int lane) {
+  using Gq = Geo<float, D>;
+  using G8 = Geo8<float, D>;
+  const int g = lane >> 2;
+  const int cq = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = j * 8 + cq + e;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < G8::CH; ++c) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(ks + G8::off(key, c));
+        const uint32_t wv[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float4 k4 = i8x4_to_f32(wv[h]);
+          const float4 a4 = *reinterpret_cast<const float4*>(qs + Gq::off(g, 4 * c + h));
+          const float4 b4 = *reinterpret_cast<const float4*>(qs + Gq::off(g + 8, 4 * c + h));
+          s0 += a4.x * k4.x + a4.y * k4.y + a4.z * k4.z + a4.w * k4.w;
+          s1 += b4.x * k4.x + b4.y * k4.y + b4.z * k4.z + b4.w * k4.w;
+        }
+      }
+      sc[j][e] = s0;
+      sc[j][2 + e] = s1;
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void pv8(float (&acc)[D / 8][4], const float (&p)[2][4],
+                                    const int8_t* vs, int lane) {
+  using G8 = Geo8<float, D>;
+  const int cq = (lane & 3) * 2;
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const int j = kk >> 3, e = kk & 1;
+    const int src = (lane & ~3) | ((kk & 7) >> 1);  // the quad lane holding key kk
+    const float p0 = __shfl_sync(0xffffffffu, p[j][e], src);
+    const float p1 = __shfl_sync(0xffffffffu, p[j][2 + e], src);
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t) {
+      const int d = t * 8 + cq;  // d and d+1 lie in one 16-byte chunk
+      const float4 v4 = i8x4_to_f32(
+          *reinterpret_cast<const uint16_t*>(vs + G8::off(kk, d >> 4) + (d & 15)));
+      acc[t][0] += p0 * v4.x;
+      acc[t][1] += p0 * v4.y;
+      acc[t][2] += p1 * v4.x;
+      acc[t][3] += p1 * v4.y;
+    }
+  }
+}
+
+// A warp's 16 keys of one tile (stage: its 16 K rows, 16 V rows, 16 k and
+// 16 v scales), the first of them the split's token kb; keys at or past t1
+// are masked (their rows and scales were zero-filled, never read). Scores
+// are (q · k8) · (k_scale · scale); p · v_scale is rounded to T for P·V,
+// and lsum sums p.
 template <typename T, int D>
-__global__ void __launch_bounds__(Geo<T, D>::THREADS)
+__device__ __forceinline__ void attend8(WarpAcc<D>& w, const void* qsm,
+                                        const unsigned char* stage, int kb, int t1,
+                                        float scale, bool hi, int lane) {
+  using G8 = Geo8<T, D>;
+  const int8_t* ks = reinterpret_cast<const int8_t*>(stage);
+  const int8_t* vs = ks + G8::ROWS;
+  const float* ksc = reinterpret_cast<const float*>(stage + 2 * G8::ROWS);
+  const float* vsc = ksc + 16;
+  const int cq = (lane & 3) * 2;
+  float sc[2][4];
+  if constexpr (G8::kBf16) {
+    qk8<D>(sc, static_cast<const uint4*>(qsm), ks, lane);
+  } else {
+    qk8<D>(sc, static_cast<const float*>(qsm), ks, lane);
+  }
+  float top[2] = {-INFINITY, -INFINITY};
+  float vw[2][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float2 k2 = *reinterpret_cast<const float2*>(ksc + j * 8 + cq);
+    const float2 v2 = *reinterpret_cast<const float2*>(vsc + j * 8 + cq);
+    vw[j][0] = v2.x;
+    vw[j][1] = v2.y;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = kb + j * 8 + cq + e < t1;
+      const float f = (e ? k2.y : k2.x) * scale;
+      sc[j][e] = ok ? sc[j][e] * f : -INFINITY;
+      sc[j][2 + e] = ok ? sc[j][2 + e] * f : -INFINITY;
+      top[0] = fmaxf(top[0], sc[j][e]);
+      top[1] = fmaxf(top[1], sc[j][2 + e]);
+    }
+  }
+  online_softmax<D, true>(w, sc, top, hi);
+  if constexpr (G8::kBf16) {
+    const uint32_t a[4] = {
+        pack_bf16(sc[0][0] * vw[0][0], sc[0][1] * vw[0][1]),
+        pack_bf16(sc[0][2] * vw[0][0], sc[0][3] * vw[0][1]),
+        pack_bf16(sc[1][0] * vw[1][0], sc[1][1] * vw[1][1]),
+        pack_bf16(sc[1][2] * vw[1][0], sc[1][3] * vw[1][1])};
+    pv8<D>(w.acc, a, vs, lane);
+  } else {
+    float pw[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        pw[j][e] = sc[j][e] * vw[j][e];
+        pw[j][2 + e] = sc[j][2 + e] * vw[j][e];
+      }
+    }
+    pv8<D>(w.acc, pw, vs, lane);
+  }
+}
+
+// paged_decode_split_kernel's function over int8 pages: k_cache / v_cache
+// [N, bs, KVH, D] int8 and their per-token scales [N, bs] fp32 (one per
+// physical slot, shared by the slot's KVH heads). Grid, splits, partials and
+// merge are the split kernel's; inside a block each warp streams its own 16
+// keys of every tile through its own ring (see the note at the top).
+// vec_scales: bs is a multiple of 4 and both scale tables are 16-byte
+// aligned, so a warp copies its 16 + 16 scales as 16-byte pieces of its
+// pages' scale runs; otherwise one 4-byte copy per scale.
+template <typename T, int D>
+__global__ void __launch_bounds__(Geo8<T, D>::THREADS, Geo8<T, D>::MIN_BLOCKS)
 paged_decode_int8_split_kernel(
     const T* __restrict__ q,              // [S, H, D] compute dtype
     const int8_t* __restrict__ k_cache,   // [N, bs, KVH, D]
@@ -597,18 +897,15 @@ paged_decode_int8_split_kernel(
     const int* __restrict__ tables,       // [S, MB]
     const int* __restrict__ lengths,      // [S]
     float* __restrict__ part,
-    int H, int KVH, int bs, int MB, int NS, float scale) {
-  using Gm = Geo<T, D>;
+    int H, int KVH, int bs, int MB, int NS, float scale, int vec_scales) {
   using G8 = Geo8<T, D>;
-  constexpr int TK = Gm::TK;
+  const bool page16 = bs % 16 == 0;
+  using QT = std::conditional_t<G8::kBf16, uint4, float>;
+  constexpr int TK = G8::TK, STAGES = G8::STAGES, CH = G8::CH;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* kt = qs + Gm::Q_ELEMS;  // the dequantized tile: K, then V
-  T* vt = kt + Gm::TILE_ELEMS;
-  int8_t* ring8 = reinterpret_cast<int8_t*>(vt + Gm::TILE_ELEMS);
-  float* ring_sc = reinterpret_cast<float*>(ring8 + G8::RING8);
-  float* mbuf = reinterpret_cast<float*>(kt);  // reused once the ring is drained
-  __shared__ float sm_mx[Gm::NW][kGroup], sm_st[Gm::NW][kGroup], sm_l[Gm::NW][kGroup];
+  unsigned char* ring = smem_raw + G8::QBYTES;
+  float* mbuf = reinterpret_cast<float*>(ring);  // reused once the rings are drained
+  __shared__ float sm_mx[G8::NW][kGroup], sm_st[G8::NW][kGroup], sm_l[G8::NW][kGroup];
 
   const int s = blockIdx.x;
   const int G = H / KVH;
@@ -623,76 +920,91 @@ paged_decode_int8_split_kernel(
 
   const SplitRun run(lengths[s], MB, bs, TK, NS, sp);
   if (run.empty()) {
-    write_empty<Gm::THREADS>(p, row0, gb, NS, sp, tid);
+    write_empty<G8::THREADS>(p, row0, gb, NS, sp, tid);
     return;
   }
   const int t0 = run.t0, t1 = run.t1, nt = run.nt;
   const int* trow = tables + (size_t)s * MB;
+  unsigned char* wring = ring + (size_t)warp * STAGES * G8::STAGE;
 
-  load_q<T, D>(qs, q, row0, gb, tid);
-  // rows past the split's end read nothing: zero bytes and a zero scale
-  auto load_tile = [&](int it, int buf) {
-    int8_t* k8 = ring8 + (size_t)buf * 2 * TK * D;
-    int8_t* v8 = k8 + TK * D;
-    float* ksc = ring_sc + (size_t)buf * 2 * TK;
-    float* vsc = ksc + TK;
-    const int tt = t0 + it * TK;
-    for (int i = tid; i < TK * G8::CH8; i += Gm::THREADS) {
-      const int r = i / G8::CH8, c = i % G8::CH8;
-      const int tok = tt + r;
-      const bool live = tok < t1;
-      size_t g = 0;
+  // The warp's 16 rows of tile it (tokens kb0 .. kb0 + 15) into stage buf,
+  // then their scales. A lane copies chunk c = lane % CH of RL rows of K
+  // and of V (for D = 16, lanes 0-15 a K row and lanes 16-31 a V row): its
+  // rows, chunk and shared-memory offsets are the same for every tile, so
+  // only the rows' pages are looked up per tile, one lookup in all when bs
+  // is a multiple of 16 (the 16 rows then lie in one page). Rows and scales
+  // at or past t1 read nothing and are written as zeros; a warp whose rows
+  // all lie past t1 copies nothing (it attends nothing either).
+  constexpr int RL = CH >= 2 ? CH / 2 : 1;
+  const int c = lane % CH;
+  const int rowstride = KVH * D;  // bytes between two slots' rows of a kv head
+  const int8_t* kcol = k_cache + (size_t)n * D + c * 16;
+  const int8_t* vcol = v_cache + (size_t)n * D + c * 16;
+  auto load = [&](int it, int buf) {
+    const int kb0 = t0 + it * TK + warp * 16;
+    if (kb0 >= t1) return;
+    const int nlive = t1 - kb0;  // rows r < nlive are live
+    unsigned char* st = wring + buf * G8::STAGE;
+    const int pg = kb0 / bs, slot0 = kb0 - pg * bs;
+    const size_t page0 = page16 ? (size_t)__ldg(trow + pg) * bs + slot0 : 0;
+#pragma unroll
+    for (int j = 0; j < RL; ++j) {
+      const int r = CH >= 2 ? (lane + 32 * j) / CH : lane & 15;
+      const bool live = r < nlive;
+      size_t slot = 0;  // the row's physical slot
       if (live) {
-        const int pid = __ldg(trow + tok / bs);
-        g = (((size_t)pid * bs + tok % bs) * KVH + n) * D + c * 16;
+        if (page16) {
+          slot = page0 + r;
+        } else {
+          const int tok = kb0 + r;
+          slot = (size_t)__ldg(trow + tok / bs) * bs + tok % bs;
+        }
       }
-      cp_async16(k8 + r * D + c * 16, k_cache + g, live);
-      cp_async16(v8 + r * D + c * 16, v_cache + g, live);
+      const int dst = G8::off(r, c);
+      if (CH >= 2 || lane < 16) cp_async16(st + dst, kcol + slot * rowstride, live);
+      if (CH >= 2 || lane >= 16) cp_async16(st + G8::ROWS + dst, vcol + slot * rowstride, live);
     }
-    for (int r = tid; r < TK; r += Gm::THREADS) {
-      const int tok = tt + r;
-      const bool live = tok < t1;
+    float* scs = reinterpret_cast<float*>(st + 2 * G8::ROWS);
+    if (vec_scales) {
+      if (lane < 8) {  // 4 pieces of 4 scales each for K, then for V
+        const int kv = lane >> 2, r = 4 * (lane & 3), tok = kb0 + r;
+        const int live = min(max(nlive - r, 0), 4);
+        size_t g = 0;
+        if (live) g = page16 ? page0 + r : (size_t)__ldg(trow + tok / bs) * bs + tok % bs;
+        cp_async16_n(scs + kv * 16 + r, (kv ? v_scale : k_scale) + g, 4 * live);
+      }
+    } else {
+      const int kv = lane >> 4, r = lane & 15, tok = kb0 + r;
+      const bool live = r < nlive;
       size_t g = 0;
       if (live) g = (size_t)__ldg(trow + tok / bs) * bs + tok % bs;
-      cp_async4(ksc + r, k_scale + g, live);
-      cp_async4(vsc + r, v_scale + g, live);
-    }
-  };
-  // the warp's own 16 keys of the tile in ring buffer buf: the rows it
-  // attends, so no other warp waits for them
-  auto dequant_rows = [&](int buf, int key0) {
-    const int8_t* k8 = ring8 + (size_t)buf * 2 * TK * D;
-    const int8_t* v8 = k8 + TK * D;
-    const float* ksc = ring_sc + (size_t)buf * 2 * TK;
-    const float* vsc = ksc + TK;
-    for (int i = lane; i < 16 * G8::CH8; i += 32) {
-      const int r = key0 + i / G8::CH8, c = i % G8::CH8;
-      dequant16<T, D>(kt, r, c, *reinterpret_cast<const int4*>(k8 + r * D + c * 16), ksc[r]);
-      dequant16<T, D>(vt, r, c, *reinterpret_cast<const int4*>(v8 + r * D + c * 16), vsc[r]);
+      cp_async4(scs + kv * 16 + r, (kv ? v_scale : k_scale) + g, live);
     }
   };
 #pragma unroll
-  for (int i = 0; i < Gm::STAGES - 1; ++i) {
-    if (i < nt) load_tile(i, i);
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < nt) load(i, i);
     cp_async_commit();
   }
+  load_q8<D, G8::THREADS>(reinterpret_cast<QT*>(smem_raw), q, row0, gb, tid);
+  __syncthreads();  // Q is whole; from here on no barrier until the epilogue
 
   WarpAcc<D> w;
   for (int it = 0; it < nt; ++it) {
-    cp_async_wait<Gm::STAGES - 2>();  // this thread's copies of tile it have landed
-    __syncthreads();  // everyone's have; tile it-1 is attended: its ring buffer is free
-    if (it + Gm::STAGES - 1 < nt) load_tile(it + Gm::STAGES - 1, (it + Gm::STAGES - 1) % Gm::STAGES);
+    cp_async_wait<STAGES - 2>();  // this lane's copies of tile it have landed
+    __syncwarp();  // the warp's have; the stage of tile it-1 is attended and free
+    if (it + STAGES - 1 < nt) load(it + STAGES - 1, (it + STAGES - 1) % STAGES);
     cp_async_commit();
     const int kb = t0 + it * TK + warp * 16;  // the warp's first key
-    if (kb >= t1) continue;                   // warp-uniform: all 16 keys dead
-    dequant_rows(it % Gm::STAGES, warp * 16);
-    __syncwarp();  // the warp's dequantized rows are whole
-    attend_tile<T, D>(w, qs, kt, vt, warp * 16, kb, t1, scale, lane);
+    if (kb >= t1) break;                      // warp-uniform; later tiles too
+    attend8<T, D>(w, smem_raw, wring + (it % STAGES) * G8::STAGE, kb, t1, scale, gb > 8,
+                  lane);
   }
 
   cp_async_wait<0>();
-  __syncthreads();  // nothing reads the tiles any more: their memory becomes mbuf
-  write_partial<Gm::NW, Gm::THREADS, D>(p, w, mbuf, sm_mx, sm_st, sm_l, row0, gb, NS, sp, tid);
+  __syncthreads();  // no warp reads its ring any more: the rings become mbuf
+  write_partial<G8::NW, G8::THREADS, D, G8::kBf16>(p, w, mbuf, sm_mx, sm_st, sm_l, row0, gb,
+                                                    NS, sp, tid);
 }
 
 // One block per (lane, query head): the splits' partials rescaled by
@@ -810,10 +1122,35 @@ cudaError_t launch_d8(const void* q, const void* k, const void* v, const float* 
   if (err != cudaSuccess) return err;
   const int G = H / KVH;
   dim3 grid(S, KVH * ((G + kGroup - 1) / kGroup), NS);
-  paged_decode_int8_split_kernel<T, D><<<grid, Geo<T, D>::THREADS, G8::SMEM, stream>>>(
+  const int vec_scales = bs % 4 == 0 && reinterpret_cast<uintptr_t>(ks) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(vs) % 16 == 0;
+  paged_decode_int8_split_kernel<T, D><<<grid, G8::THREADS, G8::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
-      ks, vs, tables, lengths, part, H, KVH, bs, MB, NS, scale);
+      ks, vs, tables, lengths, part, H, KVH, bs, MB, NS, scale, vec_scales);
   return merge_after<T>(cudaGetLastError(), part, o, m, l, S, H, D, NS, stream, launched);
+}
+
+// The int8 split kernel's resident blocks per SM, as the runtime computes
+// them from its registers, threads and shared memory
+template <typename T, int D>
+cudaError_t blocks_d8(int* blocks) {
+  using G8 = Geo8<T, D>;
+  cudaError_t err = allow_smem<paged_decode_int8_split_kernel<T, D>>(G8::SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, paged_decode_int8_split_kernel<T, D>, G8::THREADS, G8::SMEM);
+}
+
+template <typename T>
+cudaError_t blocks_t8(int D, int* blocks) {
+  switch (D) {
+    case 16: return blocks_d8<T, 16>(blocks);
+    case 32: return blocks_d8<T, 32>(blocks);
+    case 64: return blocks_d8<T, 64>(blocks);
+    case 128: return blocks_d8<T, 128>(blocks);
+    case 256: return blocks_d8<T, 256>(blocks);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -874,8 +1211,9 @@ extern "C" int paged_decode_attention_launch(
 
 // paged_decode_attention_launch over int8 pages: k_cache / v_cache [N, bs,
 // KVH, D] int8, k_scale / v_scale [N, bs] fp32. dtype is the compute dtype
-// (q's and o's: 0 = float32, 1 = bfloat16); the pages are dequantized into
-// it. part, launched and the return value as paged_decode_attention_launch:
+// (q's and o's: 0 = float32, 1 = bfloat16), in which p · v_scale is
+// rounded for P·V. part, launched and the return value as
+// paged_decode_attention_launch:
 // launched[0] counts paged_decode_int8_split_kernel, [1] the merge kernel.
 extern "C" int paged_decode_attention_int8_launch(
     const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
@@ -906,4 +1244,16 @@ extern "C" int paged_decode_attention_int8_launch(
     err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The resident blocks per SM of paged_decode_attention_int8_launch's split
+// kernel for head_dim D and compute dtype (0 = float32, 1 = bfloat16), on
+// the current device, into *blocks; the wrapper plans its split count from
+// it. Returns the runtime's error, 0 on success.
+extern "C" int paged_decode_int8_blocks_per_sm(int D, int dtype, int* blocks) {
+  if (blocks == nullptr) return (int)cudaErrorInvalidValue;
+  *blocks = 0;
+  if (dtype == 0) return (int)blocks_t8<float>(D, blocks);
+  if (dtype == 1) return (int)blocks_t8<__nv_bfloat16>(D, blocks);
+  return (int)cudaErrorInvalidValue;
 }

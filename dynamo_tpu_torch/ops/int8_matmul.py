@@ -44,16 +44,20 @@ K_TILE = 64  # K per chunk (csrc: kChunk)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the plan (mirrors csrc: kBM and the widths of the tile kernel, GeoB of the
-# split-K kernel). The wgmma tile kernel from TILE_MIN_M rows of x on, where
-# its grid keeps at least a quarter of the SMs busy (both kernels forced on
-# the card: PERF.md)
-TILE_MIN_M, TILE_MIN_SM_SHARE = 17, 0.25
-TILE_LANES = 128
-TILE_ROWS = (256, 224, 128)  # the tile kernel's widths (wgmma's N), widest first
-# the split-K kernel's weight rows per block (4 or 1 row groups of 16) and
-# the 64-wide chunks of K in each stage of its ring
+# split-K kernel). The split-K kernel's weight rows per block (4 or 1 row
+# groups of 16) and the 64-wide chunks of K in each stage of its ring
 SPLITK_ROWS = {64: 4, 16: 8}
 SPLITK_MAX_LANES = 64  # 8 lane tiles of 8
+# The wgmma tile kernel above SPLITK_MAX_LANES rows of x, where its grid
+# keeps at least a quarter of the SMs busy. Up to 64 rows every product
+# stays on split-K, the kernel that a decode step runs: the tile kernel's
+# tensor-core sums round more often as K grows, which put a speculative
+# verify dispatch (8 lanes x 5 positions = 40 rows) 2.020e-2 from the same
+# positions decoded one step at a time, against 1.798e-2 with every verify
+# product on split-K (PERF.md, ROADMAP C2)
+TILE_MIN_M, TILE_MIN_SM_SHARE = SPLITK_MAX_LANES + 1, 0.25
+TILE_LANES = 128
+TILE_ROWS = (256, 224, 128)  # the tile kernel's widths (wgmma's N), widest first
 BLOCKS_PER_SM = 1  # the split-K grid's target: blocks per SM (a split sweep on the card)
 MIN_SPLIT_CHUNKS = 4  # 64-wide chunks of K per split, at the least
 MAX_SPLITS = 16  # the splits of a tile are one thread block cluster (csrc: kMaxSplits)
@@ -138,15 +142,18 @@ def plan_int8(m: int, n: int, k: int, sms: int, path: Optional[str] = None,
     An expert stack (``experts`` > 1) from ``EXPERT_TILE_MIN_C`` rows per
     expert on takes the expert tile kernel (:func:`_expert_tile_plan`).
 
-    The tile kernel (a prefill chunk) from ``TILE_MIN_M`` rows of x on,
-    where its grid keeps ``TILE_MIN_SM_SHARE`` of the ``sms`` SMs busy:
+    The tile kernel (a prefill chunk) from ``TILE_MIN_M`` = 65 rows of x
+    on, where its grid keeps ``TILE_MIN_SM_SHARE`` of the ``sms`` SMs busy:
     output tiles of 128 rows of x by 256, 224 or 128 weight rows, the width
     whose last round of tiles leaves the least idle (the cost of a round
-    taken as its width plus 32). Else (decode), the split-K kernel: tiles
-    of 64 or 16 weight rows and of up to 64 rows of x, and as many splits
-    of K's 64-wide chunks as bring the grid to about ``BLOCKS_PER_SM``
-    blocks on each SM without passing it (1 when the tiles alone fill
-    them), each split at least ``MIN_SPLIT_CHUNKS`` chunks long and at most
+    taken as its width plus 32). Else, the split-K kernel: every product
+    of up to 64 rows of x, whatever its shape (decode, a speculative verify
+    of lanes x (k + 1) <= 64 rows, and prefill chunks' tails of 17-64
+    rows), in tiles of 64 or 16 weight rows and of up to 64 rows of x, and
+    as many splits of K's 64-wide chunks as bring the grid to about
+    ``BLOCKS_PER_SM`` blocks on each SM without passing it (1 when the
+    tiles alone fill them), each split at least ``MIN_SPLIT_CHUNKS`` chunks
+    long and at most
     ``MAX_SPLITS`` of them. 64-row blocks share each row of x among more
     weight rows; 16-row blocks are taken where they save enough splits (a
     split sweep on the card). ``path`` forces a kernel."""

@@ -14,15 +14,15 @@ The split count is planned on the host from shapes alone
 (:func:`plan_splits`): the wrapper never reads ``lengths``, so it never
 waits for the card and a CUDA graph can capture it.
 
-``paged_decode_attention_int8`` is the same function over an int8 pool
+``paged_decode_attention_int8`` is the same attention over an int8 pool
 (pages int8, one fp32 scale per token slot, the layout of the JAX
-``make_kv_cache(..., quantized=True)``): on a CUDA tensor the int8 split
-kernel dequantizes each tile on its way into shared memory and shares the
-split kernel's compute and merge; on a CPU tensor
-:func:`paged_decode_attention_int8_plain` runs ``dequantize_kv`` on the
-gathered pages and then :func:`paged_decode_attention_plain`. The JAX
-package has no Pallas kernel for it (its int8 pools decode through XLA's
-dense tier).
+``make_kv_cache(..., quantized=True)``) with the scales folded in: a key's
+score is (q · k8) · k_scale · scale, and p · v_scale is what is rounded to
+q's dtype for P·V. On a CUDA tensor the int8 split kernel feeds the int8
+rows straight into its tensor-core fragments and shares the split kernel's
+merge; on a CPU tensor :func:`paged_decode_attention_int8_plain` runs the
+same arithmetic. The JAX package has no Pallas kernel for it (its int8
+pools decode through XLA's ``dequantize_kv`` dense tier).
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a``
 (``ops/build.py``) and bound with ``ctypes``; they launch on PyTorch's
@@ -38,7 +38,6 @@ from typing import Optional
 
 import torch
 
-from .attention import dequantize_kv
 from .build import KernelLibrary
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -48,6 +47,7 @@ LOG2E = 1.4426950408889634
 TILE_KEYS = {torch.float32: 32, torch.bfloat16: 64}
 BLOCKS_PER_SM = 4  # the planner's target of split-kernel blocks per SM
 MIN_SPLIT_TILES = 2  # tiles of the longest context per split, at the least
+INT8_TILE_KEYS = 64  # keys per tile of the int8 split kernel (csrc: Geo8::TK)
 
 _Launched = ctypes.c_int * 3  # the C entry's report: split, merge launches; splits
 
@@ -78,6 +78,9 @@ def _bind(lib) -> None:
     fn.restype = ctypes.c_int
     fn = lib.paged_decode_attention_int8_launch
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + tail
+    fn.restype = ctypes.c_int
+    fn = lib.paged_decode_int8_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
 
 
@@ -140,11 +143,46 @@ def plan_splits(num_lanes: int, num_heads: int, num_kv_heads: int, max_blocks: i
     return max(1, min(want, max_tiles // MIN_SPLIT_TILES, max_blocks))
 
 
+def plan_splits_int8(num_lanes: int, num_heads: int, num_kv_heads: int, max_blocks: int,
+                     block_size: int, resident: int, num_sms: int) -> int:
+    """Splits of each lane's context for the int8 split kernel, from shapes
+    alone: as many as keep the whole grid within one wave, ``resident``
+    blocks on each of ``num_sms`` SMs (the blocks per SM that the kernel's
+    registers and shared memory allow, as the runtime reports them), and
+    never more than the table has pages or than leave each split
+    ``MIN_SPLIT_TILES`` tiles of the longest context the table holds."""
+    groups = -(-(num_heads // num_kv_heads) // 16)
+    blocks = max(1, num_lanes * num_kv_heads * groups)
+    max_tiles = -(-max_blocks * block_size // INT8_TILE_KEYS)
+    return max(1, min(resident * num_sms // blocks, max_tiles // MIN_SPLIT_TILES, max_blocks))
+
+
 @lru_cache(maxsize=None)
 def _planned_splits(s: int, h: int, kvh: int, mb: int, bs: int, dtype: torch.dtype,
                     index: int) -> int:
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return plan_splits(s, h, kvh, mb, bs, dtype, sms)
+
+
+@lru_cache(maxsize=None)
+def int8_blocks_per_sm(d: int, dtype: torch.dtype, index: int) -> int:
+    """The int8 split kernel's resident blocks per SM on device ``index``
+    for head_dim ``d`` and compute dtype ``dtype``."""
+    lib = LIBRARY.load()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.paged_decode_int8_blocks_per_sm(d, _DTYPES[dtype], ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(f"paged_decode_int8_blocks_per_sm(D={d}, {dtype}): cudaError {err}, "
+                           f"{out.value} blocks")
+    return out.value
+
+
+@lru_cache(maxsize=None)
+def _planned_int8_splits(s: int, h: int, kvh: int, mb: int, bs: int, d: int,
+                         dtype: torch.dtype, index: int) -> int:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return plan_splits_int8(s, h, kvh, mb, bs, int8_blocks_per_sm(d, dtype, index), sms)
 
 
 def paged_decode_attention(
@@ -293,11 +331,11 @@ def paged_decode_attention_int8(
     return_stats: bool = False,
     num_splits: Optional[int] = None,
 ):
-    """:func:`paged_decode_attention` over an int8 pool, the pages
-    dequantized to q's dtype as ``dequantize_kv`` does it. On a CUDA tensor
-    it launches the int8 split kernel and the merge (the same split plan as
-    the bf16 kernel for the same shapes) or raises; on a CPU tensor it runs
-    :func:`paged_decode_attention_int8_plain`."""
+    """:func:`paged_decode_attention` over an int8 pool with the scales
+    folded in (the arithmetic of :func:`paged_decode_attention_int8_plain`).
+    On a CUDA tensor it launches the int8 split kernel and the merge, with
+    the split count of :func:`plan_splits_int8` unless ``num_splits``
+    forces one, or raises; on a CPU tensor it runs the plain version."""
     _check_splits(num_splits)
     dev = q.device
     if dev.type == "cpu":
@@ -309,6 +347,12 @@ def paged_decode_attention_int8(
         raise ValueError(f"paged_decode_attention_int8: unsupported device {dev}")
     _check(q, k_cache, v_cache, block_tables, lengths, k_scale, v_scale)
     lib = LIBRARY.load()
+    if num_splits is None:
+        s, h, d = q.shape
+        _, bs, kvh, _ = k_cache.shape
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        num_splits = _planned_int8_splits(s, h, kvh, block_tables.shape[1], bs, d, q.dtype,
+                                          index)
     return _launch(lib.paged_decode_attention_int8_launch, paged_decode_attention_int8,
                    int8_device_launches, "paged_decode_int8_split_kernel", q,
                    (k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
@@ -331,23 +375,53 @@ def paged_decode_attention_int8_plain(
     scale: Optional[float] = None,
     return_stats: bool = False,
 ):
-    """The int8 kernel's function in plain PyTorch: each lane's live pages
-    gathered (entries past them never indexed) and dequantized to q's dtype
-    with ``dequantize_kv``, then :func:`paged_decode_attention_plain` over
-    them."""
-    s = q.shape[0]
-    _, bs, kvh, d = k_cache.shape
+    """The int8 kernel's function in plain PyTorch, with its roundings. The
+    int8 values are exact in q's dtype; a key's score is the fp32 sum
+    q · k8 times (k_scale · scale); m and the integer stabilizer are taken
+    over those scores and l sums the unscaled p; each p times its v_scale
+    is rounded to q's dtype and summed against the int8 V values in fp32.
+    Slots past a lane's length are never read (their table entries, values
+    and scales are masked). With a float64 q every step runs in float64
+    and nothing is rounded: the exact function of the int8 pages and
+    scales, which the card's checks hold both kernels against. In float32
+    it equals ``dequantize_kv`` followed by
+    :func:`paged_decode_attention_plain` up to float32 rounding."""
+    s, h, d = q.shape
+    _, bs, kvh, _ = k_cache.shape
     mb = block_tables.shape[1]
-    n_pages = (lengths.to(torch.int64) + bs - 1) // bs
+    g = h // kvh
+    if scale is None:
+        scale = d ** -0.5
+    cdt = q.dtype
+    wdt = torch.float64 if cdt == torch.float64 else torch.float32
+    lengths = lengths.to(torch.int64)
+    # table entries past a lane's live pages may be garbage: never index them
+    n_pages = (lengths + bs - 1) // bs
     live_block = torch.arange(mb, device=q.device)[None, :] < n_pages[:, None]
     tables = torch.where(live_block, block_tables.to(torch.int64), 0)
-    k = dequantize_kv(k_cache[tables], k_scale[tables], q.dtype)  # [S, MB, bs, KVH, D]
-    v = dequantize_kv(v_cache[tables], v_scale[tables], q.dtype)
-    gathered = torch.arange(s * mb, dtype=torch.int32, device=q.device).reshape(s, mb)
-    return paged_decode_attention_plain(
-        q, k.reshape(s * mb, bs, kvh, d), v.reshape(s * mb, bs, kvh, d), gathered, lengths,
-        scale=scale, return_stats=return_stats,
-    )
+    live = torch.arange(mb * bs, device=q.device)[None, :] < lengths[:, None]  # [S, T]
+    k = k_cache[tables].reshape(s, mb * bs, kvh, d).to(wdt)
+    v = v_cache[tables].reshape(s, mb * bs, kvh, d).to(wdt)
+    # dead slots' scales are stale (NaN in the tests): zero them, so no
+    # 0 * NaN reaches a sum
+    zero = torch.zeros((), dtype=wdt, device=q.device)
+    ks = torch.where(live, k_scale[tables].reshape(s, mb * bs).to(wdt), zero)
+    vs = torch.where(live, v_scale[tables].reshape(s, mb * bs).to(wdt), zero)
+    qg = q.to(wdt).reshape(s, kvh, g, d)
+    scores = torch.einsum("sngd,stnd->sngt", qg, k) * (ks * scale)[:, None, None, :]
+    scores = scores.masked_fill(~live[:, None, None, :], float("-inf"))
+    m = scores.amax(dim=-1).clamp(min=-1e30)
+    st = torch.ceil(m * LOG2E)
+    p = torch.exp2(scores * LOG2E - st[..., None])
+    l_st = p.sum(dim=-1)
+    pw = (p * vs[:, None, None, :]).to(cdt).to(wdt)
+    num = torch.einsum("sngt,stnd->sngd", pw, v)
+    o = num / torch.where(l_st > 0, l_st, torch.ones_like(l_st))[..., None]
+    l = torch.where(l_st > 0, l_st * torch.exp2(st - m * LOG2E), torch.zeros_like(l_st))
+    o = o.reshape(s, h, d).to(cdt)
+    if return_stats:
+        return o, m.reshape(s, h), l.reshape(s, h)
+    return o
 
 
 def paged_decode_split_plain(

@@ -108,6 +108,7 @@ def test_kernel_matches_plain(cuda, S, H, KVH, D, bs, max_len, dtype):
 # a 0-length lane, lengths that are multiples of bs (16), a one-token lane,
 # and lanes that end mid-page
 HARD_LENGTHS = [0, 48, 1, 300, 160, 17]
+LONG_LENGTHS = [0, 2048, 700, 1500, 333, 1024]  # decode's contexts of hundreds of keys
 
 
 @pytest.mark.parametrize("num_splits", [1, 2, 7, None])
@@ -211,18 +212,62 @@ def test_int8_kv_kernel_matches_plain(cuda, D, dtype, num_splits):
 @pytest.mark.parametrize("num_splits", [1, 2, 7, None])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_int8_kv_kernel_bit_equal_to_bf16_kernel_on_dequantized_pages(cuda, D, dtype,
-                                                                      num_splits):
-    """Same split count, same compute: the int8 kernel's only extra step is
-    the dequantization, which must be dequantize_kv's to the bit."""
-    q, kq, vq, ks, vs, tables, lens = _int8_pool_case(8, 2, D, 16, HARD_LENGTHS, dtype, D,
+def test_int8_kv_kernel_against_fp64_and_the_bf16_kernel_on_dequantized_pages(cuda, D, dtype,
+                                                                                num_splits):
+    """The kernel folds the scales into the scores and into p: it rounds
+    each p · v_scale once where the bf16 kernel on dequantize_kv(pages)
+    rounds every k, v and p. Against
+    the fp64 evaluation of the same int8 pages and scales, the fp32 kernel
+    is within 1e-5 and the bf16 kernel's root-mean-square error is no
+    larger than the bf16 kernel's on the dequantized pages, over contexts
+    of hundreds of keys. (A lane of a few keys is not the case: there the
+    dequantized path rounds each output about once, bf16(v · s) for a
+    single key, where folding rounds p · s and then the output.)"""
+    q, kq, vq, ks, vs, tables, lens = _int8_pool_case(8, 2, D, 16, LONG_LENGTHS, dtype, D,
                                                       cuda)
-    got = paged_decode_attention_int8(q, kq, vq, ks, vs, tables, lens, return_stats=True,
-                                      num_splits=num_splits)
+    got = paged_decode_attention_int8(q, kq, vq, ks, vs, tables, lens, num_splits=num_splits)
+    exact = paged_decode_attention_int8_plain(q.double(), kq, vq, ks, vs, tables, lens)
+    torch.cuda.synchronize()
+    err = (got.double() - exact).pow(2).mean().sqrt().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.double(), exact, atol=1e-5, rtol=0)
+        return
     want = paged_decode_attention(q, dequantize_kv(kq, ks, dtype), dequantize_kv(vq, vs, dtype),
-                                  tables, lens, return_stats=True, num_splits=num_splits)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+                                  tables, lens, num_splits=num_splits)
+    err_dequantized = (want.double() - exact).pow(2).mean().sqrt().item()
+    assert 0 < err <= err_dequantized, (err, err_dequantized)
+
+
+@pytest.mark.parametrize("bs", [4, 6, 8, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kv_kernel_block_sizes(cuda, bs, dtype):
+    """Pages of 4-32 slots: 16-byte scale pieces where bs is a multiple of
+    4, one 4-byte copy per scale at bs = 6; a warp's 16 keys over several
+    pages."""
+    args = _int8_pool_case(8, 2, 128, bs, HARD_LENGTHS, dtype, 40 + bs, cuda)
+    o, m, l = paged_decode_attention_int8(*args, return_stats=True)
+    po, pm, pl = paged_decode_attention_int8_plain(*args, return_stats=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, po, atol=1e-5, rtol=0)
+        torch.testing.assert_close(l, pl, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=0)
+        torch.testing.assert_close(l, pl, atol=0, rtol=1e-3)
+    torch.testing.assert_close(m, pm, atol=1e-5, rtol=1e-3)
+
+
+def test_int8_kv_plan_fills_one_wave_of_the_kernels_residency(cuda):
+    from dynamo_tpu_torch.ops.paged_attention import int8_blocks_per_sm, plan_splits_int8
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for D in HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert int8_blocks_per_sm(D, dtype, 0) >= 1
+    resident = int8_blocks_per_sm(128, torch.bfloat16, 0)
+    splits = plan_splits_int8(8, 32, 8, 128, 16, resident, sms)
+    assert 8 * 8 * splits <= resident * sms < 8 * 8 * (splits + 1)
 
 
 def test_int8_kv_kernel_rejects_what_it_does_not_take(cuda):

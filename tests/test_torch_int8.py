@@ -171,6 +171,29 @@ def test_plan_int8_is_a_function_of_shapes_alone():
         assert int8_matmul.plan_int8(1024, n, k, 132).path == "tile"
 
 
+# llama3-8b's products (K, N), the LM head included
+_LLAMA3_8B_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256))
+
+
+@pytest.mark.parametrize("m", [17, 40, 64, 65, 128, 1024])
+@pytest.mark.parametrize("k,n", _LLAMA3_8B_SHAPES)
+def test_plan_int8_keeps_up_to_64_rows_on_split_k(k, n, m):
+    """A speculative verify dispatch (8 lanes x (k + 1) = 40 rows at k = 4)
+    and any product of up to SPLITK_MAX_LANES rows run on the split-K
+    kernel, the kernel of a decode step, in one lane tile; from 65 rows on
+    the plan is as before: the tile kernel wherever its grid keeps a
+    quarter of the SMs busy (every product of a 1024-row chunk)."""
+    plan = int8_matmul.plan_int8(m, n, k, 132)
+    tile = int8_matmul.plan_int8(m, n, k, 132, path="tile")
+    if m <= int8_matmul.SPLITK_MAX_LANES:
+        assert plan.path == "splitk" and plan.kernel == "w8a16_splitk_kernel"
+        assert plan.lanes >= m and plan.blocks == plan.splits * -(-n // plan.rows)
+    elif tile.blocks >= int8_matmul.TILE_MIN_SM_SHARE * 132:
+        assert plan == tile and plan.kernel == "w8a16_tile_kernel"
+    else:
+        assert plan.path == "splitk" and m < 1024
+
+
 # mixtral-8x7b's expert stacks (8 experts): C = 2, 4 (decode at 8 lanes) and
 # 5 on the split-K kernel; C = 130 as one token tile of 136, C = 512 (a
 # 1024-row prefill chunk) as two of 256, on the expert tile kernel

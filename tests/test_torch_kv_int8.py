@@ -6,6 +6,11 @@
   JAX's ``dequantize_kv`` followed by the v2 Pallas kernel in interpret
   mode, at atol and rtol 1e-5 (the fp32 plain versions' parity bound,
   ``tests/test_torch_paged_attention.py``).
+- The int8 decode function's folded scales (scores times k_scale, p times
+  v_scale before p is rounded): in fp32 it equals ``dequantize_kv``
+  followed by the plain paged attention at atol and rtol 1e-5; in bf16 it
+  sits no farther from an fp64 evaluation of the same int8 pages than
+  that path does.
 - ``forward_chunk`` (with and without history), ``forward_window`` and
   ``flush_window`` on an int8 pool against JAX's ``forward_chunk``,
   ``forward_window(("dense", *gather_history(...)))`` and ``flush_window``:
@@ -31,7 +36,11 @@ from dynamo_tpu_torch.engine_torch.allocator import KvDtypeMismatch
 from dynamo_tpu_torch.engine_torch.engine import EngineConfig, TorchServingEngine, env_kv_dtype
 from dynamo_tpu_torch.engine_torch.weights import params_from_numpy
 from dynamo_tpu_torch.models import llama as tl
-from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention_int8
+from dynamo_tpu_torch.ops.paged_attention import (
+    paged_decode_attention_int8,
+    paged_decode_attention_int8_plain,
+    paged_decode_attention_plain,
+)
 
 LOGIT_RTOL = 1e-4  # max|Δlogits| / max|logits|
 SCALE_RTOL = 1e-6
@@ -140,6 +149,84 @@ def test_int8_decode_plain_matches_dequantize_then_v2_kernel(lengths):
     )
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+def _ragged_int8_case(seed, dtype, s=6, h=8, kvh=2, d=32, bs=8, mb=6):
+    """Random int8 pages and scales under permuted tables (garbage past each
+    lane's live pages), ragged lengths with one empty lane, NaN scales in
+    the dead slots of each lane's last page, q in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    n_blocks = s * mb + 5
+    pages = rng.integers(-127, 128, size=(2, n_blocks, bs, kvh, d)).astype(np.int8)
+    scales = rng.uniform(1e-3, 5e-2, size=(2, n_blocks, bs)).astype(np.float32)
+    tables = rng.permutation(n_blocks)[: s * mb].reshape(s, mb).astype(np.int32)
+    lens = rng.integers(1, mb * bs + 1, size=s).astype(np.int32)
+    lens[1] = 0
+    for lane, n in enumerate(lens):
+        live = -(-int(n) // bs)
+        if n % bs:
+            scales[:, tables[lane, live - 1], n % bs:] = np.nan
+        tables[lane, live:] = 1 << 30
+    q = torch.from_numpy(rng.normal(size=(s, h, d)).astype(np.float32)).to(dtype)
+    t = torch.from_numpy
+    return q, t(pages[0]), t(pages[1]), t(scales[0]), t(scales[1]), t(tables), t(lens)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int8_decode_plain_fp32_equals_dequantize_then_plain(seed):
+    q, kq, vq, ks, vs, tables, lens = _ragged_int8_case(seed, torch.float32)
+    got = paged_decode_attention_int8_plain(q, kq, vq, ks, vs, tables, lens, return_stats=True)
+    want = paged_decode_attention_plain(q, tl.dequantize_kv(kq, ks, torch.float32),
+                                        tl.dequantize_kv(vq, vs, torch.float32), tables, lens,
+                                        return_stats=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_int8_decode_plain_bf16_no_farther_from_fp64_than_dequantize_path(seed):
+    """Folding the scales rounds each p · v_scale once, where dequantizing
+    first rounds every k and v value and p: the folded bf16 result is no
+    farther from the fp64 evaluation of the same int8 pages and scales, in
+    the root mean square over all outputs. (The largest single error is
+    that of one output's final rounding to bf16 in a short lane, which
+    both paths share, and goes either way.)"""
+    q, kq, vq, ks, vs, tables, lens = _ragged_int8_case(seed, torch.bfloat16)
+    exact = paged_decode_attention_int8_plain(q.double(), kq, vq, ks, vs, tables, lens)
+    assert exact.dtype == torch.float64 and torch.isfinite(exact).all()
+    folded = paged_decode_attention_int8_plain(q, kq, vq, ks, vs, tables, lens)
+    dequantized = paged_decode_attention_plain(q, tl.dequantize_kv(kq, ks, torch.bfloat16),
+                                               tl.dequantize_kv(vq, vs, torch.bfloat16),
+                                               tables, lens)
+    assert folded.dtype == torch.bfloat16 and torch.isfinite(folded.float()).all()
+    err_folded = (folded.double() - exact).pow(2).mean().sqrt().item()
+    err_dequantized = (dequantized.double() - exact).pow(2).mean().sqrt().item()
+    assert 0 < err_folded <= err_dequantized, (err_folded, err_dequantized)
+    assert (folded[1] == 0).all()  # the empty lane
+
+
+def test_int8_split_plan_is_one_wave_of_shapes_alone():
+    """The int8 kernel's split count: a function of shapes and of the
+    kernel's resident blocks per SM, never of lengths; the grid stays
+    within one wave (8 lanes x 8 kv heads at 4 blocks per SM on 132 SMs:
+    8 splits, 512 blocks of 528; at 3 blocks per SM 6, 384 of 396)."""
+    import inspect
+
+    from dynamo_tpu_torch.ops.paged_attention import plan_splits_int8
+
+    assert "lengths" not in inspect.signature(plan_splits_int8).parameters
+    assert plan_splits_int8(8, 32, 8, 128, 16, 4, 132) == 8
+    assert plan_splits_int8(8, 32, 8, 128, 16, 3, 132) == 6
+    assert plan_splits_int8(8, 32, 8, 512, 16, 4, 132) == 8  # 8192 tokens of table
+    assert plan_splits_int8(64, 32, 8, 64, 16, 4, 132) == 1
+    assert plan_splits_int8(1, 32, 8, 128, 16, 4, 132) == 16  # 2 tiles of 64 keys each
+    for lanes in (1, 2, 8, 64, 256):
+        for resident in (1, 2, 3, 4, 6):
+            for mb in (1, 8, 128):
+                n = plan_splits_int8(lanes, 32, 8, mb, 16, resident, 132)
+                assert 1 <= n <= mb and n == plan_splits_int8(lanes, 32, 8, mb, 16, resident, 132)
+                assert n == 1 or lanes * 8 * n <= resident * 132
 
 
 @pytest.mark.parametrize("with_history", [False, True])
