@@ -2,8 +2,8 @@
 """Proof that the PyTorch/CUDA port runs its main path on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
-card, ``nvcc`` and nothing of JAX. Phases, in order; any failure exits
-non-zero:
+card, ``nvcc`` and nothing of JAX. Phases, in order (16 and 17 run right
+after 13, before mixtral takes the card); any failure exits non-zero:
 
 1. device: prints the card's name and power limit (nvidia-smi);
 2. build: compiles every kernel of the path from ``dynamo_tpu_torch/csrc``,
@@ -22,7 +22,13 @@ non-zero:
    bf16 pages of the same lengths, and "dequantize the gathered pages, then
    the bf16 kernel" (a two-call yardstick: no single PyTorch call computes
    this function), and swept across split counts around its plan in three
-   regimes;
+   regimes; then the tp rows: ``paged_decode_attention_sharded`` (the
+   kernel per rank, ranks co-located on the card) at the per-rank shapes of
+   llama3-8b at tp=2 and llama3-70b at tp=4 and tp=8, 8 lanes x 2048: each
+   rank against the plain version, all heads against the unsharded kernel
+   at the same forced split count, the planned splits, eager and
+   graph-replayed ms per rank call and for all ranks of one layer beside
+   the bound, the plain version and SDPA;
 4. int8 kernel: holds ``int8_weight_matmul`` against its plain version at
    the llama3-8b projection shapes (M = 1 and 8, and M = 64, 256 and 1024
    = an ``"int8-all"`` prefill chunk for 4096->14336), prints each shape's
@@ -116,7 +122,26 @@ non-zero:
     ``int8_expert_matmul`` per forward, 32 paged per decode step; each
     prefill chunk's expert products on the expert tile kernel), TTFT,
     decode tok/s and a profile;
-16. mixtral parity: one MoE layer at 8 and 1024 tokens, and one full-depth
+16. tp serve (after phase 13, phase 7's weights kept): llama3-8b at full
+    width and depth over a tp=2 mesh of two ranks on the one card, built
+    through ``build_torch_serving_engine(..., tensor_parallel_size=2,
+    devices=[...])`` from phase 7's seed (its weights checked to be phase
+    7's, sharded), the integrity plane on, behind the HTTP service: 8
+    streams of 32 tokens, launches held (one sharded call per layer and
+    decode step, a split and a merge kernel per rank), texts against phase
+    7's, TTFT, tok/s, collectives per step, profile, peak memory; one
+    prefill chunk's and one decode step's logits held against the
+    unsharded forward at 2e-2; ``"int8"`` at tp=2 (per-rank plans printed,
+    int8 launches per decode step held, one decode step against the
+    unsharded int8 tree at 2e-2); a host-tier wave in phase 12's layout
+    (injected rank pages bit-equal to their spills, crcs verified at the
+    re-hit); with two cards, the ranks on two cards through NCCL against the
+    co-located run (else printed as not run);
+17. tp 70b: llama3-70b widths cut to 4 layers, bf16 random weights, tp=8
+    on the one card (~11 GB), behind the HTTP service: 8 streams of 32
+    tokens, launches held, profile (the per-rank kernel's share), one
+    decode step held against the unsharded forward at 2e-2;
+18. mixtral parity: one MoE layer at 8 and 1024 tokens, and one full-depth
     ``forward_window`` step through the kernels against the same step
     through every kernel's plain version, and through the int8 products'
     plain versions alone; routing choices that differ are counted, with the
@@ -126,7 +151,7 @@ non-zero:
     expert choices, and the logits are held on every lane; last, one
     full-depth prefill chunk is timed with the expert products on the
     expert tile kernel and on the dense tile kernel, in turns;
-17. prints the kernels' JSON line and, last, the device JSON line.
+19. prints the kernels' JSON line and, last, the device JSON line.
 Each phase prints its seconds.
 """
 
@@ -591,6 +616,140 @@ def phase_kernels(card: str) -> dict:
                                 device_launches_per_call=dev_launches, split_sweep_graph_ms=sweep,
                                 tb_s=nbytes / ms / 1e9, cold_l2=cold, S=S, H=H, KVH=KVH, D=D,
                                 live_tokens=int(lens_np.sum()))
+    return result
+
+
+# the tp rows of phase 3: the per-rank shapes of the tp meshes the port
+# serves, 8 lanes x 2048, D = 128, bf16: name, H, KVH, tp (the rank then
+# attends H/tp query heads over KVH/tp kv heads)
+TP_REGIMES = [
+    ("llama3-8b tp=2 (16 query heads over 4 kv heads per rank)", 32, 8, 2),
+    ("llama3-70b tp=4 (16 over 2 per rank)", 64, 8, 4),
+    ("llama3-70b tp=8 (8 over 1 per rank: a GQA group of 8 in 16 mma rows)", 64, 8, 8),
+]
+
+
+def rank_sets(torch, case, tp: int, n_sets: int, seed: int) -> list:
+    """``n_sets`` inputs of a case's shapes for a tp mesh: (q [S, H, D],
+    the ranks' contiguous k and v pools [N, bs, KVH/tp, D], tables,
+    lengths); the first cut from the case itself, the others fresh on the
+    card (so that cycling through them reads K/V that is not in L2)."""
+    q, k, v, tables, lengths = case
+    w = k.shape[2] // tp
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def cut(x):
+        return [x[:, :, r * w:(r + 1) * w].contiguous() for r in range(tp)]
+
+    def fresh(x):
+        return torch.randn(x.shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(x.dtype)
+
+    sets = [(q, cut(k), cut(v), tables, lengths)]
+    for _ in range(n_sets - 1):
+        sets.append((fresh(q), cut(fresh(k)), cut(fresh(v)), tables, lengths))
+    return sets
+
+
+def phase_tp_kernels(card: str) -> dict:
+    """Phase 3 on a tp mesh: ``paged_decode_attention_sharded`` (the CUDA
+    kernel per rank, ranks co-located on the card) at each per-rank shape
+    of TP_REGIMES: every rank against the plain version (phase 3's bf16
+    tolerance), all heads against the unsharded kernel at the same forced
+    split count (0 expected: heads are independent; held at the plain
+    tolerance), the planned splits, eager and graph-replayed ms per rank
+    call and for all ranks of one layer, the bytes bound, the plain version
+    and SDPA at the per-rank shape and over all heads."""
+    import torch
+
+    from dynamo_tpu_torch.ops.paged_attention import (
+        device_launches,
+        paged_decode_attention,
+        paged_decode_attention_plain,
+        paged_decode_attention_sharded,
+        paged_decode_attention_sharded_plain,
+        reset_launch_counts,
+        splits_launched,
+    )
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    rate = hbm_rate(card)
+    S, D, bs, max_len = 8, 128, 16, 2048
+    result = {}
+    for ri, (name, H, KVH, tp) in enumerate(TP_REGIMES):
+        mesh = make_mesh(MeshConfig(tp=tp), ["cuda:0"] * tp)
+        case = make_case(torch, S, H, KVH, D, bs, max_len, torch.bfloat16, 300 + ri)
+        q, k, v, tables, lengths = case
+        lens_np = lengths.cpu().numpy()
+        live_rank = 2 * int(lens_np.sum()) * (KVH // tp) * D * 2
+        n_sets = min(MAX_SETS, max(4, -(-int(COLD_BYTES) // live_rank)))
+        sets = rank_sets(torch, case, tp, n_sets, 3000 + ri)
+        _, kp, vp, _, _ = sets[0]
+        reset_launch_counts()
+        o, m, l = paged_decode_attention_sharded(q, kp, vp, tables, lengths, mesh=mesh,
+                                                 return_stats=True)
+        torch.cuda.synchronize()
+        splits = dict(splits_launched)
+        dev_launches = dict(device_launches)
+        if list(splits.values()) != [tp] or any(n != tp for n in dev_launches.values()):
+            fail(f"{name}: the sharded call launched {dev_launches}, splits {splits}; "
+                 f"expected one split and one merge kernel per rank")
+        (n_split,) = splits
+        po, pm, pl = paged_decode_attention_sharded_plain(q, kp, vp, tables, lengths,
+                                                          mesh=mesh, return_stats=True)
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(o, po))
+        ok = err <= 2e-2 and all(
+            torch.allclose(a, b, rtol=1e-3, atol=0) for a, b in zip(m + l, pm + pl))
+        whole = paged_decode_attention(q, k, v, tables, lengths, return_stats=True,
+                                       num_splits=n_split)
+        diffs = [(torch.cat(a, dim=1).float() - b.float()).abs().max().item()
+                 for a, b in zip((o, m, l), whole)]
+        same = diffs[0] <= 2e-2 and all(
+            torch.allclose(torch.cat(a, dim=1), b, rtol=1e-3, atol=0)
+            for a, b in zip((m, l), whole[1:]))
+        print(f"sharded kernel [{name}, bf16, tp={tp} co-located, {n_split} planned splits per "
+              f"rank, {sum(dev_launches.values())} device launches]: ranks vs plain max|do| "
+              f"{err:.3e} (o atol 2e-2, m/l rtol 1e-3) {'ok' if ok else 'MISMATCH'}; all "
+              f"heads vs the unsharded kernel at {n_split} splits max|do| {diffs[0]:.3e}, "
+              f"max|dm| {diffs[1]:.3e}, max|dl| {diffs[2]:.3e} (expected 0; held at the plain "
+              f"tolerance) {'ok' if same else 'MISMATCH'}")
+        if not (ok and same):
+            fail(f"paged_decode_attention_sharded disagrees: {name}")
+        rank_b_ms, rank_by, rank_bytes, _ = bound(S, H // tp, KVH // tp, D, bs, lens_np, 2, rate)
+        b_ms, b_by, nbytes, _ = bound(S, H, KVH, D, bs, lens_np, 2, rate)
+        w = H // tp
+        rank_in = [(a[0][:, :w].contiguous(), a[1][0], a[2][0], a[3], a[4]) for a in sets]
+        rank = [lambda a=a: paged_decode_attention(*a) for a in rank_in]
+        layer = [lambda a=a: paged_decode_attention_sharded(*a, mesh=mesh) for a in sets]
+        rank_ms, rank_graph_ms = time_many(torch, rank), time_graph(torch, rank)
+        layer_ms, layer_graph_ms = time_many(torch, layer), time_graph(torch, layer)
+        rank_plain_ms = time_many(torch, [lambda a=a: paged_decode_attention_plain(*a)
+                                          for a in rank_in[:4]], calls=20, reps=1)
+        layer_plain_ms = time_many(torch, [
+            lambda a=a: paged_decode_attention_sharded_plain(*a, mesh=mesh) for a in sets[:4]],
+            calls=8, reps=1)
+        rank_lib_ms = time_many(torch, [sdpa_library(torch, *a) for a in rank_in[:4]])
+        layer_lib_ms = time_many(torch, [sdpa_library(
+            torch, a[0], torch.cat(a[1], dim=2), torch.cat(a[2], dim=2), a[3], a[4])
+            for a in sets[:2]])
+        del sets, rank_in, rank, layer
+        torch.cuda.empty_cache()
+        print(f"  time [{name}]: per rank call {rank_ms:.4f} ms eager, {rank_graph_ms:.4f} "
+              f"graph-replayed, bound {rank_b_ms:.4f} ms ({rank_by}: {rank_bytes / 1e6:.1f} MB "
+              f"at {rate / 1e12:.2f} TB/s; {rank_b_ms / rank_graph_ms:.1%} graph-replayed), "
+              f"plain {rank_plain_ms:.4f}, SDPA at the rank's shape {rank_lib_ms:.4f}; all "
+              f"{tp} ranks of one layer (one sharded call) {layer_ms:.4f} ms eager, "
+              f"{layer_graph_ms:.4f} graph-replayed, bound {b_ms:.4f} ms, plain "
+              f"{layer_plain_ms:.4f}, SDPA over all heads {layer_lib_ms:.4f}; {n_sets} input "
+              f"sets, {n_sets * live_rank * tp / 1e6:.0f} MB of live K/V")
+        result[name] = dict(H=H, KVH=KVH, tp=tp, rank_heads=H // tp, rank_kv_heads=KVH // tp,
+                            splits=n_split, device_launches_per_call=sum(dev_launches.values()),
+                            max_abs_err=err, unsharded_max_diff=diffs, rank_ms=rank_ms,
+                            rank_graph_ms=rank_graph_ms, rank_bound_ms=rank_b_ms,
+                            rank_plain_ms=rank_plain_ms, rank_library_ms=rank_lib_ms,
+                            ms=layer_ms, graph_ms=layer_graph_ms, bound_ms=b_ms, bound_by=b_by,
+                            plain_ms=layer_plain_ms, library_ms=layer_lib_ms,
+                            bound_share=b_ms / layer_ms, live_tokens=int(lens_np.sum()))
     return result
 
 
@@ -1285,9 +1444,16 @@ def profile_decode(port: int, bodies: list, core) -> dict:
 
     from dynamo_tpu_torch.ops.int8_matmul import int8_expert_matmul, int8_weight_matmul
     from dynamo_tpu_torch.ops.paged_attention import (
+        device_launches,
         paged_decode_attention,
         paged_decode_attention_int8,
+        paged_decode_attention_sharded,
     )
+    from dynamo_tpu_torch.parallel.collectives import all_gather, all_reduce
+
+    def counts():
+        return dict(device_launches, sharded=paged_decode_attention_sharded.launches,
+                    all_reduce=all_reduce.calls, all_gather=all_gather.calls)
 
     bodies = [(path, dict(body, max_tokens=PROFILE_TOKENS)) for path, body in bodies]
     results = [None] * len(bodies)
@@ -1306,8 +1472,10 @@ def profile_decode(port: int, bodies: list, core) -> dict:
         d1, s1 = core.decode_dispatches, core.decode_steps_total
         c1, i1 = paged_decode_attention.launches, int8_weight_matmul.launches
         x1, q1 = int8_expert_matmul.launches, paged_decode_attention_int8.launches
+        n1 = counts()
         _wait_until(lambda: core.decode_dispatches >= d1 + PROFILE_DISPATCHES, threads)
         d2, s2 = core.decode_dispatches, core.decode_steps_total
+        n2 = counts()
         calls = paged_decode_attention.launches - c1
         kv8_calls = paged_decode_attention_int8.launches - q1
         int8_calls = int8_weight_matmul.launches - i1
@@ -1319,6 +1487,10 @@ def profile_decode(port: int, bodies: list, core) -> dict:
         if r is None or r["status"] != 200 or not r.get("done"):
             fail(f"profile wave: request {i} did not complete")
     steps = s2 - s1
+    # the window's wrapper-counted launches and collectives per decode step
+    per_step = {k: (n2[k] - n1[k]) / max(steps, 1) for k in n1}
+    print(f"profile: per decode step in the window ({steps} steps): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items()))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "decode_trace.json")
         prof.export_chrome_trace(path)
@@ -1326,7 +1498,7 @@ def profile_decode(port: int, bodies: list, core) -> dict:
     if not kernels or steps == 0:
         print(f"profile: device time not measured (the profiler recorded {len(kernels)} "
               f"kernels over {steps} decode steps)")
-        return {"measured": False}
+        return {"measured": False, "per_step": per_step}
     busy, end = 0.0, -1.0
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
         if b > end:
@@ -1372,7 +1544,7 @@ def profile_decode(port: int, bodies: list, core) -> dict:
             "kernels_per_step": len(kernels) / steps, "wrapper_calls": calls,
             "int8_kv_wrapper_calls": kv8_calls,
             "int8_wrapper_calls": int8_calls, "expert_wrapper_calls": expert_calls,
-            "device_events": events}
+            "device_events": events, "per_step": per_step}
 
 
 @contextmanager
@@ -1454,9 +1626,11 @@ def run_streams(port: int, bodies: list, max_tokens: int):
 
 def reset_all_counts() -> None:
     from dynamo_tpu_torch.ops import int8_matmul, paged_attention
+    from dynamo_tpu_torch.parallel import collectives
 
     paged_attention.reset_launch_counts()
     int8_matmul.reset_launch_counts()
+    collectives.reset_counts()
 
 
 def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dict:
@@ -1468,8 +1642,10 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
     from dynamo_tpu_torch.ops.paged_attention import (
         device_launches,
         paged_decode_attention,
+        paged_decode_attention_sharded,
         splits_launched,
     )
+    from dynamo_tpu_torch.parallel.collectives import all_gather, all_reduce
 
     with http_server(chat, comp, name, flags) as port:
         bodies = request_bodies(name, N_REQUESTS, MAX_TOKENS)
@@ -1477,6 +1653,8 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
         steps0, chunks0 = core.decode_steps_total, core.chunk_dispatches
         results, t_sent, wall = run_streams(port, bodies, MAX_TOKENS)
         launches = paged_decode_attention.launches
+        sharded_launches = paged_decode_attention_sharded.launches
+        collective_calls = {"all_reduce": all_reduce.calls, "all_gather": all_gather.calls}
         kernel_launches = dict(device_launches)
         splits = dict(splits_launched)
         int8_launches = int8_weight_matmul.launches
@@ -1512,7 +1690,8 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
             "device_launches_per_call": per_call, "splits": splits,
             "int8_launches": int8_launches, "int8_kernel_launches": int8_kernels,
             "expert_launches": expert_launches, "decode_steps": steps,
-            "chunk_dispatches": chunks,
+            "chunk_dispatches": chunks, "sharded_launches": sharded_launches,
+            "collective_calls": collective_calls, "texts": [r["text"] for r in results],
             "ttft_p50_ms": ttft_p50, "decode_tok_s": decode_tok_s, "profile": profile}
 
 
@@ -1664,10 +1843,11 @@ def _parity(label: str, a, b, limit: float = 2e-2) -> float:
     return rel
 
 
-def parity_case(torch, cfg, params, quantized: bool = False):
+def parity_case(torch, cfg, params, quantized: bool = False, last_chunk=None):
     """8 lanes of 100-500 prompt tokens prefilled into a fresh pool (int8
-    pages with ``quantized``) with ``params`` (bf16 chunks), and the token at
-    each lane's next position."""
+    pages with ``quantized``) with ``params`` (bf16 chunks), and the token
+    at each lane's next position. ``last_chunk``, a list: the last prefill
+    chunk's logits at its live positions are appended to it."""
     import numpy as np
 
     from dynamo_tpu_torch.models.llama import forward_chunk, make_kv_cache
@@ -1681,23 +1861,68 @@ def parity_case(torch, cfg, params, quantized: bool = False):
     tables = tables.contiguous()
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(S, 512))).cuda()
     with torch.no_grad():
-        for c0 in range(0, int(lens.max()), 128):
+        starts = list(range(0, int(lens.max()), 128))
+        for c0 in starts:
             pos = torch.arange(c0, c0 + 128, device="cuda")[None, :].repeat(S, 1)
             pos = torch.where(pos < torch.from_numpy(lens).cuda()[:, None], pos, -1)
-            forward_chunk(params, cfg, toks[:, c0:c0 + 128], pos.int(), cache, tables,
-                          hidden_only=True, with_history=c0 > 0)
+            keep = last_chunk is not None and c0 == starts[-1]
+            out, _ = forward_chunk(params, cfg, toks[:, c0:c0 + 128], pos.int(), cache, tables,
+                                   hidden_only=not keep, with_history=c0 > 0)
+            if keep:  # what last_chunk_logits computes
+                last_chunk.append(out[pos >= 0].float())
     base = torch.from_numpy(lens).cuda().int()
     nxt = toks[torch.arange(S), base.long()].int()  # the token at position base
     return cache, tables, base, nxt, toks, lens
 
 
+def tp_case(torch, case, mesh):
+    """``case`` (:func:`parity_case`) with its pool copied onto ``mesh``'s
+    ranks: an unsharded pool split along its kv heads (global head order),
+    a tp pool's ranks moved to the mesh's devices. The same bytes, so two
+    forwards compared on the two cases start from one state."""
+    cache, *rest = case
+    if isinstance(cache, dict):
+        w = cache["k"].shape[3] // mesh.tp
+        pools = [{n: x[:, :, :, r * w:(r + 1) * w].to(d).contiguous() for n, x in cache.items()}
+                 for r, d in enumerate(mesh.devices)]
+    else:
+        pools = [{n: x.to(d, copy=True) for n, x in pool.items()}
+                 for pool, d in zip(cache, mesh.devices)]
+    return (pools, *rest)
+
+
+def last_chunk_logits(torch, cfg, params, case):
+    """The last prefill chunk of :func:`parity_case` run again over the
+    case's pool (its history masked below the chunk, untouched by the
+    chunk's own writes), logits at its live positions."""
+    from dynamo_tpu_torch.models.llama import forward_chunk
+
+    cache, tables, _, _, toks, lens = case
+    c0 = 128 * ((int(lens.max()) - 1) // 128)
+    pos = torch.arange(c0, c0 + 128, device="cuda")[None, :].repeat(len(lens), 1)
+    pos = torch.where(pos < torch.from_numpy(lens).cuda()[:, None], pos, -1)
+    with torch.no_grad():
+        out, _ = forward_chunk(params, cfg, toks[:, c0:c0 + 128], pos.int(), cache, tables,
+                               with_history=c0 > 0)
+    return out[pos >= 0].float()
+
+
 def window_logits(torch, cfg, params, case, decode_attention):
-    from dynamo_tpu_torch.models.llama import forward_window
+    """One decode step's logits over the case's pool; ``decode_attention``
+    None takes the default (the kernel; on a tp mesh the sharded one), and
+    :class:`ShardedParams` get one window per rank on its device."""
+    from dynamo_tpu_torch.models.llama import ShardedParams, forward_window
 
     cache, tables, base, nxt, _, _ = case
-    shape = (cfg.num_layers, len(base), 1, cfg.num_kv_heads, cfg.head_dim)
-    wk = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
-    wv = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+    if isinstance(params, ShardedParams):
+        rc = params.shards[0].config
+        shape = (cfg.num_layers, len(base), 1, rc.num_kv_heads, cfg.head_dim)
+        wk = [torch.zeros(shape, dtype=cfg.dtype, device=d) for d in params.mesh.devices]
+        wv = [torch.zeros(shape, dtype=cfg.dtype, device=d) for d in params.mesh.devices]
+    else:
+        shape = (cfg.num_layers, len(base), 1, cfg.num_kv_heads, cfg.head_dim)
+        wk = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+        wv = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
     with torch.no_grad():
         logits, _, _ = forward_window(params, cfg, nxt, base, cache, tables, base, wk, wv, 0,
                                       decode_attention=decode_attention)
@@ -1852,9 +2077,6 @@ def phase_int8_parity(core) -> dict:
 
 # -- phase 11: int8 KV pages and the host tier ------------------------------------
 
-KV_HOST_NAMES = ("k", "v", "k_scale", "v_scale")
-
-
 def request_words(bodies: list, reverse: bool) -> list:
     """The bodies with each prompt's words in reverse order: the same lengths
     and no shared prefix block."""
@@ -1885,18 +2107,18 @@ def pool_blocks_for(bodies: list, bs: int, decode_steps: int) -> int:
 def host_tier_probe(core) -> dict:
     """Wrap the engine's spill and inject: a device copy of each block as it
     is spilled (its first spill, which is what the host pool keeps), and
-    after each injection the injected pages and scales held bit for bit
-    against that copy."""
+    after each injection the injected pages (and an int8 pool's scales)
+    held bit for bit against that copy; on a tp engine the rank pools'
+    pages in global head order (``core.pages``)."""
     import torch
 
     snap, stats = {}, {"spilled": 0, "injected": 0, "mismatched": 0}
     offload, inject = core._offload_blocks, core._inject_host_hits
 
     def spill(pairs):
-        idx = torch.tensor([bid for _, bid, _ in pairs], device=core.device)
-        copies = [core.cache[n][:, idx].clone() for n in KV_HOST_NAMES]
+        copies = core.pages([bid for _, bid, _ in pairs])
         for i, (h, _, _) in enumerate(pairs):
-            snap.setdefault(h, tuple(c[:, i] for c in copies))
+            snap.setdefault(h, {n: c[:, i] for n, c in copies.items()})
         stats["spilled"] += len(pairs)
         offload(pairs)
 
@@ -1904,8 +2126,9 @@ def host_tier_probe(core) -> dict:
         hits = [(alloc.block_ids[h[0]], h[1]) for h in alloc.host_hits]
         inject(alloc)
         for bid, h in hits:
-            same = all(torch.equal(core.cache[n][:, bid], snap[h][i])
-                       for i, n in enumerate(KV_HOST_NAMES))
+            now = core.pages([bid])
+            same = set(now) == set(snap[h]) and all(
+                torch.equal(x[:, 0], snap[h][n]) for n, x in now.items())
             stats["injected"] += 1
             stats["mismatched"] += not same
 
@@ -2691,7 +2914,316 @@ def phase_spec_serve(card: str, weights: dict, verify_products: dict) -> dict:
     return out
 
 
-# -- phases 14-16: mixtral-8x7b in "int8-all" ------------------------------------
+# -- phases 16-17: tensor parallelism (run after phase 13, before mixtral) -------
+
+TP_8B = 2  # phase 16: llama3-8b over two co-located ranks
+# llama3-70b widths (LLAMA_PRESETS["llama3-70b"]), cut to TP_70B_LAYERS layers
+LLAMA3_70B = dict(LLAMA3_8B, hidden=8192, ffn=28672, layers=80, heads=64, kv_heads=8)
+TP_70B = 8
+TP_70B_LAYERS = 4
+# the int8 products of one tp=2 rank at llama3-8b widths (K -> N): wq, wk and
+# wv, wo, gate and up, down, the LM head's vocab shard
+TP_INT8_SHAPES = [(4096, 2048), (4096, 512), (2048, 4096), (4096, 7168), (7168, 4096),
+                  (4096, 64128)]
+
+
+# what phases 16 and 17 keep of a served wave
+TP_SERVE_KEYS = ("ttft_p50_ms", "decode_tok_s", "decode_steps", "chunk_dispatches", "launches",
+                 "sharded_launches", "kernel_launches", "splits", "collective_calls", "profile")
+
+
+def param_gb(params) -> float:
+    return sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+
+
+def same_weights(sharded, params) -> bool:
+    """Does every rank hold exactly its slice of the unsharded ``params``?"""
+    import torch
+
+    whole = dict(params.named_parameters())
+    for name, rule in sharded.rules.items():
+        for r, shard in enumerate(sharded.shards):
+            if not torch.equal(shard.get_parameter(name), rule.shard(whole[name], r)):
+                return False
+    return True
+
+
+def tp_build(card_dir: str, tp: int, devices: list, **kw):
+    """A tp engine through the normal entry (``build_torch_serving_engine``
+    with ``tensor_parallel_size`` and ``devices``), warmed up, with its HTTP
+    pipelines and the launcher's flags for ``http_server``."""
+    from dynamo_tpu_torch.cli.run import build_parser, make_pipelines
+    from dynamo_tpu_torch.engine_torch.engine import build_torch_serving_engine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    card = ModelDeploymentCard.from_local_path(card_dir)
+    t0 = time.perf_counter()
+    core = build_torch_serving_engine(card, max_batch_size=N_REQUESTS,
+                                      tensor_parallel_size=tp, devices=devices, **kw)
+    built = time.perf_counter() - t0
+    core.warmup()
+    flags = build_parser().parse_args([
+        "--model-path", card_dir, "--host", "127.0.0.1", "--port", str(_free_port()),
+        "--max-batch-size", str(N_REQUESTS), "--tensor-parallel-size", str(tp)])
+    chat, comp = make_pipelines(card, core)
+    return core, chat, comp, card.display_name, flags, built, time.perf_counter() - t0
+
+
+def hold_tp_launches(label: str, out: dict, tp: int, layers: int) -> None:
+    """The tp serve's counts: per decode step one sharded call per layer,
+    one per-rank paged call (a split and a merge kernel) per rank and
+    layer."""
+    steps = out["decode_steps"]
+    want = {"paged_decode_attention_sharded": layers * steps,
+            "paged_decode_attention": tp * layers * steps,
+            **{k: tp * layers * steps for k in out["kernel_launches"]}}
+    got = {"paged_decode_attention_sharded": out["sharded_launches"],
+           "paged_decode_attention": out["launches"], **out["kernel_launches"]}
+    print(f"{label}: launches over {steps} decode steps {got}, expected {want}; "
+          f"collectives {out['collective_calls']}")
+    if got != want or steps == 0:
+        fail(f"{label}: launches {got}, expected {want}")
+    per = out["profile"].get("per_step", {})
+    for k in ("paged_decode_split_kernel", "paged_decode_merge_kernel"):
+        if per and per.get(k) != tp * layers:
+            fail(f"{label}: {per.get(k)} {k} per profiled decode step, expected {tp * layers}")
+
+
+def phase_tp_serve(card: str, weights: dict, served: dict) -> dict:
+    """llama3-8b at full width and depth over a tp=2 mesh whose ranks share
+    the card, bf16 random weights of phase 7's seed (checked equal to phase
+    7's, kept from it in ``weights``), the integrity plane on: the HTTP
+    service answers 8 streams of 32 tokens (launches held, texts against
+    phase 7's printed, profile, peak memory); one prefill chunk's and one
+    decode step's logits held against the unsharded forward on the same
+    weights at 2e-2; then ``"int8"`` weights at tp=2 (one decode step held
+    against the unsharded int8 tree, the per-rank products' plans printed,
+    a wave's int8 launches held); then a host-tier wave that spills and
+    re-hits (injected rank pages bit-equal to their spills, the crcs
+    verified at the re-hit); then, where there are two cards, the same
+    model with its ranks on two cards (NCCL) held against the co-located
+    run. Each engine is freed before the next is built."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine_torch.engine import TorchServingEngine
+    from dynamo_tpu_torch.models.llama import quantize_params_int8
+    from dynamo_tpu_torch.ops import int8_matmul
+    from dynamo_tpu_torch.ops.int8_matmul import int8_weight_matmul, plan_int8
+
+    params, cfg, ecfg = weights["params"], weights["cfg"], weights["ecfg"]
+    L = cfg.num_layers
+    res = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "llama3-8b-random"))
+        core, chat, comp, name, flags, built, warm = tp_build(model_dir, TP_8B,
+                                                              ["cuda:0"] * TP_8B)
+        mesh = core.mesh
+        held = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        print(f"tp serve: llama3-8b tp={TP_8B} on {[str(d) for d in mesh.devices]}, engine "
+              f"built in {built:.1f} s, warmed up in {warm:.1f} s; "
+              f"{core.num_blocks} KV blocks per rank pool; {held - before:.2f} GB allocated "
+              f"for the engine (weights and pools), {before:.2f} GB before it (phase 7's "
+              f"{param_gb(params):.2f} GB of unsharded weights, kept for the parity checks)")
+        if not same_weights(core.params, params):
+            fail("tp serve: the tp engine's weights are not phase 7's, sharded")
+        out = serve_and_count(card, "tp serve", core, chat, comp, name, flags)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hold_tp_launches("tp serve", out, TP_8B, L)
+    equal_texts = sum(a == b for a, b in zip(out["texts"], served["texts"]))
+    per = out["profile"].get("per_step", {})
+    print(f"tp serve: TTFT p50 {out['ttft_p50_ms']:.1f} ms, decode {out['decode_tok_s']:.1f} "
+          f"tok/s (phase 7 unsharded: {served['ttft_p50_ms']:.1f} ms, "
+          f"{served['decode_tok_s']:.1f} tok/s); texts equal to phase 7's: {equal_texts} of "
+          f"{N_REQUESTS} (not held); per decode step: all_reduce "
+          f"{per.get('all_reduce', 0):.1f}, all_gather {per.get('all_gather', 0):.1f}; peak "
+          f"memory while serving {peak:.2f} GB, of which {before:.2f} GB phase 7's weights")
+    core.close()
+    tp_params = core.params
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(serve={k: out[k] for k in TP_SERVE_KEYS}, texts_equal_phase7=equal_texts,
+               peak_gb=peak)
+
+    # one prefill chunk and one decode step against the unsharded forward,
+    # each from the pool the unsharded prefill wrote (split over the ranks)
+    chunk = []
+    case = parity_case(torch, cfg, params, last_chunk=chunk)
+    res["chunk_ratio"] = _parity(
+        f"tp={TP_8B} prefill chunk logits against the unsharded forward (llama3-8b, "
+        f"{chunk[0].shape[0]} live positions, one pool state)",
+        last_chunk_logits(torch, cfg, tp_params, tp_case(torch, case, mesh)), chunk[0])
+    del chunk
+    res["decode_ratio"] = _parity(
+        f"tp={TP_8B} decode step logits against the unsharded forward (llama3-8b, 8 lanes, "
+        f"one pool state)", window_logits(torch, cfg, tp_params, tp_case(torch, case, mesh), None),
+        window_logits(torch, cfg, params, case, None))
+
+    # "int8" weights at tp=2: the sharded quantization, one decode step
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {f"{k}->{n}": plan_label(plan_int8(N_REQUESTS, n, k, sms))
+             for k, n in TP_INT8_SHAPES}
+    print("tp int8: plan_int8 at M = 8 per rank shape: "
+          + ", ".join(f"{k}: {v}" for k, v in plans.items()))
+    core = TorchServingEngine(cfg, tp_params, dataclasses.replace(ecfg, quantize="int8"),
+                              mesh=mesh)
+    core.warmup()
+    rng = np.random.default_rng(16)
+    prompts = token_prompts(rng, rng.integers(100, 500, size=N_REQUESTS), cfg.vocab_size)
+    reset_all_counts()
+    s0 = core.decode_steps_total
+    wave = engine_wave(core, prompts, MAX_TOKENS)
+    steps = core.decode_steps_total - s0
+    per_step = TP_8B * (INT8_LAUNCHES_PER_STEP - 1) + TP_8B  # each rank's 224 + its LM head
+    int8_launches = int8_weight_matmul.launches
+    int8_kernels = {k: n for k, n in int8_matmul.device_launches.items() if n}
+    print(f"tp int8: {N_REQUESTS} streams of {MAX_TOKENS} tokens through generate, TTFT p50 "
+          f"{wave['ttft_p50_ms']:.1f} ms, decode {wave['decode_tok_s']:.1f} tok/s; "
+          f"int8_weight_matmul launches {int8_launches} over {steps} decode steps "
+          f"(expected {per_step} per step), device launches {int8_kernels}")
+    if any(len(t) != MAX_TOKENS for t in wave["tokens"]) or steps == 0 \
+            or int8_launches != per_step * steps:
+        fail(f"tp int8: {int8_launches} int8 launches over {steps} steps, expected "
+             f"{per_step} per step")
+    q_whole = quantize_params_int8(params, cfg)
+    res["int8_decode_ratio"] = _parity(
+        f"tp={TP_8B} \"int8\" decode step against the unsharded int8 tree (llama3-8b, 8 lanes, "
+        f"one pool state)", window_logits(torch, cfg, core.params_decode,
+                                          tp_case(torch, case, mesh), None),
+        window_logits(torch, cfg, q_whole, case, None))
+    res.update(int8_plans=plans, int8_launches_per_step=int8_launches / max(steps, 1),
+               int8_ttft_p50_ms=wave["ttft_p50_ms"], int8_decode_tok_s=wave["decode_tok_s"])
+    core.close()
+    del core, q_whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a host-tier wave that spills and re-hits: phase 12's three-wave layout
+    lens = [int(n) for n in rng.integers(100, ecfg.prefill_chunk + 1, size=N_REQUESTS)]
+    prompts = token_prompts(rng, lens, cfg.vocab_size)
+    evicting = token_prompts(rng, lens, cfg.vocab_size)
+    blocks = sum(-(-(n + MAX_TOKENS + 2 * ecfg.decode_steps) // ecfg.kv_block_size) + 1
+                 for n in lens) + 16
+    core = TorchServingEngine(cfg, tp_params, dataclasses.replace(
+        ecfg, num_kv_blocks=blocks, host_cache_blocks=4 * blocks), mesh=mesh)
+    core.warmup()
+    probe = host_tier_probe(core)
+    waves = three_waves(core, prompts, evicting)
+    print(f"tp host tier: pool of {blocks} blocks per rank, host tier {4 * blocks}; "
+          f"{probe['spilled']} blocks spilled, third wave {waves['host_hits']} host hits, "
+          f"{probe['injected']} pages injected, {probe['mismatched']} not bit-equal to their "
+          f"spill (the rank pools in global head order), {waves['corrupted']} host entries "
+          f"failing their crc, {waves['kv_trips']} kv trips; third-wave tokens equal to the "
+          f"first wave's: {sum(a == b for a, b in zip(waves['first'], waves['third']))} of "
+          f"{N_REQUESTS} (not held)")
+    if (waves["host_hits"] <= 0 or probe["injected"] <= 0 or probe["mismatched"]
+            or waves["corrupted"] or waves["kv_trips"]):
+        fail("tp host tier")
+    res["host_tier"] = dict(spilled=probe["spilled"], injected=probe["injected"],
+                            mismatched=probe["mismatched"], host_hits=waves["host_hits"],
+                            kv_trips=waves["kv_trips"], pool_blocks=blocks)
+    close_engine(core)
+    res["across_devices"] = tp_across_devices(card, cfg, tp_params, case)
+    del tp_params, case
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_across_devices(card: str, cfg, colocated, case) -> dict:
+    """Phase 16's tp=2 model with its ranks on cuda:0 and cuda:1 (the
+    all-reduce through NCCL): its weights equal to the co-located ranks',
+    8 streams through ``generate``, and one decode step over ``case``'s
+    pool held against the co-located run at 2e-2. Not run on a machine with
+    one card."""
+    import numpy as np
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"tp across devices: not run ({n} device)")
+        return {"run": False, "devices": n}
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "llama3-8b-random"))
+        core, *_ = tp_build(model_dir, TP_8B, ["cuda:0", "cuda:1"])
+    for a, b in zip(core.params.shards, colocated.shards):
+        for (name, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+            if not torch.equal(x.to(y.device), y):
+                fail(f"tp across devices: {name} differs from the co-located ranks'")
+    rng = np.random.default_rng(17)
+    wave = engine_wave(core, token_prompts(rng, [200] * N_REQUESTS, cfg.vocab_size), MAX_TOKENS)
+    core.close()
+    params, mesh = core.params, core.mesh
+    del core
+    ratio = _parity("tp=2 across cuda:0 and cuda:1 against the co-located ranks, one decode "
+                    "step", window_logits(torch, cfg, params, tp_case(torch, case, mesh), None),
+                    window_logits(torch, cfg, colocated, tp_case(torch, case, colocated.mesh),
+                                  None))
+    print(f"tp across devices: decode {wave['decode_tok_s']:.1f} tok/s on {card}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": True, "devices": n, "decode_ratio": ratio,
+            "decode_tok_s": wave["decode_tok_s"]}
+
+
+def phase_tp_70b(card: str) -> dict:
+    """llama3-70b at full width, TP_70B_LAYERS layers, bf16 random weights,
+    over a tp=8 mesh whose ranks share the card (~11 GB): the HTTP service
+    answers 8 streams of 32 tokens (launches held, profile: the per-rank
+    kernel's share of device time), then one decode step held against the
+    unsharded forward on the same weights (drawn from the same seed on the
+    same card, checked equal) at 2e-2."""
+    import torch
+
+    from dynamo_tpu_torch.models.llama import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "llama3-70b-4-layers"),
+                                    num_layers=TP_70B_LAYERS, arch=LLAMA3_70B)
+        core, chat, comp, name, flags, built, warm = tp_build(model_dir, TP_70B,
+                                                              ["cuda:0"] * TP_70B)
+        cfg = core.model_config
+        weights_gb = sum(param_gb(shard) for shard in core.params.shards)
+        held = torch.cuda.memory_allocated() / 1e9 - before
+        torch.cuda.reset_peak_memory_stats()
+        print(f"tp 70b: llama3-70b widths, {cfg.num_layers} layers, tp={TP_70B} co-located, "
+              f"{weights_gb:.2f} GB of bf16 weights, {held:.2f} GB allocated for the engine "
+              f"({before:.2f} GB before it), built in {built:.1f} s, warmed up in {warm:.1f} s")
+        out = serve_and_count(card, "tp 70b serve", core, chat, comp, name, flags)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hold_tp_launches("tp 70b serve", out, TP_70B, cfg.num_layers)
+    core.close()
+    tp_params, mesh = core.params, core.mesh
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device="cuda")
+    if not same_weights(tp_params, params):
+        fail("tp 70b: the ranks do not hold the unsharded draw's slices")
+    case = parity_case(torch, cfg, params)
+    ratio = _parity(f"tp={TP_70B} decode step logits against the unsharded forward "
+                    f"(llama3-70b widths, {cfg.num_layers} layers, 8 lanes, one pool state)",
+                    window_logits(torch, cfg, tp_params, tp_case(torch, case, mesh), None),
+                    window_logits(torch, cfg, params, case, None))
+    del case
+    del params, tp_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp 70b: peak memory while serving {peak:.2f} GB")
+    return {"weights_gb": weights_gb, "peak_gb": peak, "decode_ratio": ratio,
+            **{k: out[k] for k in TP_SERVE_KEYS}}
+
+
+# -- phases 14, 15, 18: mixtral-8x7b in "int8-all" ----------------------------------
 
 MIXTRAL_LOAD_LAYERS = 1  # the checkpoint's depth: mixtral-8x7b widths, ~3.4 GB of bf16
 # int8_weight_matmul calls per forward of mixtral: wq, wk, wv, wo per layer and the LM head
@@ -3159,6 +3691,7 @@ def main() -> int:
     print(f"profiler: first start and stop in {warm_profiler():.1f} s")
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels, card)
+    tpk = timed("kernels tp", phase_tp_kernels, card)
     kv8k = timed("kernels int8 KV", phase_kv_int8_kernel, card)
     int8k = timed("int8 kernel", phase_int8_kernel, card)
     expk = timed("expert kernel", phase_expert_kernel, card)
@@ -3180,7 +3713,9 @@ def main() -> int:
     weights = kvs.pop("weights")
     integ = timed("integrity", phase_integrity, card, weights)
     spec = timed("spec serve", phase_spec_serve, card, weights, int8k["per_verify"])
+    tps = timed("tp serve", phase_tp_serve, card, weights, served)
     del weights
+    tp70 = timed("tp 70b", phase_tp_70b, card)
     # every llama engine is closed: free the card for mixtral's 47 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -3204,6 +3739,7 @@ def main() -> int:
     mixp = timed("mixtral parity", phase_mixtral_parity, mix_params, mix_cfg)
     del mix_params
     main_regime = kern[REGIMES[0][0]]
+    tp_regime = tpk[TP_REGIMES[0][0]]
     kv8_regime = kv8k[REGIMES[0][0]]
     step, estep, echunk = int8k["per_step"], expk["per_step"], expk["prefill_chunk"]
     decode_cases = [c for c in int8k["cases"] if c["M"] in (1, 8) and c["x"] == "bf16"]
@@ -3228,6 +3764,29 @@ def main() -> int:
         "launches_int8_serve": int8s["launches"],
         "launches_mixtral_serve": mixs["launches"],
         "regimes": [dict(name=k, **v) for k, v in kern.items()],
+    }, {
+        "name": "paged_decode_attention_sharded",
+        "wrapper": "dynamo_tpu_torch/ops/paged_attention.py",
+        "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "dynamo_tpu/ops/pallas/paged_attention.py:626 (shard_map over tp running "
+                    "v2 :258 or v1 :693 on each rank's head shard)",
+        # phase 16's served wave: one call per layer and decode step
+        "launches": tps["serve"]["sharded_launches"],
+        "unit": f"all {TP_REGIMES[0][3]} ranks of one layer (one call), {TP_REGIMES[0][0]}, "
+                f"8 lanes x 2048",
+        "max_abs_err": tp_regime["max_abs_err"],
+        "ms": tp_regime["ms"],
+        "graph_ms": tp_regime["graph_ms"],
+        "plain_ms": tp_regime["plain_ms"],
+        "bound_ms": tp_regime["bound_ms"],
+        "bound_by": tp_regime["bound_by"],
+        "library_ms": tp_regime["library_ms"],
+        "bound_share": tp_regime["bound_share"],
+        "launches_tp_70b": tp70["sharded_launches"],
+        "per_rank_launches": tps["serve"]["launches"],
+        "device_launches": tps["serve"]["kernel_launches"],
+        "regimes": [dict(name=k, **v) for k, v in tpk.items()],
     }, {
         "name": "paged_decode_attention_int8",
         "route": "cuda",
@@ -3340,7 +3899,7 @@ def main() -> int:
             "ttft_p50_ms", "decode_tok_s", "profile", "peak_gb", "weights_gb", "kv_gb", "build_s",
             "warmup_s", "decode_steps", "chunk_dispatches", "launches", "int8_launches",
             "expert_launches", "int8_kernel_launches")},
-        "mixtral_parity": mixp, "mixtral_load": mixl,
+        "mixtral_parity": mixp, "mixtral_load": mixl, "tp_serve": tps, "tp_70b": tp70,
         "load": loaded, "phase_seconds": seconds,
         "card": card, "seconds": time.perf_counter() - t0}
     print(json.dumps(line))

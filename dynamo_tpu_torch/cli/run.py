@@ -8,7 +8,8 @@ without a card and without ``--device cpu`` it raises. A directory without
 weight files gets random weights (``--seed``). ``--host-cache-blocks N``
 keeps up to N evicted KV blocks in host RAM for later prefix hits; the KV
 page dtype is ``DYN_TPU_KV_DTYPE`` (``int8`` for int8 pages), as in the
-JAX launcher.
+JAX launcher. ``--tensor-parallel-size N`` serves over a tp mesh of N ranks
+on ``cuda:0 … cuda:N-1`` (with ``--device cpu``, N ranks on the CPU).
 
 Counterpart of the JAX package's ``cli/run.py`` for ``in=http out=jax``.
 """
@@ -64,6 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0, help="seed of random weights")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="tp ranks (Megatron heads, MLP and vocab), one per card")
     return p
 
 
@@ -85,6 +88,7 @@ def build_engine(out_spec: str, flags: argparse.Namespace):
         host_cache_blocks=flags.host_cache_blocks,
         seed=flags.seed,
         device=flags.device,
+        tensor_parallel_size=flags.tensor_parallel_size,
     )
     core.warmup()
     chat, completions = make_pipelines(card, core)

@@ -58,8 +58,23 @@ Counterpart of the main path of the JAX package's ``engine_jax/engine.py``:
   (``sampling.speculative_targets``); the matching drafted prefix plus the
   first target are emitted.
 
+- **Tensor parallelism** (``mesh=``, a tp mesh of ``parallel/mesh.py``;
+  ``build_torch_serving_engine(..., tensor_parallel_size=N)``): the
+  weights are a :class:`ShardedParams` (Megatron heads, MLP and vocab), the
+  pool one per rank sharded by kv head, the window buffers per rank, and
+  every forward runs the ranks with their collectives
+  (``models/llama.py``). Rank 0's device is the engine's: host uploads,
+  sampling, logits and the decode carry live there. Pages leave and enter
+  the pool in global head order (the rank pools concatenated along the kv
+  heads), so seal checksums equal the JAX ``page_checksums`` of the global
+  pool and host-tier pages are interchangeable with an unsharded engine's.
+  As the JAX engine on a mesh: int8 KV pages raise, the output watchdog is
+  off, ``"int8"`` weights serve (the whole tree's quantization, sharded),
+  speculation runs. Not in this slice: the MoE family on tp (ROADMAP A9)
+  and ``"int8-all"`` on tp (A10) raise.
+
 Not in this engine yet (later slices, ROADMAP.md): disaggregated prefill,
-live migration, QoS, profiling/straggler hooks, meshes.
+live migration, QoS, profiling/straggler hooks, dp/pp/sp/ep meshes.
 """
 
 from __future__ import annotations
@@ -82,16 +97,24 @@ from ..llm.protocols.common import FinishReason, LLMEngineOutput, PreprocessedRe
 from ..models.llama import (
     LlamaConfig,
     LlamaParams,
+    ShardedParams,
     flush_window,
     forward_chunk,
     forward_window,
     lm_head,
     make_kv_cache,
     quantize_params_int8,
+    rank_config,
+    shard_params,
 )
 from ..ops import int8_matmul, paged_attention
 from ..ops.build import build_all
-from ..ops.paged_attention import paged_decode_attention, paged_decode_attention_int8
+from ..ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_int8,
+    paged_decode_attention_sharded,
+)
+from ..parallel.mesh import Mesh, MeshConfig, make_mesh
 from ..runtime import faults as faults_mod
 from ..runtime import integrity as integrity_mod
 from ..runtime.annotated import Annotated
@@ -333,10 +356,22 @@ class TorchServingEngine(AsyncEngine):
         engine_config: EngineConfig = EngineConfig(),
         device="cuda",
         event_sink: Optional[KvEventSink] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.model_config = model_config
         self.config = engine_config
-        self.device = resolve_device(str(device))
+        # a tp mesh: rank 0's device is the engine's
+        self.mesh = mesh
+        self.device = resolve_device(str(mesh.devices[0] if mesh is not None else device))
+        if mesh is not None:
+            if engine_config.quantize == "int8-all":
+                raise ValueError('quantize="int8-all" on a tp mesh is not ported '
+                                 '(ROADMAP A10: "int8-all" on tp)')
+            rank_config(model_config, mesh.tp)  # raises on what tp does not shard
+            if not isinstance(params, ShardedParams):
+                params = shard_params(params, model_config, mesh)
+        elif isinstance(params, ShardedParams):
+            raise ValueError("sharded params need the engine's mesh (mesh=)")
         if engine_config.quantize == "int8-all":
             # int8 for both phases and the bf16 tree dropped; a tree that is
             # already quantized is taken as it is
@@ -364,6 +399,9 @@ class TorchServingEngine(AsyncEngine):
         # DYN_TPU_KV_INTEGRITY=0: no checksum callback, no crc thread, and
         # the step functions are exactly the ones without the plane
         self._integrity = integrity_mod.maybe_from_env()
+        # the watchdog is single-device, as in the JAX engine: a tp engine
+        # keeps the seal checksums and dispatches without it
+        self._watchdog = self._integrity is not None and mesh is None
         # the address the fault rules match on (one worker in a fleet)
         self._fault_addr = "engine"
         # seal checksums: blocks sealed since the last flush, as (block ids,
@@ -390,10 +428,16 @@ class TorchServingEngine(AsyncEngine):
             checksum=self._block_checksums if self._integrity is not None else None,
         )
         self.kv_quantized = (engine_config.kv_dtype or env_kv_dtype()) == "int8"
+        if self.kv_quantized and mesh is not None:
+            raise ValueError("kv_dtype='int8' requires an unsharded cache (mesh=None); "
+                             "sharded engines keep the native KV dtype")
+        # the pool: one dict, or on a mesh one per rank (its kv heads)
         self.cache = make_kv_cache(
             model_config, self.num_blocks, engine_config.kv_block_size,
-            device=self.device, quantized=self.kv_quantized,
+            device=self.device, quantized=self.kv_quantized, mesh=mesh,
         )
+        self._rank_pools: List[Dict[str, torch.Tensor]] = (
+            self.cache if mesh is not None else [self.cache])
 
         S = engine_config.max_slots
         MB = engine_config.max_blocks_per_seq
@@ -464,11 +508,15 @@ class TorchServingEngine(AsyncEngine):
         max_pos = self.config.max_model_len - 1
         n_top = self.config.top_logprobs
         S = self.config.max_slots
-        wshape = (cfg.num_layers, S, k_steps, cfg.num_kv_heads, cfg.head_dim)
+        # the window buffers: one per rank on a mesh, its kv heads
+        tp = self.mesh.tp if self.mesh is not None else 1
+        kvh = rank_config(cfg, tp).num_kv_heads
+        wshape = (cfg.num_layers, S, k_steps, kvh, cfg.head_dim)
+        devices = self.mesh.devices if self.mesh is not None else (self.device,)
         # output watchdog: with the integrity plane on, the function takes
         # one more argument (``wdf``, the poison drill's device scalar) and
         # substitutes WATCHDOG_TOKEN for a lane whose logits trip it
-        wd = self._integrity is not None
+        wd = self._watchdog
         wd_limit = self._integrity.logit_limit if wd else 0.0
 
         def decode(tokens, positions, tables, step_ctr, seeds, temp_host, topk,
@@ -476,8 +524,10 @@ class TorchServingEngine(AsyncEngine):
             # k_steps forward+sample iterations, each sampled token fed back
             # in; the pool is read-only inside, the window is flushed once
             base = positions
-            wk = torch.zeros(wshape, dtype=cfg.dtype, device=self.device)
-            wv = torch.zeros(wshape, dtype=cfg.dtype, device=self.device)
+            wk = [torch.zeros(wshape, dtype=cfg.dtype, device=d) for d in devices]
+            wv = [torch.zeros(wshape, dtype=cfg.dtype, device=d) for d in devices]
+            if self.mesh is None:
+                wk, wv = wk[0], wv[0]
             toks, pos = tokens, positions
             outs, lps, tids, tlps = [], [], [], []
             for k in range(k_steps):
@@ -531,7 +581,7 @@ class TorchServingEngine(AsyncEngine):
         cfg = self.model_config
         S = self.config.max_slots
         n_top = self.config.top_logprobs
-        wd = self._integrity is not None
+        wd = self._watchdog
         wd_limit = self._integrity.logit_limit if wd else 0.0
 
         def chunk(tokens, positions, tables, sample_at, step_ctr, seeds, temp_host,
@@ -584,7 +634,7 @@ class TorchServingEngine(AsyncEngine):
         matches the targets plus the first non-matching target."""
         cfg = self.model_config
         n_top = self.config.top_logprobs
-        wd = self._integrity is not None
+        wd = self._watchdog
         wd_limit = self._integrity.logit_limit if wd else 0.0
 
         def verify(tokens, positions, tables, step_ctr, seeds, temp_host, topk,
@@ -622,7 +672,7 @@ class TorchServingEngine(AsyncEngine):
         """Extra dispatch arguments of the output watchdog: none with the
         integrity plane off, else one device scalar, 1 when the ``poison``
         fault fires for this dispatch and otherwise the 0 uploaded once."""
-        if self._integrity is not None and faults_mod.current() is not None and (
+        if self._watchdog and faults_mod.current() is not None and (
             faults_mod.poison_gate("engine", self._fault_addr)
         ):
             return (self._put(np.int32(1)),)
@@ -630,8 +680,8 @@ class TorchServingEngine(AsyncEngine):
 
     def _wd_steady(self) -> tuple:
         """The watchdog's arguments when no fault fires: () with the plane
-        off, else the device 0 uploaded once."""
-        if self._integrity is None:
+        off (or on a mesh), else the device 0 uploaded once."""
+        if not self._watchdog:
             return ()
         if self._wd_zero is None:
             self._wd_zero = self._put(np.int32(0))
@@ -686,9 +736,7 @@ class TorchServingEngine(AsyncEngine):
         bids = [b for ids, _ in self._crc_batch for b in ids]
         futs = [f for _, fs in self._crc_batch for f in fs]
         self._crc_batch = []
-        idx = torch.tensor(bids, dtype=torch.int64, device=self.device)
-        names = ("k", "v", "k_scale", "v_scale") if self.kv_quantized else ("k", "v")
-        bufs = [self.cache[n].transpose(0, 1)[idx].contiguous() for n in names]
+        bufs = self._gather_pages(bids, block_major=True)
         event = None
         if self.device.type == "cuda":
             host = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
@@ -701,6 +749,35 @@ class TorchServingEngine(AsyncEngine):
             self._crc_pool = ThreadPoolExecutor(1, thread_name_prefix="torch-engine-crc")
         self._crc_pool.submit(self._crc_job, bufs, event, futs)
         self.crc_flush_seconds += time.perf_counter() - t0
+
+    def _pool_names(self) -> Tuple[str, ...]:
+        return ("k", "v", "k_scale", "v_scale") if self.kv_quantized else ("k", "v")
+
+    def _gather_pages(self, block_ids: List[int], block_major: bool = False
+                      ) -> List[torch.Tensor]:
+        """The pool's pages of ``block_ids`` on the engine's device, one
+        fresh tensor per pool name: ``[L, n, bs, KVH, D]`` (scales ``[L,
+        n, bs]``), or with ``block_major`` ``[n, L, ...]`` with each block's
+        bytes contiguous (the order of the JAX checksum). On a mesh the rank
+        pools are concatenated along the kv-head axis: the global pool's
+        pages, in global head order."""
+        out = []
+        for name in self._pool_names():
+            parts = []
+            for pool in self._rank_pools:
+                x = pool[name]
+                idx = torch.tensor(block_ids, dtype=torch.int64, device=x.device)
+                x = x.transpose(0, 1)[idx].contiguous() if block_major else x[:, idx]
+                parts.append(x if x.device == self.device else x.to(self.device))
+            out.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim=3))
+        return out
+
+    def pages(self, block_ids: List[int]) -> Dict[str, torch.Tensor]:
+        """The pool's pages of ``block_ids`` by name (``k``, ``v`` and an
+        int8 pool's scales), ``[L, n, bs, KVH, D]`` in global head order on
+        the engine's device: what a host-tier spill of these blocks holds.
+        Engine thread (or an idle engine) only."""
+        return dict(zip(self._pool_names(), self._gather_pages(block_ids)))
 
     def _crc_job(self, bufs: List[torch.Tensor], event, futs: List[Future]) -> None:
         """Worker thread: each block's crc32 over its k | v (| scales)
@@ -1145,7 +1222,7 @@ class TorchServingEngine(AsyncEngine):
                 (float(lp_np[i]), tids_np[i], tlps_np[i]) if lp_np is not None else None
             )
             tok = int(sampled_np[i])
-            if self._integrity is not None and tok < 0:
+            if self._watchdog and tok < 0:
                 # the watchdog's sentinel, on a lane's first token or a
                 # decode lane's next one: the stream ends in-band
                 self._watchdog_trip(seq)
@@ -1392,7 +1469,7 @@ class TorchServingEngine(AsyncEngine):
         item, and finish the lane on a terminal cut. Returns the number of
         tokens emitted. A run holding the watchdog's sentinel emits and
         seals nothing: the lane ends in-band (:meth:`_watchdog_trip`)."""
-        if self._integrity is not None and any(t < 0 for t in cand):
+        if self._watchdog and any(t < 0 for t in cand):
             self._watchdog_trip(seq, defer_free=defer_free)
             return 0
         cfg = self.config
@@ -1541,9 +1618,10 @@ class TorchServingEngine(AsyncEngine):
         """Write KV pages into the pool at the given physical pages, in place
         (engine thread only): ``k``/``v`` [L, n, bs, KVH, D] and, for an int8
         pool, ``k_scale``/``v_scale`` [L, n, bs], as host or device tensors
-        or numpy arrays. A layout that disagrees with the pool (scales with a
-        native pool, none with an int8 one) or a shape that does not fit
-        raises before any byte lands."""
+        or numpy arrays; on a mesh KVH is the global count, in global head
+        order, and each rank takes its slice. A layout that disagrees with
+        the pool (scales with a native pool, none with an int8 one) or a
+        shape that does not fit raises before any byte lands."""
         if self.kv_quantized != (k_scale is not None):
             raise KvDtypeMismatch(
                 "pool kv_dtype is %s but injected pages %s scale tables" % (
@@ -1556,17 +1634,24 @@ class TorchServingEngine(AsyncEngine):
             vals.update(k_scale=k_scale, v_scale=v_scale)
         vals = {n: torch.as_tensor(x) for n, x in vals.items()}
         n = len(block_ids)
+        tp = len(self._rank_pools)
         for name, x in vals.items():
-            dst = self.cache[name]
+            dst = self._rank_pools[0][name]
             want = (dst.shape[0], n) + tuple(dst.shape[2:])
+            if tp > 1:  # the global pool's heads
+                want = want[:3] + (want[3] * tp,) + want[4:]
             if tuple(x.shape) != want:
                 raise ValueError(f"inject_blocks: {name} is {tuple(x.shape)}, the pool takes "
                                  f"{want} for {n} pages")
         # the checksums of pages sealed before must copy them out first
         self._flush_crcs()
-        idx = torch.tensor(block_ids, dtype=torch.int64, device=self.device)
         for name, x in vals.items():
-            self.cache[name][:, idx] = x.to(self.device, self.cache[name].dtype)
+            # global head order: rank r takes its contiguous slice of kv heads
+            parts = x.chunk(tp, dim=3) if tp > 1 else (x,)
+            for pool, part in zip(self._rank_pools, parts):
+                dst = pool[name]
+                idx = torch.tensor(block_ids, dtype=torch.int64, device=dst.device)
+                dst[:, idx] = part.to(dst.device, dst.dtype)
 
     def _offload_blocks(self, pairs: List[Tuple[int, int, Any]]) -> None:
         """Spill evicted device blocks to the host tier without waiting for
@@ -1579,9 +1664,7 @@ class TorchServingEngine(AsyncEngine):
         are ``(hash, block_id, crc)``; ``crc`` is the block's seal checksum
         (an int, a future of one, or None with the integrity plane off). On
         the CPU the gather is the copy and there is no event."""
-        idx = torch.tensor([bid for _, bid, _ in pairs], dtype=torch.int64, device=self.device)
-        names = ("k", "v", "k_scale", "v_scale") if self.kv_quantized else ("k", "v")
-        bufs = [self.cache[n][:, idx] for n in names]
+        bufs = self._gather_pages([bid for _, bid, _ in pairs])
         event = None
         if self.device.type == "cuda":
             host = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
@@ -1671,6 +1754,8 @@ class TorchServingEngine(AsyncEngine):
                 "decode_steps_total": self.decode_steps_total,
                 "paged_decode_launches": paged_decode_attention.launches,
                 "paged_decode_int8_launches": paged_decode_attention_int8.launches,
+                "paged_decode_sharded_launches": paged_decode_attention_sharded.launches,
+                "tensor_parallel_size": self.mesh.tp if self.mesh is not None else 1,
                 "kv_quantized": int(self.kv_quantized),
                 # speculative decoding: cumulative draft counters, and the
                 # acceptance rate per verify dispatch as an EMA (alpha 0.2)
@@ -1719,6 +1804,8 @@ def build_torch_serving_engine(
     quantize: Optional[str] = None,
     kv_dtype: Optional[str] = None,
     host_cache_blocks: int = 0,
+    tensor_parallel_size: int = 1,
+    devices: Optional[List[str]] = None,
 ) -> TorchServingEngine:
     """CLI entry: model + engine from a ModelDeploymentCard, on CUDA unless
     ``device="cpu"``. ``quantize``, ``kv_dtype`` and ``host_cache_blocks``
@@ -1726,13 +1813,31 @@ def build_torch_serving_engine(
     ``DYN_TPU_KV_DTYPE``); with
     ``"int8-all"`` the weights are quantized as they are loaded (or drawn),
     so the bf16 tree never exists on the device: how a model too large for
-    the card in bf16 (mixtral-8x7b) is served."""
+    the card in bf16 (mixtral-8x7b) is served.
+
+    ``tensor_parallel_size`` > 1 serves over a tp mesh (``build_jax_serving_engine``'s
+    argument): its ranks on ``devices`` (default ``cuda:0 … cuda:N-1``,
+    fewer cards raise; a list may name one device more than once to
+    co-locate ranks, and ``device="cpu"`` puts every rank on the CPU). The
+    weights are sliced to their ranks as they are read or drawn."""
     from .weights import config_from_card, load_params
 
-    dev = resolve_device(device)
+    mesh = None
+    if tensor_parallel_size > 1 or devices is not None:
+        if devices is None and device is not None and torch.device(device).type == "cpu":
+            devices = ["cpu"] * tensor_parallel_size
+        mesh = make_mesh(MeshConfig(tp=tensor_parallel_size), devices)
+        dev = mesh.devices[0]
+    else:
+        dev = resolve_device(device)
     model_config = config_from_card(card, dtype=dtype)
+    if mesh is not None:
+        if quantize == "int8-all":
+            raise ValueError('quantize="int8-all" on a tp mesh is not ported '
+                             '(ROADMAP A10: "int8-all" on tp)')
+        rank_config(model_config, mesh.tp)  # raises before any weight is read
     params = load_params(card, model_config, seed=seed, device=dev,
-                         int8=quantize == "int8-all")
+                         int8=quantize == "int8-all", mesh=mesh)
     engine_config = EngineConfig(
         max_slots=max_batch_size,
         kv_block_size=kv_block_size,
@@ -1744,5 +1849,5 @@ def build_torch_serving_engine(
         host_cache_blocks=host_cache_blocks,
     )
     return TorchServingEngine(
-        model_config, params, engine_config, device=dev, event_sink=event_sink
+        model_config, params, engine_config, device=dev, event_sink=event_sink, mesh=mesh,
     )

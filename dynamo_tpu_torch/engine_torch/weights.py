@@ -13,12 +13,17 @@ names (``block_sparse_moe.gate`` and ``experts.{x}.w1/w3/w2``) load into the
 router and the expert stacks. :func:`params_from_numpy` carries the JAX
 package's parameter pytree across (its int8 tree too), so both packages
 compute the same function in the tests.
+
+With a tp ``mesh`` each tensor is sliced to its ranks as it is read (or,
+for random weights, as each global matrix is drawn on rank 0's device), so
+the whole tree never sits on one device; the result is a
+:class:`ShardedParams`.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -27,11 +32,14 @@ from ..llm.model_card import ModelDeploymentCard
 from ..models.llama import (
     LlamaConfig,
     LlamaParams,
+    ShardedParams,
     init_params,
     init_params_int8,
     quantize_matrix,
     quantize_params_int8,
+    shard_params,
 )
+from ..parallel.mesh import Mesh
 from .safetensors import hf_tensors
 
 logger = logging.getLogger(__name__)
@@ -71,28 +79,37 @@ def config_from_card(card: ModelDeploymentCard, dtype: torch.dtype = torch.bfloa
 
 
 def load_params(card: ModelDeploymentCard, config: LlamaConfig, seed: int = 0,
-                device="cuda", int8: bool = False) -> LlamaParams:
+                device="cuda", int8: bool = False, mesh: Optional[Mesh] = None,
+                ) -> Union[LlamaParams, ShardedParams]:
     """Load llama-family weights (GGUF or safetensors) onto ``device``, or
     random-initialise there when the card has no weight files. ``int8``
     gives the int8 tree of ``quantize_params_int8``, built without the bf16
     one from safetensors files or a seed (a GGUF file is read in bf16 and
-    then quantized)."""
+    then quantized). ``mesh``: onto its ranks, sharded (module note); a
+    GGUF file is read on the host and then sharded."""
     gguf_path = getattr(card, "gguf_path", None)
     if gguf_path:
         from ..llm.gguf import gguf_params, read_gguf
 
-        params = gguf_params(read_gguf(gguf_path), config, device=device)
-        return quantize_params_int8(params, config) if int8 else params
+        params = gguf_params(read_gguf(gguf_path), config,
+                             device="cpu" if mesh is not None else device)
+        params = quantize_params_int8(params, config) if int8 else params
+        return shard_params(params, config, mesh) if mesh is not None else params
     tensors = hf_tensors(card.model_path) if card.model_path else None
     if tensors is None:
         logger.info("no weight files for %s: random-initializing", card.display_name)
-        init = init_params_int8 if int8 else init_params
-        return init(config, seed=seed, device=device)
-    return params_from_hf(tensors, config, device=device, int8=int8)
+        if int8:
+            if mesh is not None:
+                raise ValueError("random int8 weights on a tp mesh are not ported "
+                                 "(ROADMAP A10)")
+            return init_params_int8(config, seed=seed, device=device)
+        return init_params(config, seed=seed, device=device, mesh=mesh)
+    return params_from_hf(tensors, config, device=device, int8=int8, mesh=mesh)
 
 
 def params_from_hf(tensors: Mapping[str, Union[torch.Tensor, np.ndarray]], config: LlamaConfig,
-                   device="cpu", int8: bool = False) -> LlamaParams:
+                   device="cpu", int8: bool = False, mesh: Optional[Mesh] = None,
+                   ) -> Union[LlamaParams, ShardedParams]:
     """HF llama/qwen2/mixtral naming → :class:`LlamaParams` on ``device``:
     ``[out, in]`` matrices transposed to ``[in, out]``, layers (and a
     mixtral layer's experts) stacked, the mixtral router
@@ -103,42 +120,47 @@ def params_from_hf(tensors: Mapping[str, Union[torch.Tensor, np.ndarray]], confi
     stored, then converted there, one at a time. ``int8``: each matrix,
     converted to the config dtype, is quantized on the device as it
     arrives (HF ``[out, in]`` is already the int8 ``q`` layout), which
-    gives ``quantize_params_int8`` of the bf16 tree bit for bit."""
+    gives ``quantize_params_int8`` of the bf16 tree bit for bit (on a
+    ``mesh`` too: a whole matrix is quantized, then sliced)."""
     c = config
-    params = LlamaParams(c, torch.device(device), int8=int8)
+    if mesh is not None:
+        params = ShardedParams.empty(c, mesh, int8=int8)
+        dev = mesh.devices[0]
+    else:
+        params = LlamaParams(c, torch.device(device), int8=int8)
+        dev = params.final_norm.device
 
     def fetch(name: str) -> torch.Tensor:
         t = tensors[name]
         if isinstance(t, np.ndarray):
             t = torch.from_numpy(t)
-        return t.to(params.final_norm.device)
+        return t.to(dev)
 
-    def put(dst: torch.Tensor, name: str, transpose: bool = False) -> None:
+    def put(ours: str, idx: tuple, name: str, transpose: bool = False) -> None:
         t = fetch(name)
-        dst.copy_(t.T if transpose else t)
+        params.assign(ours, idx, t.T if transpose else t)
 
     def put_mat(ours: str, idx: tuple, name: str) -> None:
         """An HF [out, in] matrix into parameter ``ours`` (a name of
         ``param_shapes``) at ``idx``; the embedding [V, E] as it is."""
         embed = ours == "embed"
         if not int8:
-            put(params.get_parameter(ours)[idx], name, transpose=not embed)
+            put(ours, idx, name, transpose=not embed)
             return
         w = fetch(name).to(c.dtype)
         q, s = quantize_matrix(w if embed else w.T, per_row=embed)
-        params.get_parameter(ours + "_q")[idx].copy_(q)
-        params.get_parameter(ours + "_s")[idx].copy_(s)
+        params.assign(ours + "_q", idx, q)
+        params.assign(ours + "_s", idx, s)
 
-    lp = params.layers
     with torch.no_grad():
         put_mat("embed", (), "model.embed_tokens.weight")
-        put(params.final_norm, "model.norm.weight")
+        put("final_norm", (), "model.norm.weight")
         if not c.tie_embeddings:
             put_mat("lm_head", (), "lm_head.weight")
         for i in range(c.num_layers):
             pre = f"model.layers.{i}."
-            put(lp["attn_norm"][i], pre + "input_layernorm.weight")
-            put(lp["mlp_norm"][i], pre + "post_attention_layernorm.weight")
+            put("layers.attn_norm", (i,), pre + "input_layernorm.weight")
+            put("layers.mlp_norm", (i,), pre + "post_attention_layernorm.weight")
             for ours, hf in _HF_MATS.items():
                 if c.num_experts > 1 and ours in _HF_EXPERTS:
                     for x in range(c.num_experts):
@@ -147,10 +169,11 @@ def params_from_hf(tensors: Mapping[str, Union[torch.Tensor, np.ndarray]], confi
                 else:
                     put_mat(f"layers.{ours}", (i,), f"{pre}{hf}.weight")
             if c.num_experts > 1:
-                put(lp["moe_router"][i], pre + "block_sparse_moe.gate.weight", transpose=True)
+                put("layers.moe_router", (i,), pre + "block_sparse_moe.gate.weight",
+                    transpose=True)
             if c.qkv_bias:
                 for ours, hf in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
-                    put(lp[ours][i], f"{pre}self_attn.{hf}.bias")
+                    put(f"layers.{ours}", (i,), f"{pre}self_attn.{hf}.bias")
     return params
 
 

@@ -7,7 +7,7 @@ an ``nn.Module`` (:class:`LlamaParams`) that holds the same stacked
 stacked leading axis (the JAX package scans it).
 
 The mixtral family (``num_experts > 1``) replaces the dense FFN by the
-sparse MoE layer of ``ops/moe.py`` in every path (:func:`mlp_block`), with
+sparse MoE layer of ``ops/moe.py`` in every path (:func:`mlp_partial`), with
 expert stacks ``[L, X, in, out]`` and a router ``[L, E, X]`` in fp32.
 
 Weight-only int8 (the JAX ``quantize_params_int8``, ``matw``, int8
@@ -33,14 +33,31 @@ not ported (its choice was tuned on a TPU). An int8 pool
 fresh K/V are quantized per token as they are written (a prefill chunk's
 before its scatter, a decode window once at its flush), and decode reads the
 pool through the int8 paged kernel.
+
+**Tensor parallelism** (the JAX ``param_shardings`` Megatron layout over a
+tp mesh, ``parallel/mesh.py``): :func:`shard_params` gives each rank a
+:class:`LlamaParams` of the per-rank config (:func:`rank_config`: H/tp,
+KVH/tp, F/tp, V/tp) on its device, as a :class:`ShardedParams`; rank ``r``
+holds exactly JAX's addressable shard ``r``. The pool is a list of per-rank
+pools ``[L, N, bs, KVH/tp, D]`` (:func:`make_kv_cache` with ``mesh``).
+Every forward takes either kind: on a mesh q/k/v and gate/up are
+column-parallel, ``wo`` and ``w_down`` row-parallel with their partials
+summed by ``all_reduce`` before the residual, the embedding lookup
+vocab-parallel (each rank its own rows, the others masked, then
+``all_reduce``), the LM head column-parallel over vocab with the logits
+gathered on rank 0's device; decode attention is the paged kernel per
+rank (``paged_decode_attention_sharded``). An unsharded call is the one-rank
+case, whose collectives are the identity. Inputs and outputs of a forward
+live on rank 0's device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -54,7 +71,14 @@ from ..ops.attention import (
 )
 from ..ops.int8_matmul import Int8Weight, int8_weight_matmul
 from ..ops.moe import MoeConfig, moe_mlp
-from ..ops.paged_attention import paged_decode_attention, paged_decode_attention_int8
+from ..ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_int8,
+    paged_decode_attention_sharded,
+    per_rank_attention,
+)
+from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.mesh import Mesh, Sharding, logical_to_sharding
 
 # {"k": [L,N,bs,KVH,D], "v": ...}, and for an int8 pool "k_scale"/"v_scale" [L,N,bs]
 KVCache = Dict[str, torch.Tensor]
@@ -211,6 +235,130 @@ class LlamaParams(nn.Module):
             lp[k] = Int8Weight(self.layers[f"{k}_q"][i], self.layers[f"{k}_s"][i])
         return lp
 
+    def assign(self, name: str, idx: tuple, w: torch.Tensor) -> None:
+        """Copy ``w`` into parameter ``name`` (of :func:`param_shapes`) at
+        the leading index ``idx``."""
+        self.get_parameter(name)[idx].copy_(w)
+
+
+# -- tensor parallelism ------------------------------------------------------
+
+def param_logical_axes(config: LlamaConfig, int8: bool = False
+                       ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical sharding axes per parameter of :func:`param_shapes` (the JAX
+    ``param_logical_axes``, and for ``int8`` its ``quantized_logical_axes``
+    in the port's layout: ``q`` [..., out, in] takes the matrix's axes with
+    the last two swapped, ``s`` drops the contracted ``in`` axis; the
+    embedding's ``q`` keeps ``(vocab, embed)`` and its ``s`` ``(vocab,)``)."""
+    ffn = ("layers", "experts") if config.num_experts > 1 else ("layers",)
+    mats = {
+        "embed": ("vocab", "embed"),
+        "layers.wq": ("layers", "embed", "heads"),
+        "layers.wk": ("layers", "embed", "kv_heads"),
+        "layers.wv": ("layers", "embed", "kv_heads"),
+        "layers.wo": ("layers", "heads", "embed"),
+        "layers.w_gate": ffn + ("embed", "mlp"),
+        "layers.w_up": ffn + ("embed", "mlp"),
+        "layers.w_down": ffn + ("mlp", "embed"),
+    }
+    if not config.tie_embeddings:
+        mats["lm_head"] = ("embed", "vocab")
+    axes: Dict[str, Tuple[Optional[str], ...]] = {
+        "final_norm": ("embed",), "layers.attn_norm": ("layers", "embed"),
+        "layers.mlp_norm": ("layers", "embed"),
+    }
+    if config.num_experts > 1:
+        axes["layers.moe_router"] = ("layers", "embed", None)
+    for name, ax in mats.items():
+        if not int8:
+            axes[name] = ax
+        elif name == "embed":
+            axes["embed_q"], axes["embed_s"] = ax, ax[:1]
+        else:
+            axes[f"{name}_q"] = ax[:-2] + (ax[-1], ax[-2])
+            axes[f"{name}_s"] = ax[:-2] + (ax[-1],)
+    if config.qkv_bias:
+        axes["layers.bq"] = ("layers", "heads")
+        axes["layers.bk"] = ("layers", "kv_heads")
+        axes["layers.bv"] = ("layers", "kv_heads")
+    return axes
+
+
+def rank_config(config: LlamaConfig, tp: int) -> LlamaConfig:
+    """The config whose shapes one of ``tp`` ranks holds: H/tp, KVH/tp,
+    F/tp and V/tp. What this slice does not shard raises: the MoE family
+    (ROADMAP A9) and heads that do not split over tp (A11; the JAX
+    package falls back to its GSPMD jnp path there)."""
+    if tp == 1:
+        return config
+    c = config
+    if c.num_experts > 1:
+        raise ValueError("the MoE family on a tp mesh is not ported (ROADMAP A9: MoE on tp, "
+                         "with ep)")
+    if c.num_heads % tp or c.num_kv_heads % tp:
+        raise ValueError(f"{c.num_heads} query and {c.num_kv_heads} kv heads do not split "
+                         f"evenly over tp={tp} (ROADMAP A11)")
+    for name, n in (("intermediate_size", c.intermediate_size), ("vocab_size", c.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{name} {n} does not split evenly over tp={tp}")
+    return dataclasses.replace(c, num_heads=c.num_heads // tp,
+                               num_kv_heads=c.num_kv_heads // tp,
+                               intermediate_size=c.intermediate_size // tp,
+                               vocab_size=c.vocab_size // tp)
+
+
+class ShardedParams:
+    """A model's parameters over a tp mesh: ``shards[r]`` is rank r's
+    :class:`LlamaParams` (the shapes of :func:`rank_config`) on
+    ``mesh.devices[r]``; ``config`` is the whole model's. Norms are
+    replicated, every other leaf split as :func:`param_logical_axes` says."""
+
+    def __init__(self, config: LlamaConfig, mesh: Mesh, shards: List[LlamaParams]):
+        self.config = config
+        self.mesh = mesh
+        self.shards = shards
+        self.int8 = shards[0].int8
+        axes = param_logical_axes(config, self.int8)
+        self.rules: Dict[str, Sharding] = {
+            n: logical_to_sharding(mesh, *ax) for n, ax in axes.items()}
+
+    @classmethod
+    def empty(cls, config: LlamaConfig, mesh: Mesh, int8: bool = False) -> "ShardedParams":
+        rc = rank_config(config, mesh.tp)
+        return cls(config, mesh, [LlamaParams(rc, d, int8=int8) for d in mesh.devices])
+
+    def assign(self, name: str, idx: tuple, w: torch.Tensor) -> None:
+        """Each rank's slice of the whole leaf ``name`` at leading index
+        ``idx`` (``w`` = the leaf's ``[idx]``), copied onto its device."""
+        rule = self.rules[name]
+        if rule.dim is not None:
+            if rule.dim < len(idx):
+                raise ValueError(f"{name}: the index {idx} cuts the split dimension")
+            rule = Sharding(rule.dim - len(idx), rule.parts)
+        for r, shard in enumerate(self.shards):
+            shard.assign(name, idx, rule.shard(w, r))
+
+
+def shard_params(params: LlamaParams, config: LlamaConfig, mesh: Mesh) -> ShardedParams:
+    """Rank r's slice of every leaf on ``mesh.devices[r]``: JAX's
+    addressable shard r of ``jax.device_put(params, param_shardings(...))``
+    (an int8 tree: of ``quantized_param_shardings``), leaf by leaf."""
+    out = ShardedParams.empty(config, mesh, int8=params.int8)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            out.assign(name, (), p)
+    return out
+
+
+def _split(params, config: LlamaConfig
+           ) -> Tuple[List[LlamaParams], List[LlamaConfig], Optional[Mesh]]:
+    """(each rank's params, each rank's config, the mesh): a
+    :class:`ShardedParams`'s ranks, or the one rank of a :class:`LlamaParams`
+    under ``config``."""
+    if isinstance(params, ShardedParams):
+        return params.shards, [p.config for p in params.shards], params.mesh
+    return [params], [config], None
+
 
 def _random_slices(c: LlamaConfig, seed: int, device: torch.device
                    ) -> Iterator[Tuple[str, Tuple[int, ...], torch.Tensor]]:
@@ -249,18 +397,30 @@ def _fill_constants(params: "LlamaParams") -> None:
             p.zero_()
 
 
-def init_params(config: LlamaConfig, seed: int = 0, device="cpu") -> LlamaParams:
+def init_params(config: LlamaConfig, seed: int = 0, device="cpu",
+                mesh: Optional[Mesh] = None) -> Union[LlamaParams, ShardedParams]:
     """Random init with fan-in scaling (normal / sqrt(fan_in)), drawn on
     ``device`` from a ``torch.Generator`` seeded with ``seed`` (a MoE model
     one matrix slice at a time: :func:`_random_slices`); norms are 1 and
     biases 0. Streams differ from ``jax.random``'s: carry JAX weights over
-    with ``weights.params_from_numpy`` where equality matters."""
+    with ``weights.params_from_numpy`` where equality matters. With
+    ``mesh`` the same global draws are made on rank 0's device and each is
+    sharded over the ranks as it is drawn, so a tp model and an unsharded
+    one from one seed on one device hold the same weights."""
+    if mesh is not None:
+        params = ShardedParams.empty(config, mesh)
+        with torch.no_grad():
+            for shard in params.shards:
+                _fill_constants(shard)
+            for name, idx, w in _random_slices(config, seed, mesh.devices[0]):
+                params.assign(name, idx, w)
+        return params
     device = torch.device(device)
     params = LlamaParams(config, device)
     with torch.no_grad():
         _fill_constants(params)
         for name, idx, w in _random_slices(config, seed, device):
-            params.get_parameter(name)[idx].copy_(w)
+            params.assign(name, idx, w)
     return params
 
 
@@ -289,13 +449,25 @@ def init_params_int8(config: LlamaConfig, seed: int = 0, device="cpu") -> LlamaP
 def make_kv_cache(
     config: LlamaConfig, num_blocks: int, block_size: int,
     dtype: Optional[torch.dtype] = None, device="cpu", quantized: bool = False,
-) -> KVCache:
+    mesh: Optional[Mesh] = None,
+) -> Union[KVCache, List[KVCache]]:
     """Allocate the paged KV pool: [layers, blocks, block_size, kv_heads, head_dim].
 
     ``quantized=True`` is the JAX int8 page layout: int8 ``k``/``v`` and
     per-token scale tables ``k_scale``/``v_scale`` [layers, blocks,
     block_size] float32, grouped by physical block so that the scales
-    travel with their pages (prefix reuse, the host tier)."""
+    travel with their pages (prefix reuse, the host tier).
+
+    With ``mesh``: one pool per rank on its device, its kv heads the rank's
+    slice of the global ones (``kv_cache_sharding``), each contiguous, as
+    the paged kernel takes it. Int8 pages on a mesh raise, as in the JAX
+    engine."""
+    if mesh is not None:
+        if quantized:
+            raise ValueError("kv_dtype='int8' requires an unsharded cache (mesh=None); "
+                             "sharded engines keep the native KV dtype")
+        rc = rank_config(config, mesh.tp)
+        return [make_kv_cache(rc, num_blocks, block_size, dtype, device=d) for d in mesh.devices]
     c = config
     shape = (c.num_layers, num_blocks, block_size, c.num_kv_heads, c.head_dim)
     if quantized:
@@ -337,33 +509,42 @@ def _write_pool(pool: Tuple[torch.Tensor, ...], k: torch.Tensor, v: torch.Tensor
         write_kv_to_pages(pool[0], pool[1], k, v, positions, block_tables)
 
 
-def _quantize(w: torch.Tensor, contract_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Absmax/127 int8 along ``contract_dim``: (q in w's layout, s)."""
+def _quantize(w: torch.Tensor, contract_dim: int, amax: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absmax/127 int8 along ``contract_dim``: (q in w's layout, s).
+    ``amax``: the absmax to scale by (a row-parallel shard's: that of the
+    whole contracted axis), else w's own."""
     wf = w.float()
-    s = (wf.abs().amax(dim=contract_dim) / 127.0).clamp(min=1e-12)
+    if amax is None:
+        amax = wf.abs().amax(dim=contract_dim)
+    s = (amax / 127.0).clamp(min=1e-12)
     q = torch.round(wf / s.unsqueeze(contract_dim))  # half to even, as jnp.round
     return q.clamp(-127, 127).to(torch.int8), s
 
 
-def quantize_matrix(w: torch.Tensor, per_row: bool = False
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_matrix(w: torch.Tensor, per_row: bool = False,
+                    amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One matrix (or stack) in the JAX layout ``[..., in, out]`` to the
     port's int8 pair: contracted over ``in`` (the JAX rule "ndim - 2"), ``q``
     transposed to ``[..., out, in]``. ``per_row``: the embedding ``[V, E]``,
-    quantized per row and kept as it is."""
+    quantized per row and kept as it is. ``amax`` scales by a given absmax
+    (see :func:`_quantize`)."""
     if per_row:
-        return _quantize(w, 1)
-    q, s = _quantize(w, w.dim() - 2)
+        return _quantize(w, 1, amax)
+    q, s = _quantize(w, w.dim() - 2, amax)
     return q.transpose(-1, -2), s
 
 
-def quantize_params_int8(params: LlamaParams, config: LlamaConfig) -> LlamaParams:
+def quantize_params_int8(params, config: LlamaConfig):
     """Every dense matrix to int8 with per-output-channel absmax/127 scales
     (``max(absmax / 127, 1e-12)``, ``q = clip(round(w / s), -127, 127)``),
     the embedding per row and each expert of an MoE stack on its own; norms,
     biases and the MoE router are shared with ``params``. The JAX
     ``quantize_params_int8`` in the port's ``[out, in]`` layout. Works one
-    layer at a time on the params' device."""
+    layer at a time on the params' device. :class:`ShardedParams` give the
+    sharded int8 tree of the whole one (:func:`_quantize_sharded`)."""
+    if isinstance(params, ShardedParams):
+        return _quantize_sharded(params, config)
     if params.int8:
         raise ValueError("params are already quantized")
     dev = params.final_norm.device
@@ -389,6 +570,50 @@ def quantize_params_int8(params: LlamaParams, config: LlamaConfig) -> LlamaParam
     return out
 
 
+def _quantize_sharded(params: ShardedParams, config: LlamaConfig) -> ShardedParams:
+    """``shard_params(quantize_params_int8(whole tree))`` bit for bit,
+    without the whole tree: a column-parallel shard holds whole output
+    channels and is quantized alone; a row-parallel shard (``wo``,
+    ``w_down``: the contracted ``in`` axis split) is scaled by the absmax of
+    the whole axis, the max of the ranks' absmaxes, so its scales are the
+    whole matrix's on every rank, never recomputed over the rank's slice."""
+    if params.int8:
+        raise ValueError("params are already quantized")
+    mesh = params.mesh
+    out = ShardedParams.empty(config, mesh, int8=True)
+    dev0 = mesh.devices[0]
+
+    def quantized(name: str, ws: List[torch.Tensor], per_row: bool = False):
+        # ws: the ranks' [in, out] slices of one matrix (a layer's: the
+        # leaf's leading layer axis taken off the rule's dimension)
+        split = params.rules[name].dim
+        lead = 1 if name.startswith("layers.") else 0
+        if not per_row and split is not None and split - lead == ws[0].dim() - 2:
+            amax = torch.stack([w.float().abs().amax(dim=-2).to(dev0) for w in ws]).amax(dim=0)
+            return [quantize_matrix(w, amax=amax.to(w.device)) for w in ws]
+        return [quantize_matrix(w, per_row=per_row) for w in ws]
+
+    with torch.no_grad():
+        for src, dst in zip(params.shards, out.shards):
+            dst.final_norm = src.final_norm
+            for k, v in src.layers.items():
+                if k not in INT8_MATS:
+                    dst.layers[k] = v
+        heads = [("embed", True)] + ([] if config.tie_embeddings else [("lm_head", False)])
+        for name, per_row in heads:
+            for dst, (q, s) in zip(out.shards, quantized(
+                    name, [getattr(p, name) for p in params.shards], per_row)):
+                getattr(dst, f"{name}_q").copy_(q)
+                getattr(dst, f"{name}_s").copy_(s)
+        for name in INT8_MATS:
+            for i in range(config.num_layers):
+                ws = [p.layers[name][i] for p in params.shards]
+                for dst, (q, s) in zip(out.shards, quantized(f"layers.{name}", ws)):
+                    dst.layers[f"{name}_q"][i].copy_(q)
+                    dst.layers[f"{name}_s"][i].copy_(s)
+    return out
+
+
 # -- math --------------------------------------------------------------------
 
 def matw(x: torch.Tensor, w: Weight) -> torch.Tensor:
@@ -399,6 +624,26 @@ def matw(x: torch.Tensor, w: Weight) -> torch.Tensor:
     if isinstance(w, Int8Weight):
         return int8_weight_matmul(x.contiguous(), w.q, w.s)
     return x @ w
+
+
+def matw_partial(x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """:func:`matw` as a row-parallel rank's partial: the same product left
+    in fp32, unrounded, for ``all_reduce`` to sum and round once (a bf16
+    partial rounded per rank, then summed, would add a rounding the
+    unsharded product lacks). Plain weights: fp32 accumulation of the
+    products of x and w as given (cuBLAS with an fp32 output on the card);
+    an :class:`Int8Weight`: the W8A16 product with its fp32 epilogue, ``x @
+    q.T`` rounded to x's dtype as :func:`matw` rounds it, times the scales,
+    not rounded again."""
+    if isinstance(w, Int8Weight):
+        return int8_weight_matmul(x.contiguous(), w.q, w.s, out_dtype=torch.float32)
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cuda":
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
@@ -455,27 +700,32 @@ def moe_config(c: LlamaConfig) -> MoeConfig:
                      capacity_factor=c.expert_capacity_factor)
 
 
-def mlp_block(lp: Dict[str, Weight], c: LlamaConfig, hidden: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
-    """Post-norm FFN plus residual: dense silu-gated, or the sparse MoE
-    layer (``ops/moe.py``) when the config declares experts. ``positions``
-    (< 0 = padding) masks padding out of MoE routing, so that it claims no
-    expert capacity ahead of real tokens."""
+def mlp_partial(lp: Dict[str, Weight], c: LlamaConfig, hidden: torch.Tensor,
+                positions: torch.Tensor, partial: bool = False) -> torch.Tensor:
+    """Post-norm FFN without the residual: dense silu-gated (``partial``:
+    a tp rank's row-parallel partial of ``w_down``, fp32, unrounded), or the
+    sparse MoE layer (``ops/moe.py``) when the config declares experts.
+    ``positions`` (< 0 = padding) masks padding out of MoE routing, so that
+    it claims no expert capacity ahead of real tokens."""
     x = rms_norm(hidden, lp["mlp_norm"], c.rms_norm_eps)
     if c.num_experts > 1:
         moe_params = {"router": lp["moe_router"], "w_gate": lp["w_gate"],
                       "w_up": lp["w_up"], "w_down": lp["w_down"]}
         out, _ = moe_mlp(moe_params, moe_config(c), x, token_valid=positions >= 0,
                          with_aux=False)
-        return hidden + out.to(hidden.dtype)
+        return out.to(hidden.dtype)
     gate = torch.nn.functional.silu(matw(x, lp["w_gate"]).float()).to(x.dtype)
-    return hidden + matw(gate * matw(x, lp["w_up"]), lp["w_down"])
+    return (matw_partial if partial else matw)(gate * matw(x, lp["w_up"]), lp["w_down"])
 
 
-def lm_head(params: LlamaParams, config: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
+def lm_head(params, config: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
     """Project final hidden states to vocabulary logits (float32). An int8
     head (tied: the per-row embedding) is the W8A16 product with an fp32
-    epilogue: ``float(round(h @ q.T)) * s``."""
+    epilogue: ``float(round(h @ q.T)) * s``. :class:`ShardedParams`: each
+    rank's vocab columns, gathered on rank 0's device."""
+    if isinstance(params, ShardedParams):
+        hs = params.mesh.replicate(h)
+        return all_gather([lm_head(p, p.config, x) for p, x in zip(params.shards, hs)])
     head = params.weight("embed" if config.tie_embeddings else "lm_head")
     if isinstance(head, Int8Weight):
         return int8_weight_matmul(h.contiguous(), head.q, head.s, out_dtype=torch.float32)
@@ -498,43 +748,89 @@ def _merge(num_a, m_a, l_a, num_b, m_b, l_b):
 
 # -- forward -----------------------------------------------------------------
 
-def decoder_layer(
-    lp: Dict[str, torch.Tensor], config: LlamaConfig, hidden: torch.Tensor,
-    positions: torch.Tensor, k_page: torch.Tensor, v_page: torch.Tensor,
-    block_tables: torch.Tensor,
-) -> torch.Tensor:
-    """One decoder layer of :func:`forward`; writes this step's K/V into the
-    layer's pages (in place) and attends through the block tables."""
-    c = config
+def _replicate(mesh: Optional[Mesh], *ts: torch.Tensor) -> List[List[torch.Tensor]]:
+    """Each tensor on every rank's device ([t] alone without a mesh)."""
+    return [[t] if mesh is None else mesh.replicate(t) for t in ts]
+
+
+def _embed_ranks(shards: List[LlamaParams], mesh: Optional[Mesh],
+                 tokens: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The embedding lookup on each rank: unsharded, the plain lookup;
+    vocab-parallel on a mesh, each rank's own rows with the others' tokens
+    masked to zero, summed by ``all_reduce`` (exact: one nonzero term)."""
+    if mesh is None:
+        return [embed_lookup(shards[0], tokens[0])]
+    parts = []
+    for r, (p, t) in enumerate(zip(shards, tokens)):
+        v = p.config.vocab_size
+        local = t.clamp(min=0).long() - r * v
+        mine = (local >= 0) & (local < v)
+        e = embed_lookup(p, torch.where(mine, local, torch.zeros_like(local)))
+        parts.append(torch.where(mine[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                                  device=e.device)))
+    return all_reduce(parts)
+
+
+def _residual(hs: List[torch.Tensor], parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The residual stream plus a row-parallel product: the ranks' partials
+    summed and rounded once to the stream's dtype (``all_reduce``; the
+    identity for one rank), added on each rank."""
+    return [h + o for h, o in zip(hs, all_reduce(parts, hs[0].dtype))]
+
+
+def _final(shards: List[LlamaParams], cfgs: List[LlamaConfig], hs: List[torch.Tensor],
+           hidden_only: bool) -> torch.Tensor:
+    """Final norm, then the hidden states (rank 0's) or the logits
+    (gathered over the vocab shards on rank 0's device)."""
+    hs = [rms_norm(h, p.final_norm, c.rms_norm_eps) for h, p, c in zip(hs, shards, cfgs)]
+    if hidden_only:
+        return hs[0]
+    return all_gather([lm_head(p, c, h) for p, c, h in zip(shards, cfgs, hs)])
+
+
+def _pools(kv_cache, n: int) -> List[KVCache]:
+    pools = kv_cache if isinstance(kv_cache, list) else [kv_cache]
+    if len(pools) != n:
+        raise ValueError(f"{len(pools)} KV pools for {n} ranks")
+    return pools
+
+
+def _attention_partial(lp, c: LlamaConfig, hidden, positions, k_page, v_page,
+                       block_tables, partial: bool = False) -> torch.Tensor:
+    """A layer's attention in :func:`forward` up to ``wo`` (``partial``: a
+    tp rank's row-parallel partial, :func:`matw_partial`): writes this
+    step's K/V into the layer's pages (in place) and attends through the
+    block tables."""
     b, t = positions.shape
     q, k, v = project_qkv(lp, c, hidden, positions)
     write_kv_to_pages(k_page, v_page, k, v, positions, block_tables)
     attn = paged_attention(q, k_page, v_page, block_tables, positions)
-    hidden = hidden + matw(attn.reshape(b, t, c.q_dim), lp["wo"])
-    return mlp_block(lp, c, hidden, positions)
+    return (matw_partial if partial else matw)(attn.reshape(b, t, c.q_dim), lp["wo"])
 
 
 def forward(
-    params: LlamaParams, config: LlamaConfig,
+    params, config: LlamaConfig,
     tokens: torch.Tensor,  # [B, T]
     positions: torch.Tensor,  # [B, T]; < 0 = padding
-    kv_cache: KVCache, block_tables: torch.Tensor,
+    kv_cache, block_tables: torch.Tensor,
     *, hidden_only: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One forward step (prefill if T>1, decode if T==1): writes new K/V into
     the paged cache, attends through block tables, returns (logits [B, T,
-    vocab] float32, cache)."""
-    c = config
-    h = embed_lookup(params, tokens)
-    for i in range(c.num_layers):
-        h = decoder_layer(
-            params.layer(i), c, h, positions, kv_cache["k"][i], kv_cache["v"][i],
-            block_tables,
-        )
-    h = rms_norm(h, params.final_norm, c.rms_norm_eps)
-    if hidden_only:
-        return h, kv_cache
-    return lm_head(params, c, h), kv_cache
+    vocab] float32, cache). ``params`` a :class:`ShardedParams` and
+    ``kv_cache`` its per-rank pools: the tp forward (module note)."""
+    shards, cfgs, mesh = _split(params, config)
+    ranks, tp = range(len(shards)), mesh is not None
+    pools = _pools(kv_cache, len(shards))
+    toks, pos, tables = _replicate(mesh, tokens, positions, block_tables)
+    hs = _embed_ranks(shards, mesh, toks)
+    for i in range(config.num_layers):
+        lps = [p.layer(i) for p in shards]
+        hs = _residual(hs, [
+            _attention_partial(lps[r], cfgs[r], hs[r], pos[r], pools[r]["k"][i],
+                               pools[r]["v"][i], tables[r], tp) for r in ranks])
+        hs = _residual(hs, [mlp_partial(lps[r], cfgs[r], hs[r], pos[r], tp) for r in ranks])
+    return _final(shards, cfgs, hs, hidden_only), kv_cache
 
 
 def _history_partial(q, gk, gv, chunk_start, q_positions, scale):
@@ -575,52 +871,61 @@ def _chunk_self_partial(q, k, v, positions, scale):
     return num.reshape(b, t, h, d), m.reshape(b, h, t), p.sum(dim=-1).reshape(b, h, t)
 
 
+def _chunk_attention(c: LlamaConfig, q, k, v, pool, block_tables, chunk_start, positions,
+                     with_history: bool, dtype) -> torch.Tensor:
+    """A prefill chunk's attention on one rank: the flash merge of the
+    in-chunk causal partial (over the exact fresh K/V, an int8 pool or not)
+    with the partial over pool history (positions < each lane's chunk
+    start, untouched by this chunk's scatter either way; an int8 pool
+    dequantizes the gathered lanes only). [B, T, H, D] f32."""
+    scale = c.head_dim ** -0.5
+    num, m, l = _chunk_self_partial(q, k, v, positions, scale)
+    if not with_history:
+        den = l.transpose(1, 2)[..., None]
+        return torch.where(den > 0, num / den.clamp(min=1e-30), torch.zeros_like(num))
+    gk, gv = (gather_pages(x, block_tables) for x in pool[:2])
+    if len(pool) == 4:
+        gk = dequantize_kv(gk, gather_pages(pool[2], block_tables), dtype)
+        gv = dequantize_kv(gv, gather_pages(pool[3], block_tables), dtype)
+    num_h, m_h, l_h = _history_partial(q, gk, gv, chunk_start, positions, scale)
+    tr = lambda x: x.transpose(1, 2)  # noqa: E731  [B,H,T] → [B,T,H]
+    return _merge(num_h, tr(m_h), tr(l_h), num, tr(m), tr(l))
+
+
 def forward_chunk(
-    params: LlamaParams, config: LlamaConfig,
+    params, config: LlamaConfig,
     tokens: torch.Tensor,  # [B, C]
     positions: torch.Tensor,  # [B, C]; < 0 = padding
-    kv_cache: KVCache, block_tables: torch.Tensor,
+    kv_cache, block_tables: torch.Tensor,
     *, hidden_only: bool = False, with_history: bool = True,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill-chunk forward: attention is the flash merge of a partial over
     pool history (positions < each lane's chunk start) with an in-chunk
     causal partial over the fresh K/V in hand; the chunk's K/V are written
     into the pages for later chunks and decode. ``with_history=False``
-    skips the history partial (every lane starts at position 0)."""
-    c = config
-    scale = c.head_dim ** -0.5
-    h = embed_lookup(params, tokens)
-    chunk_start = torch.where(positions[:, 0] >= 0, positions[:, 0], 0)
+    skips the history partial (every lane starts at position 0). On a tp
+    mesh each rank attends its own heads over its own pool (module note)."""
+    shards, cfgs, mesh = _split(params, config)
+    ranks, tp = range(len(shards)), mesh is not None
+    matw_wo = matw_partial if tp else matw
+    pools = _pools(kv_cache, len(shards))
+    toks, pos, tables = _replicate(mesh, tokens, positions, block_tables)
+    hs = _embed_ranks(shards, mesh, toks)
+    chunk_start = [torch.where(p[:, 0] >= 0, p[:, 0], 0) for p in pos]
     b, t = positions.shape
-    for i in range(c.num_layers):
-        lp = params.layer(i)
-        pool = _layer_pool(kv_cache, i)
-        q, k, v = project_qkv(lp, c, h, positions)
-        # the self partial attends the exact fresh K/V, an int8 pool or not
-        num, m, l = _chunk_self_partial(q, k, v, positions, scale)
-        if with_history:
-            # masked to < chunk_start, the history pages are untouched by
-            # this chunk's scatter either way; an int8 pool dequantizes the
-            # gathered lanes only
-            gk, gv = (gather_pages(x, block_tables) for x in pool[:2])
-            if len(pool) == 4:
-                gk = dequantize_kv(gk, gather_pages(pool[2], block_tables), h.dtype)
-                gv = dequantize_kv(gv, gather_pages(pool[3], block_tables), h.dtype)
-            num_h, m_h, l_h = _history_partial(
-                q, gk, gv, chunk_start, positions, scale,
-            )
-            tr = lambda x: x.transpose(1, 2)  # noqa: E731  [B,H,T] → [B,T,H]
-            attn = _merge(num_h, tr(m_h), tr(l_h), num, tr(m), tr(l))
-        else:
-            den = l.transpose(1, 2)[..., None]
-            attn = torch.where(den > 0, num / den.clamp(min=1e-30), torch.zeros_like(num))
-        _write_pool(pool, k, v, positions, block_tables)
-        h = h + matw(attn.to(h.dtype).reshape(b, t, c.q_dim), lp["wo"])
-        h = mlp_block(lp, c, h, positions)
-    h = rms_norm(h, params.final_norm, c.rms_norm_eps)
-    if hidden_only:
-        return h, kv_cache
-    return lm_head(params, c, h), kv_cache
+    for i in range(config.num_layers):
+        lps = [p.layer(i) for p in shards]
+        parts = []
+        for r in ranks:
+            c, pool = cfgs[r], _layer_pool(pools[r], i)
+            q, k, v = project_qkv(lps[r], c, hs[r], pos[r])
+            attn = _chunk_attention(c, q, k, v, pool, tables[r], chunk_start[r], pos[r],
+                                    with_history, hs[r].dtype)
+            _write_pool(pool, k, v, pos[r], tables[r])
+            parts.append(matw_wo(attn.to(hs[r].dtype).reshape(b, t, c.q_dim), lps[r]["wo"]))
+        hs = _residual(hs, parts)
+        hs = _residual(hs, [mlp_partial(lps[r], cfgs[r], hs[r], pos[r], tp) for r in ranks])
+    return _final(shards, cfgs, hs, hidden_only), kv_cache
 
 
 def _window_only_attention(c, q, base, wk, wv, wslot):
@@ -642,16 +947,9 @@ def _window_only_attention(c, q, base, wk, wv, wslot):
     return num.reshape(b, h_, d), m.reshape(b, h_), l.reshape(b, h_)
 
 
-def _paged_window_attention(c, q, pool, block_tables, base, wk, wv, wslot,
-                            decode_attention):
-    """Decode-window attention: the paged flash-decode kernel computes the
-    pool partial and its softmax stats over the layer's ``pool`` (k, v, and
-    for an int8 pool its scales); the window partial is merged with the
-    flash-decoding combine. The pool is read-only here."""
-    lengths = base.clamp(min=0).to(torch.int32)
-    o_p, m_p, l_p = decode_attention(
-        q[:, 0].contiguous(), *pool, block_tables, lengths, return_stats=True,
-    )
+def _merge_pool_window(c, q, o_p, m_p, l_p, base, wk, wv, wslot):
+    """The pool partial of the paged kernel (o, m, l) merged with the
+    window's partial by the flash-decoding combine: [B, 1, H, D]."""
     num_w, m_w, l_w = _window_only_attention(c, q, base, wk, wv, wslot)
     m_p = m_p.clamp(min=-1e30)
     m_t = torch.maximum(m_p, m_w)
@@ -665,13 +963,13 @@ def _paged_window_attention(c, q, pool, block_tables, base, wk, wv, wslot,
 
 
 def forward_window(
-    params: LlamaParams, config: LlamaConfig,
+    params, config: LlamaConfig,
     tokens: torch.Tensor,  # [B] one token per lane
     positions: torch.Tensor,  # [B]; < 0 = padding
-    kv_cache: KVCache, block_tables: torch.Tensor,
+    kv_cache, block_tables: torch.Tensor,
     base: torch.Tensor,  # [B] pool holds positions < base
-    window_k: torch.Tensor,  # [L, B, W, KVH, D]
-    window_v: torch.Tensor,
+    window_k,  # [L, B, W, KVH, D] (on a mesh: one per rank, its KVH/tp heads)
+    window_v,
     wslot: int,  # window slot of this step
     *, decode_attention=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -684,45 +982,76 @@ def forward_window(
     is the pool-attention function: by default the kernel's wrapper,
     :func:`paged_decode_attention` or, for an int8 pool,
     :func:`paged_decode_attention_int8`; a caller may pass a plain version
-    to compare the two. Returns (logits [B, vocab] f32, window_k,
-    window_v)."""
-    c = config
-    if decode_attention is None:
-        decode_attention = (paged_decode_attention_int8 if kv_cache_quantized(kv_cache)
+    to compare the two. On a tp mesh every rank's pool partial comes from
+    one call of :func:`paged_decode_attention_sharded` (the kernel per rank),
+    or of ``decode_attention`` per rank when one is given. Returns (logits
+    [B, vocab] f32, window_k, window_v)."""
+    shards, cfgs, mesh = _split(params, config)
+    ranks, tp = range(len(shards)), mesh is not None
+    matw_wo = matw_partial if tp else matw
+    pools = _pools(kv_cache, len(shards))
+    wks = window_k if isinstance(window_k, list) else [window_k]
+    wvs = window_v if isinstance(window_v, list) else [window_v]
+    if decode_attention is None and mesh is None:
+        decode_attention = (paged_decode_attention_int8 if kv_cache_quantized(pools[0])
                             else paged_decode_attention)
-    h = embed_lookup(params, tokens)[:, None]  # [B, 1, E]
-    pos2 = positions[:, None]
-    b = h.shape[0]
-    for i in range(c.num_layers):
-        lp = params.layer(i)
-        q, k, v = project_qkv(lp, c, h, pos2)
-        wk, wv = window_k[i], window_v[i]
-        wk[:, wslot] = k[:, 0]
-        wv[:, wslot] = v[:, 0]
-        attn = _paged_window_attention(
-            c, q, _layer_pool(kv_cache, i), block_tables, base, wk, wv, wslot,
-            decode_attention,
-        )
-        h = h + matw(attn.reshape(b, 1, c.q_dim), lp["wo"])
-        h = mlp_block(lp, c, h, pos2)
-    h = rms_norm(h, params.final_norm, c.rms_norm_eps)
-    return lm_head(params, c, h)[:, 0], window_k, window_v
+    toks, pos, tables, bases = _replicate(mesh, tokens, positions, block_tables, base)
+    hs = [e[:, None] for e in _embed_ranks(shards, mesh, toks)]  # [B, 1, E]
+    pos2 = [p[:, None] for p in pos]
+    lengths = [x.clamp(min=0).to(torch.int32) for x in bases]
+    b = tokens.shape[0]
+    for i in range(config.num_layers):
+        lps = [p.layer(i) for p in shards]
+        qs = []
+        for r in ranks:
+            q, k, v = project_qkv(lps[r], cfgs[r], hs[r], pos2[r])
+            wks[r][i][:, wslot] = k[:, 0]
+            wvs[r][i][:, wslot] = v[:, 0]
+            qs.append(q)
+        if mesh is None:
+            stats = [decode_attention(qs[0][:, 0].contiguous(), *_layer_pool(pools[0], i),
+                                      tables[0], lengths[0], return_stats=True)]
+        else:
+            args = ([q[:, 0].contiguous() for q in qs], [pl["k"][i] for pl in pools],
+                    [pl["v"][i] for pl in pools], tables[0], lengths[0])
+            if decode_attention is None:
+                o, m, l = paged_decode_attention_sharded(*args, mesh=mesh, return_stats=True)
+            else:
+                o, m, l = per_rank_attention(decode_attention, *args, mesh=mesh,
+                                             return_stats=True)
+            stats = list(zip(o, m, l))
+        parts = []
+        for r in ranks:
+            c = cfgs[r]
+            attn = _merge_pool_window(c, qs[r], *stats[r], bases[r], wks[r][i], wvs[r][i],
+                                      wslot)
+            parts.append(matw_wo(attn.reshape(b, 1, c.q_dim), lps[r]["wo"]))
+        hs = _residual(hs, parts)
+        hs = _residual(hs, [mlp_partial(lps[r], cfgs[r], hs[r], pos2[r], tp) for r in ranks])
+    return _final(shards, cfgs, hs, False)[:, 0], window_k, window_v
 
 
 def flush_window(
-    kv_cache: KVCache, block_tables: torch.Tensor,
+    kv_cache, block_tables: torch.Tensor,
     base: torch.Tensor,  # [B] first position written by this dispatch
-    window_k: torch.Tensor,  # [L, B, W, KVH, D]
-    window_v: torch.Tensor, max_pos: int,
-) -> KVCache:
+    window_k,  # [L, B, W, KVH, D] (on a mesh: one per rank)
+    window_v, max_pos: int,
+):
     """Scatter a decode dispatch's window into the paged pool (in place), one
     scatter per layer per dispatch; an int8 pool takes the window quantized
     per token, values and scales through the same scatter. Padding lanes
-    (base < 0) and positions past ``max_pos`` are dropped."""
-    w = window_k.shape[2]
+    (base < 0) and positions past ``max_pos`` are dropped. On a mesh each
+    rank's window goes into its own pool."""
+    wks = window_k if isinstance(window_k, list) else [window_k]
+    wvs = window_v if isinstance(window_v, list) else [window_v]
+    pools = _pools(kv_cache, len(wks))
+    w = wks[0].shape[2]
     fpos = base[:, None] + torch.arange(w, device=base.device)[None, :]
     valid = (base[:, None] >= 0) & (fpos <= max_pos)
     fpos = torch.where(valid, fpos, torch.full_like(fpos, -1))
-    for i in range(window_k.shape[0]):
-        _write_pool(_layer_pool(kv_cache, i), window_k[i], window_v[i], fpos, block_tables)
+    for pool, wk, wv in zip(pools, wks, wvs):
+        dev = wk.device
+        fp, tables = (x if x.device == dev else x.to(dev) for x in (fpos, block_tables))
+        for i in range(wk.shape[0]):
+            _write_pool(_layer_pool(pool, i), wk[i], wv[i], fp, tables)
     return kv_cache

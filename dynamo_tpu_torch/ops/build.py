@@ -19,11 +19,22 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+def launch_device(index: int):
+    """A context in which CUDA device ``index`` is current: nothing to do
+    when it already is (one device, or rank 0), else its device guard."""
+    if torch.cuda.current_device() == index:
+        return nullcontext()
+    return torch.cuda.device(index)
 
 
 def _nvcc() -> str:

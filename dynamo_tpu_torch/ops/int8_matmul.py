@@ -37,7 +37,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from .build import KernelLibrary
+from .build import KernelLibrary, launch_device
 
 N_TILE = 16  # N must be a multiple of this (one mma's weight rows)
 K_TILE = 64  # K per chunk (csrc: kChunk)
@@ -251,11 +251,13 @@ def _launch(wrapper, x, q, s, out, m: int, experts: int, plan: Optional[Int8Plan
     launched = _Launched()
     # the C entry's block width: weight rows, or for the expert tile kernel rows of x
     width = plan.lanes if plan.path == "expert_tile" else plan.rows
-    err = lib.int8_weight_matmul_launch(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k, experts,
-        _DTYPES[x.dtype], _DTYPES[out.dtype], _PATHS.get(plan.path, 0), plan.splits, width,
-        torch._C._cuda_getCurrentRawStream(index), launched,
-    )
+    # the C entry launches on the current device: x's (a tp rank's)
+    with launch_device(index):
+        err = lib.int8_weight_matmul_launch(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k, experts,
+            _DTYPES[x.dtype], _DTYPES[out.dtype], _PATHS.get(plan.path, 0), plan.splits, width,
+            torch._C._cuda_getCurrentRawStream(index), launched,
+        )
     if launched[0]:
         device_launches[_KERNELS[launched[0]]] += 1
     if err != 0:

@@ -24,6 +24,16 @@ merge; on a CPU tensor :func:`paged_decode_attention_int8_plain` runs the
 same arithmetic. The JAX package has no Pallas kernel for it (its int8
 pools decode through XLA's ``dequantize_kv`` dense tier).
 
+``paged_decode_attention_sharded`` is the counterpart of the JAX
+``paged_attention_decode_sharded`` (a ``shard_map`` over tp running v2 or
+v1 on each rank's head shard): on a tp mesh each rank attends its own
+contiguous head shard of q against its own pool, whose kv heads are the
+rank's slice of the global ones (``parallel/mesh.py kv_cache_sharding``),
+over the same block tables and lengths, with no collective. Per rank it is
+the CUDA kernel above, planned for the rank's kv heads;
+:func:`paged_decode_attention_sharded_plain` runs the plain version per
+rank.
+
 The kernels are built at first use with ``nvcc`` for ``sm_90a``
 (``ops/build.py``) and bound with ``ctypes``; they launch on PyTorch's
 current stream and never synchronise.
@@ -34,11 +44,11 @@ from __future__ import annotations
 import collections
 import ctypes
 from functools import lru_cache
-from typing import Optional
+from typing import List, Optional, Sequence, Union
 
 import torch
 
-from .build import KernelLibrary
+from .build import KernelLibrary, launch_device
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,9 +72,10 @@ splits_launched: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
-    """Zero both wrappers' call counts and the device launch counts."""
+    """Zero the wrappers' call counts and the device launch counts."""
     paged_decode_attention.launches = 0
     paged_decode_attention_int8.launches = 0
+    paged_decode_attention_sharded.launches = 0
     for counts in (device_launches, int8_device_launches):
         for name in counts:
             counts[name] = 0
@@ -250,11 +261,13 @@ def _launch(entry, wrapper, counts: dict, split_name: str, q, pages: tuple, page
     # a Stream object once per layer per decode step)
     stream = torch._C._cuda_getCurrentRawStream(index)
     launched = _Launched()
-    err = entry(
-        q.data_ptr(), *pages, block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        m_ptr, l_ptr, l_ptr + s * h * 4,
-        s, h, kvh, d, bs, mb, num_splits, float(scale), _DTYPES[q.dtype], stream, launched,
-    )
+    # the C entry launches on the current device: q's (a tp rank's)
+    with launch_device(index):
+        err = entry(
+            q.data_ptr(), *pages, block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+            m_ptr, l_ptr, l_ptr + s * h * 4,
+            s, h, kvh, d, bs, mb, num_splits, float(scale), _DTYPES[q.dtype], stream, launched,
+        )
     counts[split_name] += launched[0]
     counts["paged_decode_merge_kernel"] += launched[1]
     if launched[0]:
@@ -488,3 +501,82 @@ def paged_decode_split_plain(
     if return_stats:
         return o, m.reshape(s, h), l.reshape(s, h)
     return o
+
+
+# -- tensor parallelism ------------------------------------------------------
+
+def _tp_divisible(mesh, h: int, kvh: int) -> bool:
+    """Can the head axes split evenly over the mesh's tp axis? Where they
+    cannot, the JAX package falls back to its GSPMD jnp path; the port
+    raises (ROADMAP A11)."""
+    return h % mesh.tp == 0 and kvh % mesh.tp == 0
+
+
+def per_rank_attention(fn, q, k_pools: Sequence[torch.Tensor], v_pools: Sequence[torch.Tensor],
+             block_tables: torch.Tensor, lengths: torch.Tensor, mesh, return_stats: bool, **kw):
+    """The pool attention ``fn`` (a kernel's wrapper, or its plain version)
+    on every rank's head shard of ``q`` (a global [S, H, D] tensor, cut
+    into contiguous shards of H/tp heads, or a list of them) and that
+    rank's pool; tables and lengths replicated. Per-rank outputs (and m,
+    l)."""
+    tp = mesh.tp
+    if len(k_pools) != tp or len(v_pools) != tp:
+        raise ValueError(f"{len(k_pools)} k and {len(v_pools)} v pools for {tp} ranks")
+    if isinstance(q, torch.Tensor):
+        h = q.shape[1]
+        kvh = k_pools[0].shape[2] * tp
+        if not _tp_divisible(mesh, h, kvh):
+            raise ValueError(f"{h} query heads over {kvh} kv heads do not split evenly "
+                             f"over tp={tp} (ROADMAP A11)")
+        w = h // tp
+        qs = [q[:, r * w:(r + 1) * w].contiguous().to(d) for r, d in enumerate(mesh.devices)]
+    else:
+        qs = list(q)
+        if len(qs) != tp:
+            raise ValueError(f"{len(qs)} query shards for {tp} ranks")
+    if len({x.shape[1] for x in qs}) != 1 or len({k.shape[2] for k in k_pools}) != 1:
+        raise ValueError("every rank takes the same number of query and kv heads")
+    tables, lens = mesh.replicate(block_tables), mesh.replicate(lengths)
+    outs = [fn(qs[r], k_pools[r], v_pools[r], tables[r], lens[r], return_stats=return_stats,
+               **kw) for r in range(tp)]
+    if return_stats:
+        return [o[0] for o in outs], [o[1] for o in outs], [o[2] for o in outs]
+    return outs
+
+
+def paged_decode_attention_sharded(
+    q: Union[torch.Tensor, Sequence[torch.Tensor]],  # [S, H, D], or per rank [S, H/tp, D]
+    k_pools: Sequence[torch.Tensor],  # per rank [N, bs, KVH/tp, D]
+    v_pools: Sequence[torch.Tensor],
+    block_tables: torch.Tensor,  # [S, MB] int32, replicated
+    lengths: torch.Tensor,  # [S] int32, replicated
+    *,
+    mesh,
+    scale: Optional[float] = None,
+    return_stats: bool = False,
+    num_splits: Optional[int] = None,
+) -> Union[List[torch.Tensor], tuple]:
+    """Flash decode over a tp-sharded pool: :func:`paged_decode_attention`
+    per rank on its head shard, the kernel on CUDA ranks (its split count
+    planned for the rank's kv heads unless ``num_splits`` forces one).
+    Returns the per-rank outputs [S, H/tp, D] and, with ``return_stats``,
+    the per-rank m and l [S, H/tp]: sharded like q's head axis, on each
+    rank's device. Heads that do not split over tp raise."""
+    out = per_rank_attention(paged_decode_attention, q, k_pools, v_pools, block_tables,
+                             lengths, mesh, return_stats, scale=scale, num_splits=num_splits)
+    if mesh.devices[0].type == "cuda":
+        paged_decode_attention_sharded.launches += 1
+    return out
+
+
+paged_decode_attention_sharded.launches = 0
+
+
+def paged_decode_attention_sharded_plain(
+    q, k_pools, v_pools, block_tables, lengths, *, mesh, scale: Optional[float] = None,
+    return_stats: bool = False,
+):
+    """:func:`paged_decode_attention_sharded` with
+    :func:`paged_decode_attention_plain` on every rank."""
+    return per_rank_attention(paged_decode_attention_plain, q, k_pools, v_pools, block_tables,
+                              lengths, mesh, return_stats, scale=scale)

@@ -875,3 +875,79 @@ def test_verify_dispatch_matches_sequential_decode_on_the_card(cuda, quantize):
     rel = ((ver - seq).abs().max() / seq.abs().max()).item()
     assert rel <= 2e-2, rel
     assert torch.isfinite(ver).all()
+
+
+# -- tensor parallelism: the paged kernel per rank, the collectives ----------------------
+
+from dynamo_tpu_torch.ops.paged_attention import (  # noqa: E402
+    paged_decode_attention_sharded,
+    paged_decode_attention_sharded_plain,
+)
+from dynamo_tpu_torch.parallel import collectives  # noqa: E402
+from dynamo_tpu_torch.parallel.mesh import MeshConfig, kv_cache_sharding, make_mesh  # noqa: E402
+
+# the per-rank shapes of the tp meshes the port serves: llama3-8b at tp=2
+# (16 query heads over 4 kv heads), llama3-70b at tp=4 (16 over 2) and at
+# tp=8 (8 over 1: a GQA group of 8 in an mma tile of 16 rows)
+TP_SHAPES = [(32, 8, 2), (64, 8, 4), (64, 8, 8)]
+
+
+@pytest.mark.parametrize("num_splits", [1, 3])
+@pytest.mark.parametrize("H,KVH,tp", TP_SHAPES)
+def test_sharded_kernel_per_rank_equals_unsharded_kernel(cuda, H, KVH, tp, num_splits):
+    """Co-located ranks on the card: each rank's output against the plain
+    version, and all ranks' heads against the unsharded kernel at the same
+    forced split count (heads are independent: the same sums)."""
+    mesh = make_mesh(MeshConfig(tp=tp), [cuda] * tp)
+    q, k, v, tables, lengths = _case(8, H, KVH, 128, 16, 512, torch.bfloat16, 11, cuda)
+    rule = kv_cache_sharding(mesh)
+    pools = [[rule.shard(x[None], r)[0].contiguous() for r in range(tp)] for x in (k, v)]
+    before = paged_decode_attention_sharded.launches
+    got = paged_decode_attention_sharded(q, *pools, tables, lengths, mesh=mesh,
+                                         return_stats=True, num_splits=num_splits)
+    assert paged_decode_attention_sharded.launches == before + 1
+    plain = paged_decode_attention_sharded_plain(q, *pools, tables, lengths, mesh=mesh,
+                                                 return_stats=True)
+    whole = paged_decode_attention(q, k, v, tables, lengths, return_stats=True,
+                                   num_splits=num_splits)
+    torch.cuda.synchronize()
+    for r in range(tp):
+        assert got[0][r].shape == (8, H // tp, 128)
+        torch.testing.assert_close(got[0][r].float(), plain[0][r].float(), atol=2e-2, rtol=0)
+        torch.testing.assert_close(got[1][r], plain[1][r], atol=0, rtol=1e-3)
+    for g, w in zip(got, whole):
+        torch.testing.assert_close(torch.cat(g, dim=1).float(), w.float(), atol=2e-2, rtol=0)
+
+
+def test_collectives_on_colocated_ranks_on_the_card(cuda):
+    rng = np.random.default_rng(12)
+    parts = [torch.from_numpy(rng.normal(size=(8, 4096)).astype(np.float32)).to(
+        cuda, torch.bfloat16) for _ in range(2)]
+    out = collectives.all_reduce(parts)
+    assert out[0] is out[1]
+    assert torch.equal(out[0], (parts[0].float() + parts[1].float()).bfloat16())
+    g = collectives.all_gather(parts, dim=-1)
+    assert torch.equal(g, torch.cat(parts, dim=-1))
+
+
+def test_cross_device_reduction_and_launch():
+    """Ranks on two cards: the NCCL reduction lands the fp32 sum rounded
+    once on each card, and a rank's kernel launches on its own card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    rng = np.random.default_rng(13)
+    host = [rng.normal(size=(8, 4096)).astype(np.float32) for _ in devs]
+    parts = [torch.from_numpy(h).to(d, torch.bfloat16) for h, d in zip(host, devs)]
+    out = collectives.all_reduce(parts)
+    want = (parts[0].float().cpu() + parts[1].float().cpu()).bfloat16()
+    for o, d in zip(out, devs):
+        assert o.device == d
+        assert torch.equal(o.cpu(), want)
+    args = _case(4, 32, 8, 128, 16, 256, torch.bfloat16, 14, devs[1])
+    torch.cuda.set_device(devs[0])
+    o = paged_decode_attention(*args)
+    torch.cuda.synchronize(devs[1])
+    assert o.device == devs[1]
+    torch.testing.assert_close(o.float(), paged_decode_attention_plain(*args).float(),
+                               atol=2e-2, rtol=0)

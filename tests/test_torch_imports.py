@@ -113,6 +113,27 @@ def test_integrity_and_spec_modules_load_with_jax_path_dependencies_blocked():
     _load_blocked(INTEGRITY_SPEC_MODULES + ["dynamo_tpu_torch.engine_torch.engine"])
 
 
+# tensor parallelism: the mesh and the collectives
+PARALLEL_MODULES = ["dynamo_tpu_torch.parallel", "dynamo_tpu_torch.parallel.mesh",
+                    "dynamo_tpu_torch.parallel.collectives"]
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_module_imports_only_the_allowed(module):
+    parts = module.split(".")
+    path = os.path.join(ROOT, *parts) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, *parts, "__init__.py")
+    assert path in _port_files()
+    tops = {m.split(".")[0] for m in _absolute_imports(path)}
+    assert not tops & set(BLOCKED), tops & set(BLOCKED)
+    assert tops <= set(sys.stdlib_module_names) | ALLOWED_THIRD_PARTY | {"dynamo_tpu_torch"}
+
+
+def test_parallel_modules_load_with_jax_path_dependencies_blocked():
+    _load_blocked(PARALLEL_MODULES + ["dynamo_tpu_torch.models.llama"])
+
+
 def _serve_blocked(model_path, embed_row=None):
     """Build the launcher's engine on ``model_path`` in a fresh interpreter
     with the BLOCKED modules unimportable, answer one chat request, and (when
