@@ -17,6 +17,8 @@ replayed from a CUDA graph.
   ``chip_smoke.py``'s phase 4 at M = 1, 8, 40 (a speculative verify
   dispatch of 8 lanes x 5 positions) and 1024 (bf16 activations, the
   wrapper's own plan), and each M's 225 products of one forward summed;
+  then llama3-70b's shapes at M = 8 and 1024 and their 561 products of a
+  decode step and of a prefill chunk summed;
 - ``experts``: ``int8_expert_matmul`` over 8 experts at mixtral-8x7b's two
   expert shapes of phase 5 at C = 4 (decode), 130 and 512 (prefill), cycling
   through two stacks (bf16 activations, the wrapper's own plan);
@@ -61,20 +63,23 @@ def worker(root: str, kernels: str) -> dict:
     if "int8" in kernels:
         gen = torch.Generator(device="cuda").manual_seed(8)
         dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
-        forward = {M: {"ms": 0.0, "graph_ms": 0.0, "bound_ms": 0.0} for M in INT8_M}
-        for name, K, N, o, count in cs.INT8_SHAPES:
-            for M in INT8_M:
-                x, qs, ss = cs.int8_inputs(torch, gen, K, N, M, torch.bfloat16)
-                ms, graph_ms = cs.time_int8(torch, int8_weight_matmul, x, qs, ss, dt[o])
-                b_ms = cs.int8_bound(M, N, K, 4 if o == "fp32" else 2, rate)[0]
-                out["regimes"][f"int8 {name}, M={M}"] = {"ms": ms, "graph_ms": graph_ms,
-                                                         "bound_ms": b_ms}
-                for key, t in (("ms", ms), ("graph_ms", graph_ms), ("bound_ms", b_ms)):
-                    forward[M][key] += count * t
-                del x, qs, ss
-                torch.cuda.empty_cache()
-        for M, r in forward.items():
-            out["regimes"][f"int8 one forward's {cs.INT8_LAUNCHES_PER_STEP} products, M={M}"] = r
+        for model, shapes, ms_ in (("llama3-8b", cs.INT8_SHAPES, INT8_M),
+                                   ("llama3-70b", cs.INT8_70B_SHAPES, (8, 1024))):
+            forward = {M: {"ms": 0.0, "graph_ms": 0.0, "bound_ms": 0.0} for M in ms_}
+            for name, K, N, o, count in shapes:
+                for M in ms_:
+                    x, qs, ss = cs.int8_inputs(torch, gen, K, N, M, torch.bfloat16)
+                    ms, graph_ms = cs.time_int8(torch, int8_weight_matmul, x, qs, ss, dt[o])
+                    b_ms = cs.int8_bound(M, N, K, 4 if o == "fp32" else 2, rate)[0]
+                    out["regimes"][f"int8 {name}, M={M}"] = {"ms": ms, "graph_ms": graph_ms,
+                                                             "bound_ms": b_ms}
+                    for key, t in (("ms", ms), ("graph_ms", graph_ms), ("bound_ms", b_ms)):
+                        forward[M][key] += count * t
+                    del x, qs, ss
+                    torch.cuda.empty_cache()
+            n = sum(count for *_, count in shapes)
+            for M, r in forward.items():
+                out["regimes"][f"int8 one {model} forward's {n} products, M={M}"] = r
     if "experts" in kernels:
         gen = torch.Generator(device="cuda").manual_seed(11)
         X = cs.MIXTRAL["experts"]

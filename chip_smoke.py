@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
 card, ``nvcc`` and nothing of JAX. Phases, in order (16 and 17 run right
-after 13, before mixtral takes the card); any failure exits non-zero:
+after 13, before mixtral takes the card; 19 and 20 after 18, each on a card
+that every earlier engine has left); any failure exits non-zero:
 
 1. device: prints the card's name and power limit (nvidia-smi);
 2. build: compiles every kernel of the path from ``dynamo_tpu_torch/csrc``,
@@ -37,7 +38,11 @@ after 13, before mixtral takes the card); any failure exits non-zero:
    ``torch.matmul`` on the same activations (eager and graph-replayed), and
    times both kernels forced on either side of the planner's threshold; M =
    40 is a speculative verify dispatch (8 lanes x 5 positions), summed over
-   its 225 products like a decode step at M = 8;
+   its 225 products like a decode step at M = 8; then llama3-70b's five
+   shapes (K 8192 -> N 8192, 1024, 28672 and 128256, K 28672 -> N 8192) and
+   one tp=2 rank's six at llama3-8b widths, each at M = 8 and 1024, the
+   same way, summed per decode step (561 and 225 products) and per prefill
+   chunk;
 5. expert kernel: holds ``int8_expert_matmul`` against its plain version
    over 8 experts at mixtral-8x7b's 4096->14336 and 14336->4096, C = 2, 4
    (decode at 8 lanes), 5, 17, 130 and 512 (a 1024-row prefill chunk), with
@@ -47,7 +52,9 @@ after 13, before mixtral takes the card); any failure exits non-zero:
    eager and graph-replayed, the expert tile, the dense tile and the split-K
    kernels forced, the bound, the plain version and bf16 ``torch.bmm`` over
    a bf16 expert stack; times split-K and the expert tile kernel forced
-   across the planner's cut; sums a decode step and a prefill chunk;
+   across the planner's cut; sums a decode step and a prefill chunk; then
+   one tp=2 rank's stacks at F/2 (4096->7168 and 7168->4096) at C = 4 and
+   512, summed alike;
 6. load: writes a llama3-8b-width checkpoint cut to 2 layers (bf16, HF
    names, two ``*.safetensors`` files), serves it through
    ``cli.run.build_engine``, checks every parameter on the card bit for bit
@@ -133,7 +140,12 @@ after 13, before mixtral takes the card); any failure exits non-zero:
     prefill chunk's and one decode step's logits held against the
     unsharded forward at 2e-2; ``"int8"`` at tp=2 (per-rank plans printed,
     int8 launches per decode step held, one decode step against the
-    unsharded int8 tree at 2e-2); a host-tier wave in phase 12's layout
+    unsharded int8 tree at 2e-2); ``"int8-all"`` at tp=2, drawn onto the
+    ranks from phase 7's seed (checked equal to phase 7's weights
+    quantized, sharded), behind the HTTP service: 8 streams of 32 tokens,
+    450 W8A16 launches per decode step and prefill chunk held, one prefill
+    chunk and one decode step held against the unsharded ``"int8-all"``
+    forward at 2e-2; a host-tier wave in phase 12's layout
     (injected rank pages bit-equal to their spills, crcs verified at the
     re-hit); with two cards, the ranks on two cards through NCCL against the
     co-located run (else printed as not run);
@@ -151,7 +163,32 @@ after 13, before mixtral takes the card); any failure exits non-zero:
     expert choices, and the logits are held on every lane; last, one
     full-depth prefill chunk is timed with the expert products on the
     expert tile kernel and on the dense tile kernel, in turns;
-19. prints the kernels' JSON line and, last, the device JSON line.
+19. llama3-70b at full width and depth (80 layers) in ``"int8-all"`` on the
+    one card, random weights drawn layer by layer straight to int8, the KV
+    pool sized from the memory the weights leave free: allocated bytes
+    before the build, after it and at the serving peak beside the card's
+    total; 8 streams of 32 tokens over HTTP (561 ``int8_weight_matmul`` and
+    80 paged launches per decode step held, 561 per prefill chunk); TTFT,
+    tok/s and a profile; one decode step and one 1024-row prefill chunk
+    through the kernels against their plain versions, held block by block
+    at 2e-2 (each attention and MLP block's output on the plain run's
+    stream, and the logits); the free-running ratios printed, the decode's
+    at 8, 16, 32 and 80 layers and the chunk's at 80, each beside its noise
+    floor (the plain step against the same step with fp64-summed products);
+20. mixtral tp: mixtral-8x7b at full width and depth in ``"int8-all"`` at
+    tp=2 co-located (every expert at F/2 on each rank), behind the HTTP
+    service: 8 streams of 32 tokens, launches held (per rank and forward
+    129 ``int8_weight_matmul`` and 96 ``int8_expert_matmul``; one sharded
+    paged call per layer and decode step), TTFT, tok/s and a profile; then
+    a prefill chunk and a decode step over a pool the ranks prefilled, the
+    tp run's residual stream (every block's output), routing choices and
+    logits carried to the host; the tp tree freed, the unsharded tree drawn
+    from the same seed (each rank's leaves checked against fingerprints of
+    their slices) and run on the same inputs and pool: free-running, its
+    ratio and the routing choices that differ printed, not held; forced
+    onto the tp run's stream block by block (:func:`mixtral_tp_parity`),
+    every block's output and the logits held at 2e-2;
+21. prints the kernels' JSON line and, last, the device JSON line.
 Each phase prints its seconds.
 """
 
@@ -180,6 +217,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # llama3-8b widths (models/llama.py LLAMA_PRESETS["llama3-8b"])
 LLAMA3_8B = dict(vocab=128256, hidden=4096, ffn=14336, layers=32, heads=32, kv_heads=8,
                  head_dim=128, model_type="llama", rope_theta=500000.0)
+# llama3-70b widths (LLAMA_PRESETS["llama3-70b"])
+LLAMA3_70B = dict(LLAMA3_8B, hidden=8192, ffn=28672, layers=80, heads=64, kv_heads=8)
 # mixtral-8x7b widths (LLAMA_PRESETS["mixtral-8x7b"])
 MIXTRAL = dict(vocab=32000, hidden=4096, ffn=14336, layers=32, heads=32, kv_heads=8,
                head_dim=128, model_type="mixtral", rope_theta=1000000.0, experts=8, top_k=2)
@@ -961,6 +1000,26 @@ INT8_SHAPES = [
     ("lm_head: 4096->128256", 4096, 128256, "fp32", 1),
 ]
 INT8_LAUNCHES_PER_STEP = sum(n for *_, n in INT8_SHAPES)  # 7 per layer x 32 + 1 = 225
+# llama3-70b's (phase 19), and one tp=2 rank's at llama3-8b widths (phase
+# 16's "int8-all" serve: a rank's vocab shard for the LM head)
+INT8_70B_SHAPES = [
+    ("70b wq, wo: 8192->8192", 8192, 8192, "bf16", 2 * LLAMA3_70B["layers"]),
+    ("70b wk, wv: 8192->1024", 8192, 1024, "bf16", 2 * LLAMA3_70B["layers"]),
+    ("70b w_gate, w_up: 8192->28672", 8192, 28672, "bf16", 2 * LLAMA3_70B["layers"]),
+    ("70b w_down: 28672->8192", 28672, 8192, "bf16", LLAMA3_70B["layers"]),
+    ("70b lm_head: 8192->128256", 8192, 128256, "fp32", 1),
+]
+INT8_70B_PER_STEP = sum(n for *_, n in INT8_70B_SHAPES)  # 7 per layer x 80 + 1 = 561
+INT8_TP2_SHAPES = [
+    ("8b tp=2 rank wq: 4096->2048", 4096, 2048, "bf16", LLAMA3_8B["layers"]),
+    ("8b tp=2 rank wk, wv: 4096->512", 4096, 512, "bf16", 2 * LLAMA3_8B["layers"]),
+    ("8b tp=2 rank wo: 2048->4096", 2048, 4096, "bf16", LLAMA3_8B["layers"]),
+    ("8b tp=2 rank w_gate, w_up: 4096->7168", 4096, 7168, "bf16", 2 * LLAMA3_8B["layers"]),
+    ("8b tp=2 rank w_down: 7168->4096", 7168, 4096, "bf16", LLAMA3_8B["layers"]),
+    ("8b tp=2 rank lm_head: 4096->64128", 4096, 64128, "fp32", 1),
+]
+# the rows of those shapes: a decode step at 8 lanes, a 1024-row prefill chunk
+INT8_NEW_M = (8, 1024)
 # a lone user, the slice's 8 lanes, and a speculative verify dispatch of 8
 # lanes x (k + 1) positions at k = 4
 INT8_DECODE_M = (1, 8, 40)
@@ -1023,6 +1082,8 @@ def phase_int8_kernel(card: str) -> dict:
     cases += [(f"{INT8_PREFILL[0]} ({'int8-all prefill chunk' if M == 1024 else 'prefill'})",
                INT8_PREFILL[1], INT8_PREFILL[2], "bf16", M, "bf16") for M in INT8_PREFILL[3]]
     cases += [("wq, wo: 4096->4096 (fp32 activations)", 4096, 4096, "fp32", 8, "fp32")]
+    cases += [(name, K, N, out, M, "bf16") for shapes in (INT8_70B_SHAPES, INT8_TP2_SHAPES)
+              for name, K, N, out, _ in shapes for M in INT8_NEW_M]
     dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
     result = []
     for name, K, N, out, M, xdt in cases:
@@ -1092,27 +1153,39 @@ def phase_int8_kernel(card: str) -> dict:
                   f"{times['splitk']:.4f} ms, tile {times['tile']:.4f} ms (the plan takes "
                   f"{plan_int8(M, N, K, sms).path})")
     torch.cuda.empty_cache()
-    # one forward's 225 launches over the five shapes: a decode step at
-    # M = 8, a verify dispatch at M = 40
+    # one forward's launches over its shapes: a llama3-8b decode step at M =
+    # 8 and a verify dispatch at M = 40 (225 launches); a llama3-70b decode
+    # step and prefill chunk (561); one tp=2 rank's decode step and chunk
+    # (225). A chunk's LM head runs on the 8 sampled rows, as the engine's
+    # chunk dispatch runs it
     keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")
     sums = {}
-    for M, label in ((8, "decode step"), (8 * (SPEC_K + 1), "verify dispatch")):
+    for key_, shapes, M, label in (
+            (8, INT8_SHAPES, 8, "decode step"),
+            (8 * (SPEC_K + 1), INT8_SHAPES, 8 * (SPEC_K + 1), "verify dispatch"),
+            ("70b step", INT8_70B_SHAPES, 8, "llama3-70b decode step"),
+            ("70b chunk", INT8_70B_SHAPES, 1024, "llama3-70b prefill chunk"),
+            ("tp2 step", INT8_TP2_SHAPES, 8, "llama3-8b tp=2 decode step, one rank"),
+            ("tp2 chunk", INT8_TP2_SHAPES, 1024, "llama3-8b tp=2 prefill chunk, one rank")):
         total = {key: 0.0 for key in keys}
-        for name, K, N, out, count in INT8_SHAPES:
-            (row,) = [r for r in result if r["name"] == name and r["M"] == M and r["x"] == "bf16"]
+        for name, K, N, out, count in shapes:
+            m = 8 if "lm_head" in name and M == 1024 else M
+            (row,) = [r for r in result if r["name"] == name and r["M"] == m and r["x"] == "bf16"]
             for key in keys:
                 total[key] += count * row[key]
         total["bound_share"] = total["bound_ms"] / total["ms"]
         total["bound_share_graph"] = total["bound_ms"] / total["graph_ms"]
-        print(f"int8 {label} (M={M}, {INT8_LAUNCHES_PER_STEP} launches): kernel "
+        total["launches"] = sum(n for *_, n in shapes)
+        print(f"int8 {label} (M={M}, {total['launches']} launches): kernel "
               f"{total['ms']:.3f} ms ({total['bound_share']:.1%} of the bound), "
               f"graph-replayed {total['graph_ms']:.3f} ms ({total['bound_share_graph']:.1%}), "
               f"bound {total['bound_ms']:.3f} ms, bf16 torch.matmul {total['library_ms']:.3f} ms "
               f"(graph-replayed {total['library_graph_ms']:.3f} ms), plain "
               f"{total['plain_ms']:.3f} ms, on {card}")
-        sums[M] = total
+        sums[key_] = total
     return {"cases": result, "per_step": sums[8], "per_verify": sums[8 * (SPEC_K + 1)],
-            "sweep": sweep}
+            "sweep": sweep, "step_70b": sums["70b step"], "chunk_70b": sums["70b chunk"],
+            "step_tp2": sums["tp2 step"], "chunk_tp2": sums["tp2 chunk"]}
 
 
 # -- phase 5: the expert kernel --------------------------------------------------
@@ -1123,6 +1196,12 @@ EXPERT_SHAPES = [
     ("w_down: 14336->4096", 14336, 4096, MIXTRAL["layers"]),
 ]
 EXPERT_LAUNCHES_PER_STEP = sum(n for *_, n in EXPERT_SHAPES)  # 3 per layer x 32 = 96
+# one tp=2 rank's expert stacks (phase 20: every expert at F/2), per rank
+# and forward as many as above
+EXPERT_TP2_SHAPES = [
+    ("tp=2 rank w_gate, w_up: 4096->7168", 4096, 7168, 2 * MIXTRAL["layers"]),
+    ("tp=2 rank w_down: 7168->4096", 7168, 4096, MIXTRAL["layers"]),
+]
 # rows per expert: decode at 8 lanes (C = 4) and its neighbours, an odd C,
 # a short prefill's 17, and a 1024-row prefill chunk's 512 and 130 (one
 # ragged token tile)
@@ -1213,12 +1292,16 @@ def phase_expert_kernel(card: str) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(11)
     result, sweep = [], []
-    for name, K, N, _ in EXPERT_SHAPES:
+    # mixtral's stacks at every C with the sweep; a tp=2 rank's at decode
+    # and prefill-chunk C
+    stacks = [(*shape, EXPERT_C, EXPERT_SWEEP_C) for shape in EXPERT_SHAPES]
+    stacks += [(*shape, (4, 512), ()) for shape in EXPERT_TP2_SHAPES]
+    for name, K, N, _, c_values, sweep_c in stacks:
         qs = [torch.randint(-127, 128, (X, N, K), generator=gen, device="cuda", dtype=torch.int8)
               for _ in range(2)]
         ss = [torch.rand((X, N), generator=gen, device="cuda") * 2e-3 + 1e-4 for _ in range(2)]
         ws = [torch.randn((X, K, N), generator=gen, device="cuda").bfloat16() for _ in range(2)]
-        for C in EXPERT_C:
+        for C in c_values:
             x = torch.randn((X, C, K), generator=gen, device="cuda").bfloat16()
             plan = plan_int8(C, N, K, sms, experts=X)
             forced = {p: plan_int8(C, N, K, sms, path=p, experts=X)
@@ -1297,7 +1380,7 @@ def phase_expert_kernel(card: str) -> dict:
             result.append(row)
             del x, got, ref, ref64, outs
         # both kernels forced across the planner's cut
-        for C in EXPERT_SWEEP_C:
+        for C in sweep_c:
             x = torch.randn((X, C, K), generator=gen, device="cuda").bfloat16()
             times = {p: time_graph(torch, [
                 lambda q=q, s_=s_, pl=plan_int8(C, N, K, sms, path=p, experts=X):
@@ -1316,16 +1399,23 @@ def phase_expert_kernel(card: str) -> dict:
     keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms",
             "expert_tile_graph_ms", "tile_graph_ms", "splitk_graph_ms")
     units = {}
-    for C in (4, 512):
+    for shapes, C in ((EXPERT_SHAPES, 4), (EXPERT_SHAPES, 512), (EXPERT_TP2_SHAPES, 4),
+                      (EXPERT_TP2_SHAPES, 512)):
         unit = {key: 0.0 for key in keys}
-        for name, K, N, count in EXPERT_SHAPES:
+        for name, K, N, count in shapes:
             (row,) = [r for r in result if r["name"] == name and r["C"] == C]
             for key in keys:
                 unit[key] += count * row[key]
         unit["bound_share"] = unit["bound_ms"] / unit["ms"]
         unit["bound_share_graph"] = unit["bound_ms"] / unit["graph_ms"]
-        units[C] = unit
-    per_step, chunk = units[4], units[512]
+        units[shapes is EXPERT_TP2_SHAPES, C] = unit
+    per_step, chunk = units[False, 4], units[False, 512]
+    for C, label in ((4, "decode step (C=4)"), (512, "1024-row prefill chunk (C=512)")):
+        u = units[True, C]
+        print(f"expert tp=2 rank, one mixtral {label}, {EXPERT_LAUNCHES_PER_STEP} launches at "
+              f"F/2: kernel {u['ms']:.3f} ms ({u['bound_share']:.1%} of the bound), "
+              f"graph-replayed {u['graph_ms']:.3f} ms, bound {u['bound_ms']:.3f} ms, bf16 "
+              f"torch.bmm {u['library_ms']:.3f} ms, plain {u['plain_ms']:.3f} ms, on {card}")
     print(f"expert decode step (C=4, {EXPERT_LAUNCHES_PER_STEP} launches): kernel "
           f"{per_step['ms']:.3f} ms ({per_step['bound_share']:.1%} of the bound), "
           f"graph-replayed {per_step['graph_ms']:.3f} ms ({per_step['bound_share_graph']:.1%}), "
@@ -1339,7 +1429,8 @@ def phase_expert_kernel(card: str) -> dict:
           f"{chunk['tile_graph_ms']:.3f} ms; bound {chunk['bound_ms']:.3f} ms; bf16 torch.bmm "
           f"{chunk['library_ms']:.3f} ms (graph-replayed {chunk['library_graph_ms']:.3f} ms); "
           f"plain {chunk['plain_ms']:.3f} ms, on {card}")
-    return {"cases": result, "per_step": per_step, "prefill_chunk": chunk, "sweep": sweep}
+    return {"cases": result, "per_step": per_step, "prefill_chunk": chunk, "sweep": sweep,
+            "step_tp2": units[True, 4], "chunk_tp2": units[True, 512]}
 
 
 # -- the HTTP pipeline (phases 6, 7, 9, 11, 12 and 13) ----------------------------
@@ -1463,32 +1554,56 @@ def profile_decode(port: int, bodies: list, core) -> dict:
         results[i] = _stream(port, bodies[i][0], bodies[i][1], t_sent, i)
 
     threads = [threading.Thread(target=run_one, args=(i,)) for i in range(len(bodies))]
+    # the counts at each decode dispatch's start, taken on the engine thread
+    # right before the dispatch launches anything (every launch before it is
+    # the earlier dispatches'): per-step counts between two such marks are
+    # exact, where a read from this thread may land in mid-dispatch
+    marks, window = [], [False]
+    build = core._decode
+
+    def marked(*key):
+        fn = build(*key)
+
+        def dispatch(*a, **kw):
+            if window[0]:
+                marks.append((core.decode_steps_total, counts()))
+            return fn(*a, **kw)
+        return dispatch
+
+    core._decode = marked
     d0 = core.decode_dispatches
     for t in threads:
         t.start()
-    _wait_until(lambda: core.decode_dispatches >= d0 + 2, threads)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        d1, s1 = core.decode_dispatches, core.decode_steps_total
-        c1, i1 = paged_decode_attention.launches, int8_weight_matmul.launches
-        x1, q1 = int8_expert_matmul.launches, paged_decode_attention_int8.launches
-        n1 = counts()
-        _wait_until(lambda: core.decode_dispatches >= d1 + PROFILE_DISPATCHES, threads)
-        d2, s2 = core.decode_dispatches, core.decode_steps_total
-        n2 = counts()
-        calls = paged_decode_attention.launches - c1
-        kv8_calls = paged_decode_attention_int8.launches - q1
-        int8_calls = int8_weight_matmul.launches - i1
-        expert_calls = int8_expert_matmul.launches - x1
-        window_us = (time.perf_counter() - t0) * 1e6
+    try:
+        _wait_until(lambda: core.decode_dispatches >= d0 + 2, threads)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            window[0] = True
+            d1, s1 = core.decode_dispatches, core.decode_steps_total
+            c1, i1 = paged_decode_attention.launches, int8_weight_matmul.launches
+            x1, q1 = int8_expert_matmul.launches, paged_decode_attention_int8.launches
+            _wait_until(lambda: core.decode_dispatches >= d1 + PROFILE_DISPATCHES, threads)
+            window[0] = False
+            d2, s2 = core.decode_dispatches, core.decode_steps_total
+            calls = paged_decode_attention.launches - c1
+            kv8_calls = paged_decode_attention_int8.launches - q1
+            int8_calls = int8_weight_matmul.launches - i1
+            expert_calls = int8_expert_matmul.launches - x1
+            window_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        del core._decode  # the engine's own method again
     for t in threads:
         t.join(600)
     for i, r in enumerate(results):
         if r is None or r["status"] != 200 or not r.get("done"):
             fail(f"profile wave: request {i} did not complete")
     steps = s2 - s1
-    # the window's wrapper-counted launches and collectives per decode step
-    per_step = {k: (n2[k] - n1[k]) / max(steps, 1) for k in n1}
+    # the wrapper-counted launches and collectives per decode step, between
+    # the first and the last dispatch marked in the window
+    if len(marks) < 2:
+        fail(f"profile wave: {len(marks)} decode dispatches marked in the window")
+    (sa, na), (sb, nb) = marks[0], marks[-1]
+    per_step = {k: (nb[k] - na[k]) / (sb - sa) for k in na}
     print(f"profile: per decode step in the window ({steps} steps): "
           + ", ".join(f"{k} {v:.2f}" for k, v in per_step.items()))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1843,11 +1958,12 @@ def _parity(label: str, a, b, limit: float = 2e-2) -> float:
     return rel
 
 
-def parity_case(torch, cfg, params, quantized: bool = False, last_chunk=None):
+def parity_case(torch, cfg, params, quantized: bool = False, last_chunk=None, mesh=None):
     """8 lanes of 100-500 prompt tokens prefilled into a fresh pool (int8
-    pages with ``quantized``) with ``params`` (bf16 chunks), and the token
-    at each lane's next position. ``last_chunk``, a list: the last prefill
-    chunk's logits at its live positions are appended to it."""
+    pages with ``quantized``; per rank on ``mesh``, for sharded ``params``)
+    with ``params`` (bf16 chunks), and the token at each lane's next
+    position. ``last_chunk``, a list: the last prefill chunk's logits at its
+    live positions are appended to it."""
     import numpy as np
 
     from dynamo_tpu_torch.models.llama import forward_chunk, make_kv_cache
@@ -1855,7 +1971,7 @@ def parity_case(torch, cfg, params, quantized: bool = False, last_chunk=None):
     S, bs, per_lane = 8, 16, 32  # 32 pages = 512 tokens of room per lane
     rng = np.random.default_rng(7)
     lens = rng.integers(100, 500, size=S)
-    cache = make_kv_cache(cfg, S * per_lane, bs, device="cuda", quantized=quantized)
+    cache = make_kv_cache(cfg, S * per_lane, bs, device="cuda", quantized=quantized, mesh=mesh)
     tables = torch.arange(S * per_lane, dtype=torch.int32, device="cuda").reshape(S, per_lane)
     tables = tables[:, torch.randperm(per_lane, generator=torch.Generator().manual_seed(1))]
     tables = tables.contiguous()
@@ -2006,9 +2122,15 @@ def int8_weight_matmul_plain64(x, q, s, *, out_dtype=None):
     """The plain version's function with the product summed in fp64: the
     correctly rounded product, up to one fp64 rounding. Beside the fp32
     plain version it measures how far two valid roundings of the same
-    products drift apart through the model."""
+    products drift apart through the model. Over 8192 output channels at a
+    time: llama3-70b's LM head in fp64 whole (7.8 GiB) does not fit beside
+    its int8 tree."""
+    import torch
+
     out_dtype = out_dtype or x.dtype
-    y = (x.double() @ q.double().T).to(x.dtype)
+    x64 = x.double()
+    y = torch.cat([(x64 @ q[n:n + 8192].double().T).to(x.dtype)
+                   for n in range(0, q.shape[0], 8192)], dim=-1)
     return (y.float() * s).to(out_dtype)
 
 
@@ -2917,14 +3039,9 @@ def phase_spec_serve(card: str, weights: dict, verify_products: dict) -> dict:
 # -- phases 16-17: tensor parallelism (run after phase 13, before mixtral) -------
 
 TP_8B = 2  # phase 16: llama3-8b over two co-located ranks
-# llama3-70b widths (LLAMA_PRESETS["llama3-70b"]), cut to TP_70B_LAYERS layers
-LLAMA3_70B = dict(LLAMA3_8B, hidden=8192, ffn=28672, layers=80, heads=64, kv_heads=8)
+# phase 17: llama3-70b widths cut to TP_70B_LAYERS layers, over 8 ranks
 TP_70B = 8
 TP_70B_LAYERS = 4
-# the int8 products of one tp=2 rank at llama3-8b widths (K -> N): wq, wk and
-# wv, wo, gate and up, down, the LM head's vocab shard
-TP_INT8_SHAPES = [(4096, 2048), (4096, 512), (2048, 4096), (4096, 7168), (7168, 4096),
-                  (4096, 64128)]
 
 
 # what phases 16 and 17 keep of a served wave
@@ -3067,7 +3184,7 @@ def phase_tp_serve(card: str, weights: dict, served: dict) -> dict:
     # "int8" weights at tp=2: the sharded quantization, one decode step
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {f"{k}->{n}": plan_label(plan_int8(N_REQUESTS, n, k, sms))
-             for k, n in TP_INT8_SHAPES}
+             for _, k, n, *_ in INT8_TP2_SHAPES}
     print("tp int8: plan_int8 at M = 8 per rank shape: "
           + ", ".join(f"{k}: {v}" for k, v in plans.items()))
     core = TorchServingEngine(cfg, tp_params, dataclasses.replace(ecfg, quantize="int8"),
@@ -3099,7 +3216,11 @@ def phase_tp_serve(card: str, weights: dict, served: dict) -> dict:
     res.update(int8_plans=plans, int8_launches_per_step=int8_launches / max(steps, 1),
                int8_ttft_p50_ms=wave["ttft_p50_ms"], int8_decode_tok_s=wave["decode_tok_s"])
     core.close()
-    del core, q_whole
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["int8_all"] = tp_int8_all_serve(card, cfg, q_whole, case)
+    del q_whole
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3130,6 +3251,72 @@ def phase_tp_serve(card: str, weights: dict, served: dict) -> dict:
     close_engine(core)
     res["across_devices"] = tp_across_devices(card, cfg, tp_params, case)
     del tp_params, case
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_int8_all_serve(card: str, cfg, q_whole, case) -> dict:
+    """llama3-8b at full width and depth in ``"int8-all"`` over a tp=2 mesh
+    whose ranks share the card: the int8 tree drawn onto the ranks by
+    ``build_torch_serving_engine(quantize="int8-all",
+    tensor_parallel_size=2)`` from phase 7's seed, checked equal to
+    ``q_whole`` (phase 7's weights quantized whole) sharded; the HTTP
+    service answers 8 streams of 32 tokens (held: 7 W8A16 launches per
+    layer and rank and each rank's LM head, per decode step and per prefill
+    chunk; one sharded paged call per layer and decode step); then one
+    prefill chunk and one decode step over ``case``'s pool held against the
+    unsharded ``"int8-all"`` forward of ``q_whole`` at 2e-2."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "llama3-8b-random"))
+        core, chat, comp, name, flags, built, warm = tp_build(
+            model_dir, TP_8B, ["cuda:0"] * TP_8B, quantize="int8-all")
+        mesh = core.mesh
+        held = torch.cuda.memory_allocated() / 1e9 - before
+        print(f"tp int8-all: llama3-8b tp={TP_8B} co-located, \"int8-all\" drawn onto the ranks, "
+              f"engine built in {built:.1f} s, warmed up in {warm:.1f} s; {held:.2f} GB "
+              f"allocated for the engine ({sum(param_gb(p) for p in core.params.shards):.2f} GB "
+              f"of int8 weights), {before:.2f} GB before it")
+        if not core.params.int8 or core.params_decode is not core.params:
+            fail("tp int8-all: the engine does not serve one int8 tree")
+        if not same_weights(core.params, q_whole):
+            fail("tp int8-all: the ranks do not hold phase 7's weights quantized, sharded")
+        torch.cuda.reset_peak_memory_stats()
+        out = serve_and_count(card, "tp int8-all serve", core, chat, comp, name, flags)
+    del chat, comp  # the pipelines hold the engine
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hold_tp_launches("tp int8-all serve", out, TP_8B, cfg.num_layers)
+    steps, chunks = out["decode_steps"], out["chunk_dispatches"]
+    want = TP_8B * INT8_LAUNCHES_PER_STEP * (steps + chunks)
+    print(f"tp int8-all serve: int8_weight_matmul launches {out['int8_launches']} over {steps} "
+          f"decode steps and {chunks} prefill chunks, expected {want} ({INT8_LAUNCHES_PER_STEP} "
+          f"per rank and forward); int8 device launches {out['int8_kernel_launches']}; peak "
+          f"memory while serving {peak:.2f} GB")
+    if out["int8_launches"] != want or chunks == 0:
+        fail(f"tp int8-all serve: {out['int8_launches']} int8 launches, expected {want}")
+    core.close()
+    tp_params = core.params
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {k: out[k] for k in TP_SERVE_KEYS}
+    res.update(int8_launches=out["int8_launches"], int8_kernel_launches=out["int8_kernel_launches"],
+               peak_gb=peak)
+    tcase = tp_case(torch, case, mesh)
+    res["chunk_ratio"] = _parity(
+        f"tp={TP_8B} \"int8-all\" prefill chunk against the unsharded \"int8-all\" forward "
+        f"(llama3-8b, one pool state)", last_chunk_logits(torch, cfg, tp_params, tcase),
+        last_chunk_logits(torch, cfg, q_whole, case))
+    res["decode_ratio"] = _parity(
+        f"tp={TP_8B} \"int8-all\" decode step against the unsharded \"int8-all\" forward "
+        f"(llama3-8b, 8 lanes, one pool state)", window_logits(torch, cfg, tp_params, tcase, None),
+        window_logits(torch, cfg, q_whole, case, None))
+    del tp_params, tcase
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -3663,6 +3850,430 @@ def phase_mixtral_parity(params, cfg) -> dict:
             "chunk_ms": mixtral_chunk_ms(torch, cfg, params, case)}
 
 
+# -- phases 19-20: llama3-70b at full depth, mixtral-8x7b over tp=2 ---------------
+
+# bytes the 70b phase leaves free beside its weights and KV pool: a
+# prefill chunk's activations and attention temporaries, cuBLAS workspace
+# and the integrity plane's page gathers
+LLAMA70B_MARGIN = 5e9
+LLAMA70B_CONTEXT = 2048
+LLAMA70B_DEPTHS = (8, 16, 32)  # decode parity also printed at these depths
+TP_MIXTRAL = 2
+
+
+@contextmanager
+def forced_residuals(plain_run: list, ratios=None):
+    """The residual adds of a forward (``models/llama.py _residual``),
+    recorded or forced. With ``ratios`` None each add's block output (the
+    ranks' partials summed and rounded, as ``_residual`` adds it) and the
+    stream after it are appended to ``plain_run`` on the host. Else each
+    add appends max|d| / max|recorded| of its block output against the
+    recorded one at the same index to ``ratios`` and returns the recorded
+    stream: every attention and MLP block of this run starts from the
+    recorded run's state, so that each block's kernels are compared on the
+    same input instead of on a state that 80 layers of rounding noise have
+    moved."""
+    import dynamo_tpu_torch.models.llama as llama
+
+    residual = llama._residual
+    calls = iter(range(1 << 30))
+
+    def recorded(hs, parts):
+        o = llama.all_reduce(parts, hs[0].dtype)
+        out = [h + x for h, x in zip(hs, o)]
+        if ratios is None:
+            plain_run.append((o[0].cpu(), out[0].cpu()))
+            return out
+        po, pout = plain_run[next(calls)]
+        po = po.to(o[0].device)
+        ratios.append(((o[0].float() - po.float()).abs().max()
+                       / po.float().abs().max().clamp(min=1e-30)).item())
+        return [pout.to(h.device) for h in hs]
+
+    llama._residual = recorded
+    try:
+        yield
+    finally:
+        llama._residual = residual
+
+
+def held_blockwise(label: str, run) -> dict:
+    """``run(kernels: bool)`` -> logits, through the kernels or their plain
+    versions. The free-running pair is printed (not held); then the plain
+    run is recorded and the kernels' run forced onto it block by block
+    (:func:`forced_residuals`): every block's output and the logits are
+    held at 2e-2."""
+    free = run(True), run(False)
+    rel = ((free[0] - free[1]).abs().max() / free[1].abs().max()).item()
+    print(f"{label}, free-running through every layer (not held: the noise floor below): "
+          f"ratio {rel:.3e}")
+    del free
+    plain_run, ratios = [], []
+    with forced_residuals(plain_run):
+        plain = run(False)
+    with forced_residuals(plain_run, ratios):
+        kern = run(True)
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    print(f"{label}, block by block on the plain run's stream: {len(ratios)} attention and MLP "
+          f"blocks, their outputs' max|d| / max|plain| up to {ratios[worst]:.3e} (block "
+          f"{worst}: layer {worst // 2} {'MLP' if worst % 2 else 'attention'}), limit 0.02")
+    if not max(ratios) <= 2e-2:
+        fail(f"{label}: block {worst} through the kernels is {ratios[worst]:.3e} from its "
+             f"plain version")
+    logits = _parity(f"{label}, logits from the plain run's last stream", kern, plain)
+    return {"free_running_ratio": rel, "block_ratio_max": max(ratios),
+            "block_ratios": ratios, "logits_ratio": logits}
+
+
+def llama70b_parity(torch, cfg, params) -> dict:
+    """One decode step and one 1024-row prefill chunk of the 80-layer int8
+    tree through the kernels against the same step through the kernels'
+    plain versions (W8A16 products and paged decode), held block by block
+    at 2e-2 (:func:`held_blockwise`). Printed, not held: the free-running
+    decode ratio over the first 8, 16, 32 and 80 layers of the same
+    weights, and the noise floor at each depth: the plain step against the
+    same step with its W8A16 products summed in fp64; the chunk's
+    free-running ratio beside its own floor, alike."""
+    from dynamo_tpu_torch.models.llama import forward_chunk, make_kv_cache
+    from dynamo_tpu_torch.ops.int8_matmul import device_launches
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    case = parity_case(torch, cfg, params)
+    lens = case[5]
+    depths = {}
+    for n in LLAMA70B_DEPTHS + (cfg.num_layers,):
+        sub = dataclasses.replace(cfg, num_layers=n)
+        kern = window_logits(torch, sub, params, case, paged_decode_attention)
+        with plain_int8():
+            plain = window_logits(torch, sub, params, case, paged_decode_attention_plain)
+        with plain_int8(int8_weight_matmul_plain64):
+            p64 = window_logits(torch, sub, params, case, paged_decode_attention_plain)
+        top = plain.abs().max()
+        depths[n] = {"kernels": ((kern - plain).abs().max() / top).item(),
+                     "floor": ((p64 - plain).abs().max() / top).item()}
+        print(f"llama3-70b decode over the first {n} layers (not held): kernels against plain "
+              f"{depths[n]['kernels']:.3e}; noise floor (plain with fp64-summed products "
+              f"against plain) {depths[n]['floor']:.3e}")
+        del kern, plain, p64
+
+    def decode(kernels: bool):
+        if kernels:
+            return window_logits(torch, cfg, params, case, paged_decode_attention)
+        with plain_int8():
+            return window_logits(torch, cfg, params, case, paged_decode_attention_plain)
+
+    res = {"decode": held_blockwise(
+        f"llama3-70b decode step (forward_window, 80 layers, \"int8-all\", the W8A16 and paged "
+        f"kernels against their plain versions, 8 lanes, lengths "
+        f"{int(lens.min())}-{int(lens.max())})", decode)}
+    toks = case[4][:, :128].contiguous()
+    pos = torch.arange(128, device="cuda", dtype=torch.int32)[None, :].repeat(8, 1)
+    tables = case[1]
+    launches = {}
+
+    def chunk(kernels: bool, plain_fn=None):
+        cache = make_kv_cache(cfg, tables.numel(), 16, device="cuda")
+        reset_all_counts()
+        with torch.no_grad(), (nullcontext() if kernels else plain_int8(plain_fn)):
+            logits, _ = forward_chunk(params, cfg, toks, pos, cache, tables, with_history=False)
+        torch.cuda.synchronize()
+        if kernels:
+            launches.update({k: n for k, n in device_launches.items() if n})
+        return logits[:, -16:].float()
+
+    res["chunk"] = held_blockwise("llama3-70b prefill chunk (forward_chunk, 80 layers, 8 lanes x "
+                                  "128 tokens, the W8A16 kernels against their plain version; "
+                                  "logits of the last 16 positions)", chunk)
+    plain, p64 = chunk(False), chunk(False, int8_weight_matmul_plain64)
+    floor = ((p64 - plain).abs().max() / plain.abs().max()).item()
+    del plain, p64
+    res["chunk"]["floor"] = floor
+    print(f"llama3-70b prefill chunk over 80 layers (not held): kernels against plain "
+          f"{res['chunk']['free_running_ratio']:.3e}; noise floor (plain with fp64-summed "
+          f"products against plain) {floor:.3e}")
+    print(f"llama3-70b prefill chunk: int8 device launches {launches} ({INT8_70B_PER_STEP} "
+          f"products of 1024 rows)")
+    if sum(launches.values()) != INT8_70B_PER_STEP:
+        fail(f"llama3-70b prefill chunk: {launches} int8 launches, expected {INT8_70B_PER_STEP}")
+    del case
+    return {**res, "decode_ratio_by_depth": depths, "chunk_launches": launches}
+
+
+def phase_llama70b(card: str) -> dict:
+    """llama3-70b at full width and depth (80 layers) in ``"int8-all"`` on
+    the one card: random weights drawn layer by layer straight to int8
+    (``init_params_int8`` through ``build_torch_serving_engine``), the KV
+    pool sized from the memory the weights leave free (at most the engine's
+    own rule for 8 lanes of 2048 tokens). Prints the bytes allocated before
+    the build, after it and at the serving peak beside ``mem_get_info``'s
+    total; the HTTP service answers 8 streams of 32 tokens (held: 561
+    ``int8_weight_matmul`` launches per decode step and prefill chunk, 80
+    paged calls per decode step); TTFT p50, decode tok/s and a decode
+    profile; then :func:`llama70b_parity`."""
+    import math
+
+    import torch
+
+    from dynamo_tpu_torch.cli.run import build_parser, make_pipelines
+    from dynamo_tpu_torch.engine_torch.engine import EngineConfig, build_torch_serving_engine
+    from dynamo_tpu_torch.engine_torch.weights import config_from_card
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.llama import param_shapes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "llama3-70b-random"),
+                                    num_layers=LLAMA3_70B["layers"], arch=LLAMA3_70B)
+        mcard = ModelDeploymentCard.from_local_path(model_dir)
+        cfg = config_from_card(mcard)
+        weights = sum(math.prod(shape) * (1 if dt == torch.int8 else 4)
+                      for shape, dt in param_shapes(cfg, int8=True).values())
+        block = 2 * cfg.num_layers * 16 * cfg.num_kv_heads * cfg.head_dim * 2
+        rule = EngineConfig(max_slots=N_REQUESTS, kv_block_size=16,
+                            max_model_len=LLAMA70B_CONTEXT).resolve_num_blocks()
+        blocks = min(rule, int((free - weights - LLAMA70B_MARGIN) // block))
+        print(f"llama3-70b: {cfg.num_layers} layers, {weights / 1e9:.2f} GB of int8 weights; the "
+              f"card {total / 1e9:.2f} GB, {free / 1e9:.2f} GB free and {before / 1e9:.3f} GB "
+              f"allocated before the build; KV pool {blocks} blocks of 16 = "
+              f"{blocks * block / 1e9:.2f} GB (the engine's rule {rule}, {LLAMA70B_MARGIN / 1e9:.0f} "
+              f"GB kept free)")
+        if blocks < N_REQUESTS * (LLAMA70B_CONTEXT // 16):
+            fail(f"llama3-70b: {blocks} KV blocks do not hold 8 lanes of {LLAMA70B_CONTEXT} tokens")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        core = build_torch_serving_engine(mcard, max_batch_size=N_REQUESTS, quantize="int8-all",
+                                          max_model_len=LLAMA70B_CONTEXT, num_kv_blocks=blocks)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        after = torch.cuda.memory_allocated()
+        build_peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        core.warmup()
+        warm_s = time.perf_counter() - t0
+        bf16 = [n for n, p in core.params.named_parameters() if p.dtype == torch.bfloat16]
+        print(f"llama3-70b: int8 tree drawn on the card in {build_s:.1f} s, warmed up in "
+              f"{warm_s:.1f} s; allocated after the build {after / 1e9:.2f} GB (peak while "
+              f"drawing {build_peak / 1e9:.2f} GB); bf16 parameters: {len(bf16)}")
+        if bf16 or not core.params.int8 or core.params_decode is not core.params:
+            fail("llama3-70b: the tree is not int8 alone")
+        torch.cuda.reset_peak_memory_stats()
+        flags = build_parser().parse_args([
+            "--model-path", model_dir, "--host", "127.0.0.1", "--port", str(_free_port()),
+            "--max-batch-size", str(N_REQUESTS), "--quantize", "int8-all",
+            "--max-model-len", str(LLAMA70B_CONTEXT)])
+        chat, comp = make_pipelines(mcard, core)
+        out = serve_and_count(card, "llama3-70b serve", core, chat, comp, mcard.display_name,
+                              flags)
+    del chat, comp  # the pipelines hold the engine, and with it the KV pool
+    peak = torch.cuda.max_memory_allocated()
+    steps, chunks = out["decode_steps"], out["chunk_dispatches"]
+    want = {"int8_weight_matmul": INT8_70B_PER_STEP * (steps + chunks),
+            "paged_decode_attention": cfg.num_layers * steps, "int8_expert_matmul": 0}
+    got = {"int8_weight_matmul": out["int8_launches"],
+           "paged_decode_attention": out["launches"],
+           "int8_expert_matmul": out["expert_launches"]}
+    print(f"llama3-70b serve: {steps} decode steps and {chunks} prefill chunks: launches {got}, "
+          f"expected {want}; int8 device launches {out['int8_kernel_launches']}; allocated at "
+          f"the serving peak {peak / 1e9:.2f} GB of the card's {total / 1e9:.2f} GB")
+    if got != want or steps == 0 or chunks == 0:
+        fail("llama3-70b serve: the launch counts do not match the steps that ran")
+    core.close()
+    params = core.params
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {k: out[k] for k in TP_SERVE_KEYS if k in out}
+    res.update(int8_launches=out["int8_launches"], int8_kernel_launches=out["int8_kernel_launches"],
+               weights_gb=weights / 1e9, kv_blocks=blocks, kv_gb=blocks * block / 1e9,
+               total_gb=total / 1e9, before_gb=before / 1e9, after_build_gb=after / 1e9,
+               build_peak_gb=build_peak / 1e9, serve_peak_gb=peak / 1e9, build_s=build_s,
+               warmup_s=warm_s)
+    res.update(llama70b_parity(torch, cfg, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def fingerprint(t) -> tuple:
+    """The sum of a tensor's bytes and their sum weighted by position (mod
+    251, plus 1), over slices of its leading axis in 64 MB pieces: equal
+    tensors give equal sums, and a wrong slice, offset or order almost
+    surely does not."""
+    import torch
+
+    total = weighted = pos = 0
+    for piece in (t if t.dim() > 1 else t[None]):
+        u = piece.contiguous().view(torch.uint8).reshape(-1)
+        for a in range(0, u.numel(), 1 << 26):
+            c = u[a:a + (1 << 26)].to(torch.int64)
+            w = torch.arange(pos, pos + c.numel(), device=c.device, dtype=torch.int64) % 251 + 1
+            total += int(c.sum())
+            weighted += int((c * w).sum())
+            pos += c.numel()
+    return total, weighted
+
+
+def phase_mixtral_tp(card: str) -> dict:
+    """mixtral-8x7b at full width and depth in ``"int8-all"`` over a tp=2
+    mesh whose ranks share the card (every expert at F/2 on each rank),
+    random weights drawn onto the ranks through
+    ``build_torch_serving_engine``: the HTTP service answers 8 streams of 32
+    tokens (held per rank and forward: 129 ``int8_weight_matmul`` and 96
+    ``int8_expert_matmul`` launches; one sharded paged call per layer and
+    decode step); TTFT, tok/s and a profile. Then
+    :func:`mixtral_tp_parity`."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 1e9
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = write_model_dir(os.path.join(tmp, "mixtral-8x7b-random"),
+                                    num_layers=MIXTRAL["layers"], arch=MIXTRAL)
+        torch.cuda.reset_peak_memory_stats()
+        core, chat, comp, name, flags, built, warm = tp_build(
+            model_dir, TP_MIXTRAL, ["cuda:0"] * TP_MIXTRAL, quantize="int8-all")
+        cfg, mesh = core.model_config, core.mesh
+        weights_gb = sum(param_gb(p) for p in core.params.shards)
+        build_peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"mixtral tp: mixtral-8x7b tp={TP_MIXTRAL} co-located, \"int8-all\" drawn onto the "
+              f"ranks in {built:.1f} s (warmed up in {warm:.1f} s), {weights_gb:.2f} GB of "
+              f"weights over the ranks, {core.num_blocks} KV blocks per rank pool; peak while "
+              f"drawing {build_peak:.2f} GB, {before:.2f} GB before it; w_gate per rank "
+              f"{tuple(core.params.shards[0].layers['w_gate_q'].shape)}")
+        if not core.params.int8 or core.params_decode is not core.params:
+            fail("mixtral tp: the engine does not serve one int8 tree")
+        torch.cuda.reset_peak_memory_stats()
+        out = serve_and_count(card, "mixtral tp serve", core, chat, comp, name, flags)
+    del chat, comp  # the pipelines hold the engine, and with it the tp tree
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.num_layers
+    hold_tp_launches("mixtral tp serve", out, TP_MIXTRAL, L)
+    steps, chunks = out["decode_steps"], out["chunk_dispatches"]
+    want = {"int8_weight_matmul": TP_MIXTRAL * MIXTRAL_DENSE_PER_STEP * (steps + chunks),
+            "int8_expert_matmul": TP_MIXTRAL * EXPERT_LAUNCHES_PER_STEP * (steps + chunks)}
+    got = {"int8_weight_matmul": out["int8_launches"],
+           "int8_expert_matmul": out["expert_launches"]}
+    print(f"mixtral tp serve: {steps} decode steps and {chunks} prefill chunks: launches {got}, "
+          f"expected {want} (per rank and forward {MIXTRAL_DENSE_PER_STEP} and "
+          f"{EXPERT_LAUNCHES_PER_STEP}); int8 device launches {out['int8_kernel_launches']}; "
+          f"peak memory while serving {peak:.2f} GB")
+    if got != want or chunks == 0:
+        fail("mixtral tp serve: the launch counts do not match the steps that ran")
+    core.close()
+    handed = [core.params]
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {k: out[k] for k in TP_SERVE_KEYS}
+    res.update(int8_launches=out["int8_launches"], expert_launches=out["expert_launches"],
+               int8_kernel_launches=out["int8_kernel_launches"], weights_gb=weights_gb,
+               peak_gb=peak, build_peak_gb=build_peak)
+    res.update(mixtral_tp_parity(torch, cfg, handed))
+    return res
+
+
+def mixtral_tp_parity(torch, cfg, handed: list) -> dict:
+    """The parity of :func:`phase_mixtral_tp`. ``handed`` holds the tp tree
+    alone, so that it is freed here before the unsharded tree is drawn.
+
+    The tp run prefills a pool, then runs one prefill chunk and one decode
+    step over it, recording its residual stream (:func:`forced_residuals`)
+    and routing choices; pool, logits and records go to the host. The
+    unsharded tree, drawn from the same seed, runs the same chunk and step
+    on the same pool twice: free-running (its ratio and the routing choices
+    that differ printed, not held: over 32 layers the two roundings move
+    the stream far enough to flip near-tied routing choices), and forced
+    onto the tp run's stream block by block, where both route alike by
+    construction: every block's output and the logits held at 2e-2."""
+    from dynamo_tpu_torch.models.llama import ShardedParams, init_params_int8
+
+    tp_params = handed.pop()
+    mesh, L = tp_params.mesh, cfg.num_layers
+    prints = {(n, r): fingerprint(p) for r, shard in enumerate(tp_params.shards)
+              for n, p in shard.named_parameters()}
+    case = parity_case(torch, cfg, tp_params, mesh=mesh)
+    runs = {}
+    for key in ("chunk", "decode"):
+        stream, routes = [], []
+        with forced_residuals(stream), recorded_routes(routes):
+            logits = (last_chunk_logits(torch, cfg, tp_params, case) if key == "chunk"
+                      else window_logits(torch, cfg, tp_params, case, None)).cpu()
+        # the ranks route alike: one choice per layer
+        if any(not torch.equal(routes[i][0], routes[i + 1][0])
+               for i in range(0, len(routes), TP_MIXTRAL)):
+            fail(f"mixtral tp: the ranks routed the {key} differently")
+        runs[key] = (logits, stream, routes[::TP_MIXTRAL])
+    pool = {n: torch.cat([p[n] for p in case[0]], dim=3).cpu() for n in ("k", "v")}
+    rest = case[1:]
+    del case, tp_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params = init_params_int8(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    rules = ShardedParams(cfg, mesh, [params] * TP_MIXTRAL).rules
+    whole = dict(params.named_parameters())
+    for (n, r), fp in prints.items():
+        if fingerprint(rules[n].shard(whole[n], r)) != fp:
+            fail(f"mixtral tp: rank {r}'s {n} is not the unsharded draw's slice")
+    print(f"mixtral tp: the unsharded \"int8-all\" tree drawn in {draw_s:.1f} s; every rank's "
+          f"{len(prints) // TP_MIXTRAL} leaves fingerprint-equal to its slice of it")
+    del whole
+    case = ({n: t.cuda() for n, t in pool.items()}, *rest)
+    del pool
+    res = {"unsharded_draw_s": draw_s}
+    for key in ("chunk", "decode"):
+        tp_logits, stream, tp_routes = runs[key]
+
+        def run():
+            if key == "chunk":
+                return last_chunk_logits(torch, cfg, params, case).cpu()
+            return window_logits(torch, cfg, params, case, None).cpu()
+
+        routes = []
+        with recorded_routes(routes):
+            free = run()
+        c = routing_compare(cfg, tp_routes, routes)
+        free_ratio = ((tp_logits - free).abs().max() / free.abs().max()).item()
+        n = tp_routes[0][0].shape[0]
+        flips = "; ".join(f"lane {f['lane']} layer {f['layer']} gaps {f['gap12']:.4f}, "
+                          f"{f['gap23']:.4f}" for f in c["first_flips"]) if key == "decode" else ""
+        print(f"mixtral tp {key}, free-running (not held): ratio {free_ratio:.3e}; {c['differ']} of "
+              f"{L * n} (layer, token) routing choices differ; {c['n_agree']} of {n} tokens route "
+              f"alike at every layer" + (f"; first differing layer per lane with the tp run's "
+                                        f"router-logit gaps: {flips}" if flips else ""))
+        ratios = []
+        with forced_residuals(stream, ratios):
+            forced = run()
+        worst = max(range(len(ratios)), key=ratios.__getitem__)
+        label = (f"mixtral tp={TP_MIXTRAL} {key} against the unsharded \"int8-all\" forward "
+                 f"(32 layers, one pool state)")
+        print(f"{label}, block by block on the tp run's stream: {len(ratios)} attention and MoE "
+              f"blocks, their outputs' max|d| / max|tp| up to {ratios[worst]:.3e} (block {worst}: "
+              f"layer {worst // 2} {'MoE' if worst % 2 else 'attention'}), limit 0.02")
+        if not max(ratios) <= 2e-2:
+            fail(f"{label}: block {worst} is {ratios[worst]:.3e} from the tp run's")
+        res[key] = {"free_running_ratio": free_ratio, "routing_differ": c["differ"],
+                    "tokens_routed_alike": c["n_agree"], "block_ratio_max": max(ratios),
+                    "block_ratios": ratios,
+                    "logits_ratio": _parity(f"{label}, logits from the tp run's last stream",
+                                            forced, tp_logits)}
+    del params, case
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "dynamo_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3738,12 +4349,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     mixp = timed("mixtral parity", phase_mixtral_parity, mix_params, mix_cfg)
     del mix_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"mixtral engines closed: {left / 1e9:.3f} GB still allocated on the card")
+    if left > 1e9:
+        fail(f"{left / 1e9:.2f} GB still allocated after the mixtral phases")
+    l70 = timed("llama3-70b", phase_llama70b, card)
+    mixtp = timed("mixtral tp", phase_mixtral_tp, card)
     main_regime = kern[REGIMES[0][0]]
     tp_regime = tpk[TP_REGIMES[0][0]]
     kv8_regime = kv8k[REGIMES[0][0]]
     step, estep, echunk = int8k["per_step"], expk["per_step"], expk["prefill_chunk"]
     decode_cases = [c for c in int8k["cases"] if c["M"] in (1, 8) and c["x"] == "bf16"]
-    (chunk_case,) = [c for c in int8k["cases"] if c["M"] == 1024]
+    (chunk_case,) = [c for c in int8k["cases"]
+                     if c["M"] == 1024 and c["name"].startswith(INT8_PREFILL[0])]
     line = {"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -3763,6 +4383,7 @@ def main() -> int:
         "splits": served["splits"],
         "launches_int8_serve": int8s["launches"],
         "launches_mixtral_serve": mixs["launches"],
+        "launches_llama70b_serve": l70["launches"],
         "regimes": [dict(name=k, **v) for k, v in kern.items()],
     }, {
         "name": "paged_decode_attention_sharded",
@@ -3784,6 +4405,8 @@ def main() -> int:
         "library_ms": tp_regime["library_ms"],
         "bound_share": tp_regime["bound_share"],
         "launches_tp_70b": tp70["sharded_launches"],
+        "launches_int8_all_tp": tps["int8_all"]["sharded_launches"],
+        "launches_mixtral_tp": mixtp["sharded_launches"],
         "per_rank_launches": tps["serve"]["launches"],
         "device_launches": tps["serve"]["kernel_launches"],
         "regimes": [dict(name=k, **v) for k, v in tpk.items()],
@@ -3818,6 +4441,15 @@ def main() -> int:
                     "int8 convert-dot, no Pallas kernel)",
         "launches": int8s["int8_launches"],
         "launches_mixtral_serve": mixs["int8_launches"],
+        "launches_llama70b_serve": l70["int8_launches"],
+        "launches_int8_all_tp": tps["int8_all"]["int8_launches"],
+        "launches_mixtral_tp": mixtp["int8_launches"],
+        # the sums of phase 4's new shapes: llama3-70b's 561 products and one
+        # tp=2 rank's 225 at llama3-8b widths, per decode step and chunk
+        "llama70b_decode_step": int8k["step_70b"],
+        "llama70b_prefill_chunk": int8k["chunk_70b"],
+        "tp2_rank_decode_step": int8k["step_tp2"],
+        "tp2_rank_prefill_chunk": int8k["chunk_tp2"],
         # one decode step at M = 8: the 225 launches over the five shapes
         "unit": f"one decode step, M=8, {INT8_LAUNCHES_PER_STEP} launches",
         "max_abs_err": max(c["max_abs_err"] for c in decode_cases),
@@ -3850,6 +4482,10 @@ def main() -> int:
         "replaces": "dynamo_tpu/ops/moe.py:70 (_expert_mat: XLA's fused int8 convert-einsum "
                     "over the expert stack, no Pallas kernel)",
         "launches": mixs["expert_launches"],
+        "launches_mixtral_tp": mixtp["expert_launches"],
+        # one tp=2 rank's 96 stacks at F/2, per decode step and chunk
+        "tp2_rank_decode_step": expk["step_tp2"],
+        "tp2_rank_prefill_chunk": expk["chunk_tp2"],
         # one mixtral decode step at C = 4: the 96 launches over the two shapes
         "unit": f"one mixtral-8x7b decode step, 8 experts, C=4, {EXPERT_LAUNCHES_PER_STEP} "
                 f"launches",
@@ -3875,6 +4511,7 @@ def main() -> int:
         "replaces": "dynamo_tpu/ops/moe.py:70 (_expert_mat on a prefill chunk's expert stacks: "
                     "XLA's fused int8 convert-einsum, no Pallas kernel)",
         "launches": mixs["int8_kernel_launches"].get("w8a16_expert_tile_kernel", 0),
+        "launches_mixtral_tp": mixtp["int8_kernel_launches"].get("w8a16_expert_tile_kernel", 0),
         # the expert products of one 1024-row prefill chunk: 96 stacks at C = 512
         "unit": f"the expert products of one 1024-row mixtral-8x7b prefill chunk, 8 experts, "
                 f"C=512, {EXPERT_LAUNCHES_PER_STEP} launches",
@@ -3900,6 +4537,7 @@ def main() -> int:
             "warmup_s", "decode_steps", "chunk_dispatches", "launches", "int8_launches",
             "expert_launches", "int8_kernel_launches")},
         "mixtral_parity": mixp, "mixtral_load": mixl, "tp_serve": tps, "tp_70b": tp70,
+        "llama3_70b": l70, "mixtral_tp": mixtp,
         "load": loaded, "phase_seconds": seconds,
         "card": card, "seconds": time.perf_counter() - t0}
     print(json.dumps(line))

@@ -10,6 +10,9 @@ keeps up to N evicted KV blocks in host RAM for later prefix hits; the KV
 page dtype is ``DYN_TPU_KV_DTYPE`` (``int8`` for int8 pages), as in the
 JAX launcher. ``--tensor-parallel-size N`` serves over a tp mesh of N ranks
 on ``cuda:0 … cuda:N-1`` (with ``--device cpu``, N ranks on the CPU).
+``--quantize int8`` decodes from int8 weights and prefills from bf16 ones;
+``--quantize int8-all`` keeps only int8 weights, quantized as they are read
+or drawn (how llama3-70b or mixtral-8x7b fits one H100), on a mesh too.
 
 Counterpart of the JAX package's ``cli/run.py`` for ``in=http out=jax``.
 """
@@ -67,6 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--tensor-parallel-size", type=int, default=1,
                    help="tp ranks (Megatron heads, MLP and vocab), one per card")
+    p.add_argument("--quantize", choices=("int8", "int8-all"), default=None,
+                   help="weight-only int8: decode only, or every product")
     return p
 
 
@@ -89,6 +94,7 @@ def build_engine(out_spec: str, flags: argparse.Namespace):
         seed=flags.seed,
         device=flags.device,
         tensor_parallel_size=flags.tensor_parallel_size,
+        quantize=flags.quantize,
     )
     core.warmup()
     chat, completions = make_pipelines(card, core)

@@ -91,6 +91,14 @@
 //      k slots {2t, 2t+1, 2t+8, 2t+9} that the fragment layout gives it, and
 //      reads x at the same four k; a sum over k does not care about the
 //      order, and A and B use the same map.
+//    - Each 64-wide chunk of K is summed by its four mma steps into a fresh
+//      fp32 fragment, which an fp32 add on the CUDA cores then carries into
+//      the running sum. The tensor core's fp32 accumulation truncates where
+//      an fp32 add rounds, so hundreds of steps into one accumulator lose
+//      toward zero: at llama3-70b's K = 28672 (M = 8) 0.42% of the outputs
+//      differed from the fp64-summed product's rounding, biased toward zero
+//      (fp32 plain: 0.03%); summed per chunk, 0.023%, unbiased, at no
+//      measured cost (chip_ab.py, PERF.md).
 //    - Deterministic split-K without a workspace: the splits of a tile run as
 //      one thread block cluster. Each keeps its fp32 sums in its own shared
 //      memory; after a cluster barrier, split 0 reads them all through
@@ -702,6 +710,10 @@ __global__ void __launch_bounds__(kThreadsB)
           xv[i][0] = xv[i][1] = make_uint4(0, 0, 0, 0);
         }
       }
+      // this chunk's 64 products per output on the tensor cores, from 0
+      float chunk[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) chunk[i][0] = chunk[i][1] = chunk[i][2] = chunk[i][3] = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         // A: rows g (a0, a2) and g + 8 (a1, a3), k slots {2t, 2t+1} and {2t+8, 2t+9}
@@ -713,8 +725,14 @@ __global__ void __launch_bounds__(kThreadsB)
           // B: x at the same four k, two bf16 per 32-bit word
           const uint4& hx = xv[i][j >> 1];
           const int w = (j & 1) * 2;
-          mma_bf16(acc[i], a, word(hx, w), word(hx, w + 1));
+          mma_bf16(chunk[i], a, word(hx, w), word(hx, w + 1));
         }
+      }
+      // ... carried into the running sum by fp32 adds (the note above)
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] += chunk[i][e];
       }
     }
   }

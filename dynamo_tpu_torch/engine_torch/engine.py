@@ -70,8 +70,15 @@ Counterpart of the main path of the JAX package's ``engine_jax/engine.py``:
   pool and host-tier pages are interchangeable with an unsharded engine's.
   As the JAX engine on a mesh: int8 KV pages raise, the output watchdog is
   off, ``"int8"`` weights serve (the whole tree's quantization, sharded),
-  speculation runs. Not in this slice: the MoE family on tp (ROADMAP A9)
-  and ``"int8-all"`` on tp (A10) raise.
+  speculation runs. ``"int8-all"`` serves on a mesh too, where the JAX
+  engine leaves its quantized tree unsharded: ``params`` and
+  ``params_decode`` are one sharded int8 tree (the whole tree's
+  quantization, sharded; random or checkpoint weights quantized as each
+  matrix is drawn or read, then sliced), and every product of the prefill
+  chunk and the decode window runs per rank on the W8A16 kernels. The
+  mixtral family serves on a mesh with every expert at F/tp on each rank
+  (``ops/moe.py``). Heads that do not split over tp raise (ROADMAP A11),
+  as do ep, pp and sp (A7).
 
 Not in this engine yet (later slices, ROADMAP.md): disaggregated prefill,
 live migration, QoS, profiling/straggler hooks, dp/pp/sp/ep meshes.
@@ -364,9 +371,6 @@ class TorchServingEngine(AsyncEngine):
         self.mesh = mesh
         self.device = resolve_device(str(mesh.devices[0] if mesh is not None else device))
         if mesh is not None:
-            if engine_config.quantize == "int8-all":
-                raise ValueError('quantize="int8-all" on a tp mesh is not ported '
-                                 '(ROADMAP A10: "int8-all" on tp)')
             rank_config(model_config, mesh.tp)  # raises on what tp does not shard
             if not isinstance(params, ShardedParams):
                 params = shard_params(params, model_config, mesh)
@@ -1813,7 +1817,9 @@ def build_torch_serving_engine(
     ``DYN_TPU_KV_DTYPE``); with
     ``"int8-all"`` the weights are quantized as they are loaded (or drawn),
     so the bf16 tree never exists on the device: how a model too large for
-    the card in bf16 (mixtral-8x7b) is served.
+    the card in bf16 (mixtral-8x7b, llama3-70b) is served. ``num_kv_blocks``
+    (default: ``EngineConfig``'s rule from the slots and the context) sizes
+    the pool, per rank on a mesh.
 
     ``tensor_parallel_size`` > 1 serves over a tp mesh (``build_jax_serving_engine``'s
     argument): its ranks on ``devices`` (default ``cuda:0 … cuda:N-1``,
@@ -1832,9 +1838,6 @@ def build_torch_serving_engine(
         dev = resolve_device(device)
     model_config = config_from_card(card, dtype=dtype)
     if mesh is not None:
-        if quantize == "int8-all":
-            raise ValueError('quantize="int8-all" on a tp mesh is not ported '
-                             '(ROADMAP A10: "int8-all" on tp)')
         rank_config(model_config, mesh.tp)  # raises before any weight is read
     params = load_params(card, model_config, seed=seed, device=dev,
                          int8=quantize == "int8-all", mesh=mesh)

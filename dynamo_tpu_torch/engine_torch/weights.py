@@ -17,7 +17,10 @@ compute the same function in the tests.
 With a tp ``mesh`` each tensor is sliced to its ranks as it is read (or,
 for random weights, as each global matrix is drawn on rank 0's device), so
 the whole tree never sits on one device; the result is a
-:class:`ShardedParams`.
+:class:`ShardedParams`. With ``int8`` too, each whole matrix is quantized
+first and its q and s are sliced after (a row-parallel matrix's scales need
+its whole contracted axis); a mixtral checkpoint's experts arrive one
+``[out, in]`` slice at a time, each sliced to the ranks' F/tp.
 """
 
 from __future__ import annotations
@@ -98,12 +101,8 @@ def load_params(card: ModelDeploymentCard, config: LlamaConfig, seed: int = 0,
     tensors = hf_tensors(card.model_path) if card.model_path else None
     if tensors is None:
         logger.info("no weight files for %s: random-initializing", card.display_name)
-        if int8:
-            if mesh is not None:
-                raise ValueError("random int8 weights on a tp mesh are not ported "
-                                 "(ROADMAP A10)")
-            return init_params_int8(config, seed=seed, device=device)
-        return init_params(config, seed=seed, device=device, mesh=mesh)
+        init = init_params_int8 if int8 else init_params
+        return init(config, seed=seed, device=device, mesh=mesh)
     return params_from_hf(tensors, config, device=device, int8=int8, mesh=mesh)
 
 

@@ -15,7 +15,8 @@ Weight-only int8 (the JAX ``quantize_params_int8``, ``matw``, int8
 :class:`LlamaParams` whose matrices are :class:`Int8Weight` pairs, ``q`` int8
 and ``s`` fp32 per output channel. :func:`init_params_int8` makes the same
 int8 tree from a seed without the bf16 one ever existing (the fit mode of a
-model too large for the card in bf16: mixtral-8x7b). **Layout:** ``q`` is
+model too large for the card in bf16: mixtral-8x7b, llama3-70b), onto a tp
+mesh too. **Layout:** ``q`` is
 ``[..., out, in]`` with K contiguous, the transpose of the JAX ``[in, out]``
 ``q`` (and of the port's own bf16 matrices): the natural operand of a
 small-M kernel, and the layout of the embedding ``[V, E]``, so the tied LM
@@ -37,12 +38,14 @@ pool through the int8 paged kernel.
 **Tensor parallelism** (the JAX ``param_shardings`` Megatron layout over a
 tp mesh, ``parallel/mesh.py``): :func:`shard_params` gives each rank a
 :class:`LlamaParams` of the per-rank config (:func:`rank_config`: H/tp,
-KVH/tp, F/tp, V/tp) on its device, as a :class:`ShardedParams`; rank ``r``
-holds exactly JAX's addressable shard ``r``. The pool is a list of per-rank
+KVH/tp, F/tp, V/tp; an MoE model's every expert at F/tp) on its device, as
+a :class:`ShardedParams`; rank ``r`` holds exactly JAX's addressable shard
+``r``, of the bf16 tree or of the int8 one. The pool is a list of per-rank
 pools ``[L, N, bs, KVH/tp, D]`` (:func:`make_kv_cache` with ``mesh``).
 Every forward takes either kind: on a mesh q/k/v and gate/up are
 column-parallel, ``wo`` and ``w_down`` row-parallel with their partials
-summed by ``all_reduce`` before the residual, the embedding lookup
+(an MoE layer's: the weighted combine of the rank's ``w_down`` outputs,
+``ops/moe.py``) summed by ``all_reduce`` before the residual, the embedding lookup
 vocab-parallel (each rank its own rows, the others masked, then
 ``all_reduce``), the LM head column-parallel over vocab with the logits
 gathered on rank 0's device; decode attention is the paged kernel per
@@ -286,15 +289,14 @@ def param_logical_axes(config: LlamaConfig, int8: bool = False
 
 def rank_config(config: LlamaConfig, tp: int) -> LlamaConfig:
     """The config whose shapes one of ``tp`` ranks holds: H/tp, KVH/tp,
-    F/tp and V/tp. What this slice does not shard raises: the MoE family
-    (ROADMAP A9) and heads that do not split over tp (A11; the JAX
-    package falls back to its GSPMD jnp path there)."""
+    F/tp and V/tp. An MoE model keeps every expert on each rank (the
+    ``experts`` axis follows ep, which a mesh holds at 1) with each
+    expert's FFN width at F/tp, as the JAX ``moe_param_logical_axes``
+    shard it over tp. Heads that do not split over tp raise (ROADMAP A11;
+    the JAX package falls back to its GSPMD jnp path there)."""
     if tp == 1:
         return config
     c = config
-    if c.num_experts > 1:
-        raise ValueError("the MoE family on a tp mesh is not ported (ROADMAP A9: MoE on tp, "
-                         "with ep)")
     if c.num_heads % tp or c.num_kv_heads % tp:
         raise ValueError(f"{c.num_heads} query and {c.num_kv_heads} kv heads do not split "
                          f"evenly over tp={tp} (ROADMAP A11)")
@@ -360,31 +362,53 @@ def _split(params, config: LlamaConfig
     return [params], [config], None
 
 
+# A dense model's layer matrices are drawn whole, stacked over the layers,
+# while the largest of them takes at most this many bytes in fp32
+WHOLE_DRAW_MAX_BYTES = 16 << 30
+
+
+def draws_whole(c: LlamaConfig) -> bool:
+    """The draw rule of :func:`_random_slices`, from the config alone, so
+    that an unsharded model and a tp model from one seed hold equal
+    weights: a dense model whose largest stacked layer matrix takes at most
+    ``WHOLE_DRAW_MAX_BYTES`` (16 GiB) in fp32 draws each matrix whole,
+    stacked over its layers (llama3-8b's ``w_gate`` [32, 4096, 14336] is
+    7.5 GB: the draws of every earlier measurement); any other model draws
+    one ``[in, out]`` layer or expert slice at a time (llama3-70b's
+    ``w_gate`` [80, 8192, 28672] would be 75.2 GB; every MoE model)."""
+    if c.num_experts > 1:
+        return False
+    shapes = param_shapes(c)
+    largest = max(math.prod(shapes[f"layers.{m}"][0]) for m in INT8_MATS)
+    return 4 * largest <= WHOLE_DRAW_MAX_BYTES
+
+
 def _random_slices(c: LlamaConfig, seed: int, device: torch.device
                    ) -> Iterator[Tuple[str, Tuple[int, ...], torch.Tensor]]:
     """The random matrices of :func:`init_params` in a fixed order (the
     embedding and LM head, then the layers' matrices): (name in
     :func:`param_shapes`, index into its leading axes, the draw as normal /
-    sqrt(fan_in) in fp32, cast to the parameter's dtype). A dense model
-    draws each matrix whole, stacked over its layers, as the port always
-    has (its random weights are those of every earlier measurement); a MoE
-    model draws one ``[in, out]`` expert or layer slice at a time, so that
-    the bf16 stacks of a model too large for the card (mixtral-8x7b) never
-    exist whole."""
+    sqrt(fan_in) in fp32, cast to the parameter's dtype). The embedding and
+    LM head are drawn whole; the layers' matrices whole or one slice at a
+    time as :func:`draws_whole` says. Each fp32 draw is freed when it is
+    cast, so beside the parameters only one draw in the parameter's dtype
+    exists at a time."""
     gen = torch.Generator(device=device).manual_seed(seed)
     shapes = param_shapes(c)
+    whole_layers = draws_whole(c)
     for name in sorted(shapes, key=lambda n: n.startswith("layers.")):  # stable
         shape, dt = shapes[name]
         leaf = name.split(".")[-1]
         if leaf.endswith("norm") or leaf in ("bq", "bk", "bv"):
             continue
-        whole = c.num_experts <= 1 or leaf in ("embed", "lm_head")
+        whole = whole_layers or leaf in ("embed", "lm_head")
         lead = () if whole else shape[:-2]
         fan_in = shape[-1] if leaf == "embed" else shape[-2]
         for idx in itertools.product(*map(range, lead)):
             w = torch.randn(shape[len(lead):], generator=gen, device=device,
                             dtype=torch.float32)
-            yield name, idx, w.div_(math.sqrt(fan_in)).to(dt)
+            w = w.div_(math.sqrt(fan_in)).to(dt)
+            yield name, idx, w
 
 
 def _fill_constants(params: "LlamaParams") -> None:
@@ -397,11 +421,32 @@ def _fill_constants(params: "LlamaParams") -> None:
             p.zero_()
 
 
+def _draw_into(params, config: LlamaConfig, seed: int, device: torch.device,
+               int8: bool) -> None:
+    """Fill ``params`` (a :class:`LlamaParams`, or a :class:`ShardedParams`
+    whose ``assign`` slices each leaf to its ranks) with the draws of
+    :func:`_random_slices` made on ``device``; ``int8`` quantizes each
+    ``[in, out]`` matrix of a draw whole, then assigns its q and s."""
+    with torch.no_grad():
+        for shard in getattr(params, "shards", [params]):
+            _fill_constants(shard)
+        for name, idx, w in _random_slices(config, seed, device):
+            if not int8 or name.endswith("moe_router"):
+                params.assign(name, idx, w)
+                continue
+            per_row = name == "embed"
+            for sub in itertools.product(*map(range, () if per_row else w.shape[:-2])):
+                q, s = quantize_matrix(w[sub], per_row=per_row)
+                params.assign(name + "_q", idx + sub, q)
+                params.assign(name + "_s", idx + sub, s)
+                del q, s
+
+
 def init_params(config: LlamaConfig, seed: int = 0, device="cpu",
                 mesh: Optional[Mesh] = None) -> Union[LlamaParams, ShardedParams]:
     """Random init with fan-in scaling (normal / sqrt(fan_in)), drawn on
-    ``device`` from a ``torch.Generator`` seeded with ``seed`` (a MoE model
-    one matrix slice at a time: :func:`_random_slices`); norms are 1 and
+    ``device`` from a ``torch.Generator`` seeded with ``seed`` (whole
+    matrices or one slice at a time: :func:`draws_whole`); norms are 1 and
     biases 0. Streams differ from ``jax.random``'s: carry JAX weights over
     with ``weights.params_from_numpy`` where equality matters. With
     ``mesh`` the same global draws are made on rank 0's device and each is
@@ -409,40 +454,34 @@ def init_params(config: LlamaConfig, seed: int = 0, device="cpu",
     one from one seed on one device hold the same weights."""
     if mesh is not None:
         params = ShardedParams.empty(config, mesh)
-        with torch.no_grad():
-            for shard in params.shards:
-                _fill_constants(shard)
-            for name, idx, w in _random_slices(config, seed, mesh.devices[0]):
-                params.assign(name, idx, w)
+        _draw_into(params, config, seed, mesh.devices[0], int8=False)
         return params
     device = torch.device(device)
     params = LlamaParams(config, device)
-    with torch.no_grad():
-        _fill_constants(params)
-        for name, idx, w in _random_slices(config, seed, device):
-            params.assign(name, idx, w)
+    _draw_into(params, config, seed, device, int8=False)
     return params
 
 
-def init_params_int8(config: LlamaConfig, seed: int = 0, device="cpu") -> LlamaParams:
+def init_params_int8(config: LlamaConfig, seed: int = 0, device="cpu",
+                     mesh: Optional[Mesh] = None) -> Union[LlamaParams, ShardedParams]:
     """``quantize_params_int8(init_params(config, seed, device), config)``,
     bit for bit, without the bf16 tree: the same draws in the same order,
-    each quantized one ``[in, out]`` slice at a time as it is drawn. Beside
-    the int8 tree only one draw exists at a time: one slice of a MoE model,
-    one stacked matrix of a dense one."""
+    each quantized one ``[in, out]`` matrix at a time as it is drawn. Beside
+    the int8 tree only one draw exists at a time (one slice, or one stacked
+    matrix of a model that :func:`draws_whole`), and the quantization works
+    over slices of whole output channels (:func:`_quantize`). With ``mesh``
+    each global matrix is drawn and quantized whole on rank 0's device,
+    then its q and s are sharded (a row-parallel matrix's scales need its
+    whole contracted axis): ``shard_params(init_params_int8(config, seed,
+    device), config, mesh)`` bit for bit, without the whole int8 tree on
+    any one device."""
+    if mesh is not None:
+        params = ShardedParams.empty(config, mesh, int8=True)
+        _draw_into(params, config, seed, mesh.devices[0], int8=True)
+        return params
     device = torch.device(device)
     params = LlamaParams(config, device, int8=True)
-    with torch.no_grad():
-        _fill_constants(params)
-        for name, idx, w in _random_slices(config, seed, device):
-            if name.endswith("moe_router"):
-                params.get_parameter(name)[idx].copy_(w)
-                continue
-            per_row = name == "embed"
-            for sub in itertools.product(*map(range, () if per_row else w.shape[:-2])):
-                q, s = quantize_matrix(w[sub], per_row=per_row)
-                params.get_parameter(name + "_q")[idx + sub].copy_(q)
-                params.get_parameter(name + "_s")[idx + sub].copy_(s)
+    _draw_into(params, config, seed, device, int8=True)
     return params
 
 
@@ -509,17 +548,37 @@ def _write_pool(pool: Tuple[torch.Tensor, ...], k: torch.Tensor, v: torch.Tensor
         write_kv_to_pages(pool[0], pool[1], k, v, positions, block_tables)
 
 
+# the weights of one quantization pass (fp32 temporaries of 256 MB), so that
+# the embedding and LM head of a large vocabulary quantize beside a card
+# that their model nearly fills (llama3-70b in "int8-all")
+_QUANT_CHUNK = 1 << 26
+
+
 def _quantize(w: torch.Tensor, contract_dim: int, amax: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Absmax/127 int8 along ``contract_dim``: (q in w's layout, s).
     ``amax``: the absmax to scale by (a row-parallel shard's: that of the
-    whole contracted axis), else w's own."""
-    wf = w.float()
-    if amax is None:
-        amax = wf.abs().amax(dim=contract_dim)
-    s = (amax / 127.0).clamp(min=1e-12)
-    q = torch.round(wf / s.unsqueeze(contract_dim))  # half to even, as jnp.round
-    return q.clamp(-127, 127).to(torch.int8), s
+    whole contracted axis), else w's own. Works over slices of whole output
+    channels of about ``_QUANT_CHUNK`` weights each, which is exact: each
+    channel's scale is its own."""
+    axis = w.dim() - 2 if contract_dim == w.dim() - 1 else w.dim() - 1  # output channels
+    s_axis = axis - (axis > contract_dim)
+    n = w.shape[axis]
+    step = max(1, _QUANT_CHUNK * n // max(w.numel(), 1))
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty(w.shape[:contract_dim] + w.shape[contract_dim + 1:], dtype=torch.float32,
+                    device=w.device)
+    for a in range(0, n, step):
+        b = min(n, a + step)
+        wf = w.narrow(axis, a, b - a).to(torch.float32, copy=True)
+        am = wf.abs().amax(dim=contract_dim) if amax is None else amax.narrow(s_axis, a, b - a)
+        sc = (am / 127.0).clamp(min=1e-12)
+        # half to even, as jnp.round; the clamped integers convert exactly
+        q.narrow(axis, a, b - a).copy_(wf.div_(sc.unsqueeze(contract_dim)).round_()
+                                       .clamp_(-127, 127))
+        s.narrow(s_axis, a, b - a).copy_(sc)
+        del wf
+    return q, s
 
 
 def quantize_matrix(w: torch.Tensor, per_row: bool = False,
@@ -702,9 +761,11 @@ def moe_config(c: LlamaConfig) -> MoeConfig:
 
 def mlp_partial(lp: Dict[str, Weight], c: LlamaConfig, hidden: torch.Tensor,
                 positions: torch.Tensor, partial: bool = False) -> torch.Tensor:
-    """Post-norm FFN without the residual: dense silu-gated (``partial``:
-    a tp rank's row-parallel partial of ``w_down``, fp32, unrounded), or the
-    sparse MoE layer (``ops/moe.py``) when the config declares experts.
+    """Post-norm FFN without the residual: dense silu-gated, or the sparse
+    MoE layer (``ops/moe.py``) when the config declares experts.
+    ``partial``: a tp rank's row-parallel partial, fp32 and unrounded (of
+    ``w_down``; of an MoE layer, the weighted combine of the rank's
+    ``w_down`` outputs).
     ``positions`` (< 0 = padding) masks padding out of MoE routing, so that
     it claims no expert capacity ahead of real tokens."""
     x = rms_norm(hidden, lp["mlp_norm"], c.rms_norm_eps)
@@ -712,8 +773,8 @@ def mlp_partial(lp: Dict[str, Weight], c: LlamaConfig, hidden: torch.Tensor,
         moe_params = {"router": lp["moe_router"], "w_gate": lp["w_gate"],
                       "w_up": lp["w_up"], "w_down": lp["w_down"]}
         out, _ = moe_mlp(moe_params, moe_config(c), x, token_valid=positions >= 0,
-                         with_aux=False)
-        return out.to(hidden.dtype)
+                         with_aux=False, partial=partial)
+        return out if partial else out.to(hidden.dtype)
     gate = torch.nn.functional.silu(matw(x, lp["w_gate"]).float()).to(x.dtype)
     return (matw_partial if partial else matw)(gate * matw(x, lp["w_up"]), lp["w_down"])
 

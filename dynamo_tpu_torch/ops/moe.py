@@ -20,8 +20,23 @@ goes through the expert-batched W8A16 kernels
 split-K kernel at decode capacities, the expert tile kernel for a prefill
 chunk's.
 
-Expert parallelism over a mesh (``moe_param_logical_axes``) waits for the
-port's ep; ``init_moe_params`` and router noise (training only) are not
+**Tensor parallelism** (the JAX ``moe_param_logical_axes``: the FFN width
+over tp): a tp rank holds every expert at F/tp, ``[X, E, F/tp]`` for
+``w_gate``/``w_up`` and ``[X, F/tp, E]`` for ``w_down``, and the router
+whole. Its hidden states are the replicated ones after ``all_reduce``, so
+every rank routes alike and fills the same slots. ``moe_mlp(...,
+partial=True)`` returns the rank's share of the output: the weighted
+combine of its ``w_down`` outputs, summed in fp32 and left unrounded, which
+``all_reduce`` sums over the ranks and rounds once. The combine is linear in
+the ``w_down`` output, so the sum of the partials is the unsharded
+combine, but for where each side rounds: a bf16 stack's ``w_down`` output
+stays fp32 on a rank (``torch.bmm`` with an fp32 output), where the
+unsharded layer rounds it to bf16 before the combine; an int8 stack rounds
+``x @ q.T`` to x's dtype on each rank over its slice of F (the W8A16
+function, as the dense ``matw_partial`` does), then scales it in fp32.
+
+Expert parallelism (the ``experts`` axis over ep) waits for the port's ep
+(ROADMAP A7); ``init_moe_params`` and router noise (training only) are not
 ported.
 """
 
@@ -53,14 +68,21 @@ class MoeConfig:
         return max(self.top_k, c)
 
 
-def _expert_mat(x: torch.Tensor, w: Weight) -> torch.Tensor:
+def _expert_mat(x: torch.Tensor, w: Weight, out_dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
     """[X, C, in] against an expert stack: a bf16 ``[X, in, out]`` tensor,
     or an int8 pair (``matw``'s contract per expert: the product rounded to
     x's dtype, times the fp32 scale, rounded again; on the card the kernel
-    that :func:`plan_int8` takes for (X, C, out, in)). [X, C, out]."""
+    that :func:`plan_int8` takes for (X, C, out, in)). [X, C, out] in
+    ``out_dtype`` (default x's): fp32 leaves a bf16 product unrounded and an
+    int8 one unrounded after its scale."""
     if isinstance(w, Int8Weight):
-        return int8_expert_matmul(x.contiguous(), w.q, w.s)
-    return torch.bmm(x, w)
+        return int8_expert_matmul(x.contiguous(), w.q, w.s, out_dtype=out_dtype)
+    if out_dtype in (None, x.dtype):
+        return torch.bmm(x, w)
+    if x.device.type == "cuda":
+        return torch.bmm(x, w, out_dtype=out_dtype)
+    return torch.bmm(x.to(out_dtype), w.to(out_dtype))
 
 
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,7 +107,7 @@ def moe_mlp(
     params: Dict[str, Weight], cfg: MoeConfig,
     x: torch.Tensor,  # [B, T, E]
     *, token_valid: Optional[torch.Tensor] = None,  # [B, T] bool; None = all valid
-    with_aux: bool = True,
+    with_aux: bool = True, partial: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Sparse MoE FFN: (output [B, T, E], aux) with aux's
     ``load_balancing_loss`` and ``dropped_fraction`` over valid tokens.
@@ -94,7 +116,8 @@ def moe_mlp(
     padding out of routing, so that it claims no expert capacity.
     ``with_aux=False`` (serving) skips the aux terms and returns ``{}``: an
     eager step would launch their kernels for nothing, where XLA drops the
-    unused outputs."""
+    unused outputs. ``partial``: a tp rank's share (stacks at F/tp), fp32
+    and unrounded (module note)."""
     b, t, e = x.shape
     n = b * t
     xe, k = cfg.num_experts, cfg.top_k
@@ -125,13 +148,15 @@ def moe_mlp(
 
     gate = torch.nn.functional.silu(_expert_mat(expert_in, params["w_gate"]).float()).to(x.dtype)
     up = _expert_mat(expert_in, params["w_up"])
-    expert_out = _expert_mat(gate * up, params["w_down"])  # [X, C, E]
+    # [X, C, E]; a tp rank's partial stays fp32
+    expert_out = _expert_mat(gate * up, params["w_down"], torch.float32 if partial else None)
 
     # combine: each token's routed slots, weighted by the router weight in
-    # x's dtype, summed in fp32 and rounded once
+    # x's dtype, summed in fp32 and rounded once (a partial: left in fp32)
     out_pad = torch.cat([expert_out.reshape(xe * cap, e), expert_out.new_zeros((1, e))])
     weight = torch.where(routed, top_p, torch.zeros_like(top_p)).to(x.dtype)
-    out = (weight.float()[..., None] * out_pad[flat].float()).sum(dim=1).to(x.dtype)
+    out = (weight.float()[..., None] * out_pad[flat].float()).sum(dim=1)
+    out = out if partial else out.to(x.dtype)
     if not with_aux:
         return out.reshape(b, t, e), {}
 

@@ -10,7 +10,9 @@ holds the ``r``-th contiguous slice of that dimension, as JAX's addressable
 shard ``r`` does on a ``tp`` mesh.
 
 This slice runs tensor parallelism alone: ``tp > 1`` with ``dp = pp = sp =
-ep = 1``. Any other shape raises (ROADMAP A7 queues pp, sp, ep).
+ep = 1``. Any other shape raises (ROADMAP A7 queues pp, sp, ep). An MoE
+model's ``experts`` axis maps to ep, so on such a mesh every rank holds
+every expert, each at its tp slice of the FFN width (``mlp`` over tp).
 
 :func:`make_mesh` takes ``cuda:0 … cuda:tp-1`` unless the caller names the
 devices. A list may name one device more than once: the ranks then share it

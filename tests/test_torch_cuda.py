@@ -951,3 +951,104 @@ def test_cross_device_reduction_and_launch():
     assert o.device == devs[1]
     torch.testing.assert_close(o.float(), paged_decode_attention_plain(*args).float(),
                                atol=2e-2, rtol=0)
+
+
+# -- the per-rank shapes of "int8-all" and the MoE family on a tp mesh -----------------
+
+from dynamo_tpu_torch.models.llama import quantize_matrix, rank_config  # noqa: E402
+from dynamo_tpu_torch.ops import moe  # noqa: E402
+
+
+def _rank_int8_shapes():
+    """(K, N) of one rank's products where "int8-all" serves a preset over
+    tp = 2, 4 or 8 (the heads split), not already a whole model's shape."""
+    whole = set(_int8_shapes())
+    shapes = set()
+    for c in LLAMA_PRESETS.values():
+        for tp in (2, 4, 8):
+            if c.num_heads % tp or c.num_kv_heads % tp or c.intermediate_size % (64 * tp):
+                continue
+            r = rank_config(c, tp)
+            E, F = c.hidden_size, r.intermediate_size
+            shapes |= {(E, r.q_dim), (E, r.kv_dim), (r.q_dim, E), (E, F), (F, E),
+                       (E, r.vocab_size)}
+    return sorted(s for s in shapes - whole if s[0] % 64 == 0 and s[1] % 16 == 0)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("M", [1, 8, 65, 1024])
+@pytest.mark.parametrize("K,N", _rank_int8_shapes())
+def test_int8_kernel_tp_rank_shapes(cuda, K, N, M, out_dtype):
+    """A tp rank's W8A16 products (a row-parallel rank's partial in fp32),
+    decode to a prefill chunk, against the plain version."""
+    q, s = _int8_weight(K, N)
+    gen = torch.Generator(device="cuda").manual_seed(M + 1)
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    _check_int8(x, q, s, out_dtype, 1e-2)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("C", [1, 4, 17, 130, 512])
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("down", [False, True], ids=["gate_up", "down"])
+def test_int8_expert_kernel_tp_rank_stacks(cuda, tp, down, C, out_dtype):
+    """mixtral-8x7b's expert stacks at F/tp (gate/up E -> F/tp, down F/tp
+    -> E, the partial in fp32) on the planned kernel against the plain
+    version."""
+    c = LLAMA_PRESETS["mixtral-8x7b"]
+    f = c.intermediate_size // tp
+    K, N = (f, c.hidden_size) if down else (c.hidden_size, f)
+    q, s = _expert_stack(K, N, 5 * K + N + tp)
+    x = torch.randn((EXPERTS, C, K), device="cuda").bfloat16()
+    _check_experts(x, q, s, out_dtype, EXPERT_BF16_TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_moe_tp_partials_on_the_card(cuda, int8):
+    """An MoE layer at F/2 on two co-located ranks: each rank's fp32
+    partial (``torch.bmm`` with an fp32 output, or the expert kernel's fp32
+    epilogue), summed, against the unsharded layer on the card, and each
+    partial against its plain version on the CPU."""
+    X, E, F = EXPERTS, 512, 1024
+    cfg = moe.MoeConfig(hidden_size=E, intermediate_size=F, num_experts=X, top_k=2,
+                        capacity_factor=2.0)
+    rank_cfg = dataclasses.replace(cfg, intermediate_size=F // 2)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    w = {"w_gate": torch.randn((X, E, F), generator=gen, device="cuda") / E ** 0.5,
+         "w_up": torch.randn((X, E, F), generator=gen, device="cuda") / E ** 0.5,
+         "w_down": torch.randn((X, F, E), generator=gen, device="cuda") / F ** 0.5}
+    router = torch.randn((E, X), generator=gen, device="cuda")
+    x = torch.randn((8, 16, E), generator=gen, device="cuda").bfloat16()
+    halves = {n: [t[:, :, r * F // 2:(r + 1) * F // 2] if n != "w_down"
+                  else t[:, r * F // 2:(r + 1) * F // 2] for r in range(2)]
+              for n, t in w.items()}
+
+    def stack(t):
+        if not int8:
+            return t.bfloat16().contiguous()
+        q, s_ = quantize_matrix(t.bfloat16())
+        return Int8Weight(q.contiguous(), s_)
+
+    whole = {"router": router, **{n: stack(t) for n, t in w.items()}}
+    if int8:  # the down stack's scales are the whole contracted axis's
+        qd = whole["w_down"]
+        ranks = [{"router": router, "w_gate": stack(halves["w_gate"][r]),
+                  "w_up": stack(halves["w_up"][r]),
+                  "w_down": Int8Weight(qd.q[:, :, r * F // 2:(r + 1) * F // 2].contiguous(),
+                                       qd.s)} for r in range(2)]
+    else:
+        ranks = [{"router": router, **{n: stack(halves[n][r]) for n in halves}}
+                 for r in range(2)]
+    want, _ = moe.moe_mlp(whole, cfg, x, with_aux=False)
+    parts = [moe.moe_mlp(p, rank_cfg, x, with_aux=False, partial=True)[0] for p in ranks]
+    torch.cuda.synchronize()
+    assert all(p.dtype == torch.float32 for p in parts)
+    got = collectives.all_reduce(parts)[0]
+    rel = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert rel <= 2e-2, rel
+    for p, part in zip(ranks, parts):
+        cpu = {n: (Int8Weight(t.q.cpu(), t.s.cpu()) if isinstance(t, Int8Weight) else t.cpu())
+               for n, t in p.items()}
+        plain, _ = moe.moe_mlp(cpu, rank_cfg, x.cpu(), with_aux=False, partial=True)
+        rel = (part.cpu() - plain).abs().max() / plain.abs().max()
+        assert rel <= 1e-2, rel

@@ -15,8 +15,10 @@ on the tiny preset in fp32 (H 4 over KVH 2: one kv head per rank):
    k = 2, and a host-tier spill and re-hit;
 5. seal crcs equal to JAX's ``page_checksums`` of the same head-ordered
    pages;
-6. the refusals: int8 KV on a mesh, tp not dividing the heads, MoE on tp,
-   ``"int8-all"`` on tp, dp/pp/sp/ep > 1, a mesh larger than its devices.
+6. the refusals: int8 KV on a mesh, tp not dividing the heads, dp/pp/sp/ep
+   > 1, a mesh larger than its devices; MoE and ``"int8-all"`` on tp, once
+   refused, build and serve (``test_torch_tp_int8.py`` and
+   ``test_torch_tp_moe.py`` hold their numbers).
 
 fp32 numbers at rtol 1e-5 and atol 1e-5 (sums split over two ranks differ
 from the unsharded order by fp32 round-off); token streams exactly equal.
@@ -442,20 +444,29 @@ def test_mesh_larger_than_devices_refused():
 
 
 def test_engine_refusals_on_mesh(weights, tmesh):
+    """What a mesh still refuses raises with its ROADMAP id (int8 KV as the
+    JAX engine refuses it); ``"int8-all"`` and the MoE family, once refused
+    (A10, A9), build and serve a stream."""
     _, tparams = weights
     with pytest.raises(ValueError, match="kv_dtype='int8'"):
         TorchServingEngine(TCFG, tparams, EngineConfig(**ENGINE, kv_dtype="int8"), mesh=tmesh)
-    with pytest.raises(ValueError, match="ROADMAP A10"):
-        TorchServingEngine(TCFG, tparams, EngineConfig(**ENGINE, quantize="int8-all"),
-                           mesh=tmesh)
     mesh4 = make_mesh(MeshConfig(tp=4), ["cpu"] * 4)  # 4 ranks over 2 kv heads
     with pytest.raises(ValueError, match="ROADMAP A11"):
         TorchServingEngine(TCFG, tparams, EngineConfig(**ENGINE), mesh=mesh4)
     with pytest.raises(ValueError, match="ROADMAP A11"):
         tl.shard_params(tparams, TCFG, mesh4)
+    with pytest.raises(ValueError, match="ROADMAP A7"):
+        make_mesh(MeshConfig(tp=2, ep=2), ["cpu"] * 4)
     moe = dataclasses.replace(tl.LLAMA_PRESETS["tiny-moe"], dtype=torch.float32)
-    with pytest.raises(ValueError, match="ROADMAP A9"):
-        TorchServingEngine(moe, tl.init_params(moe), EngineConfig(**ENGINE), mesh=tmesh)
+    for cfg, params, quantize in ((TCFG, tparams, "int8-all"), (moe, tl.init_params(moe), None)):
+        eng = TorchServingEngine(cfg, params, EngineConfig(**ENGINE, quantize=quantize),
+                                 mesh=tmesh)
+        try:
+            assert isinstance(eng.params, tl.ShardedParams)
+            assert eng.params.int8 == (quantize == "int8-all")
+            assert len(_wave(eng, Context, PROMPTS[:1], 4)[0]) == 4
+        finally:
+            eng.close()
 
 
 def test_tp_engine_watchdog_off_checksums_on(weights, tmesh):
