@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the kernels of several checkouts in turns, on one card.
 
-    python3 chip_ab.py [--kernels paged,kv8,int8,experts] ROOT [ROOT ...]
+    python3 chip_ab.py [--kernels paged,kv8,int8,experts,writekv] ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository (for example the parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -26,6 +26,14 @@ replayed from a CUDA graph.
   ``chip_smoke.py``'s phase 3 (bf16 compute, the wrapper's own split plan;
   a checkout without the int8-KV kernel cannot run it).
 
+- ``writekv``: ``ops/attention.py write_kv_to_pages`` (the paged KV
+  scatter every layer of a prefill chunk and of a decode window's flush
+  runs) at the llama3-8b serving shapes: a chunk of 8 lanes x 128 rows, a
+  quarter of them padding, and a window flush of 8 lanes x 4 rows, into a
+  bf16 pool of 1536 blocks of 16. Per call: the wall time of calls run
+  back to back (host clock, one synchronize at the end), and from
+  torch.profiler the device events launched and the device busy time.
+
 ``paged`` and ``int8`` by default. Give the roots as A B B A to see the spread between turns.
 Prints one line per run and case, then one JSON line with every number.
 """
@@ -37,12 +45,72 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 INT8_M = (1, 8, 40, 1024)
 EXPERT_C = (4, 130, 512)
+
+
+# write_kv_to_pages cases: (name, lanes, rows per lane, padding share)
+WRITE_KV_CASES = (("prefill chunk, 8 x 128, a quarter padding", 8, 128, 0.25),
+                  ("window flush, 8 x 4", 8, 4, 0.0))
+WRITE_KV_CALLS = 200
+
+
+def write_kv_runs(torch, rate: float) -> dict:
+    """``write_kv_to_pages`` of the checkout being run (:data:`WRITE_KV_CASES`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.ops.attention import write_kv_to_pages
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    blocks, bs, kvh, d = 1536, 16, 8, 128
+    k_cache = torch.zeros((blocks, bs, kvh, d), device="cuda", dtype=torch.bfloat16)
+    v_cache = torch.zeros_like(k_cache)
+    out = {}
+    for name, lanes, rows, pad in WRITE_KV_CASES:
+        mb = 128  # a 2048-token context's blocks per lane
+        tables = torch.randperm(blocks, generator=gen, device="cuda")[:lanes * mb]
+        tables = tables.reshape(lanes, mb).to(torch.int32)
+        start = torch.randint(0, 2048 - rows, (lanes, 1), generator=gen, device="cuda")
+        pos = start + torch.arange(rows, device="cuda")[None, :]
+        live = int(rows * (1 - pad))
+        pos[:, live:] = -1
+        k = torch.randn((lanes, rows, kvh, d), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((lanes, rows, kvh, d), generator=gen, device="cuda").bfloat16()
+
+        def call():
+            write_kv_to_pages(k_cache, v_cache, k, v, pos, tables)
+
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WRITE_KV_CALLS):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / WRITE_KV_CALLS
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(WRITE_KV_CALLS):
+                call()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy, end = 0.0, -1.0
+        for a, b in sorted((e.time_range.start, e.time_range.end) for e in evs):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        # bytes: the new rows read, the written rows written (K and V), the
+        # positions and the tables read
+        nbytes = 2 * 2 * lanes * rows * kvh * d + 2 * 2 * lanes * live * kvh * d \
+            + pos.numel() * 8 + tables.numel() * 4
+        out[f"writekv {name}"] = {"ms": wall_ms, "graph_ms": None,
+                                  "bound_ms": nbytes / rate * 1e3,
+                                  "device_events": len(evs) / WRITE_KV_CALLS,
+                                  "device_ms": busy / 1e3 / WRITE_KV_CALLS}
+    return out
 
 
 def worker(root: str, kernels: str) -> dict:
@@ -114,6 +182,8 @@ def worker(root: str, kernels: str) -> dict:
                 "bound_ms": cs.int8_kv_bound(S, H, KVH, D, bs, lens, rate)[0]}
             del case8, sets, fns
             torch.cuda.empty_cache()
+    if "writekv" in kernels:
+        out["regimes"].update(write_kv_runs(torch, rate))
     if "paged" not in kernels:
         return out
     for ri, (name, S, H, KVH, D, bs, max_len) in enumerate(cs.REGIMES):
@@ -139,7 +209,8 @@ def main(argv) -> int:
     kernels = "paged,int8"
     if len(argv) >= 2 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
-    if not argv or not set(kernels.split(",")) <= {"paged", "kv8", "int8", "experts"}:
+    if not argv or not set(kernels.split(",")) <= {"paged", "kv8", "int8", "experts",
+                                                      "writekv"}:
         print(__doc__, file=sys.stderr)
         return 2
     runs = []
@@ -156,6 +227,12 @@ def main(argv) -> int:
         run = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append(run)
         for name, r in run["regimes"].items():
+            if r["graph_ms"] is None:
+                print(f"{root}: [{name}] wall {r['ms']:.4f} ms per call back to back, "
+                      f"{r['device_events']:.1f} device events and {r['device_ms']:.4f} ms "
+                      f"device busy per call, bound {r['bound_ms']:.4f} ms ({run['card']})",
+                      flush=True)
+                continue
             print(f"{root}: [{name}] kernel {r['ms']:.4f} ms, graph-replayed "
                   f"{r['graph_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({run['card']})",
                   flush=True)

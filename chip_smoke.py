@@ -2,9 +2,9 @@
 """Proof that the PyTorch/CUDA port runs its main path on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one CUDA
-card, ``nvcc`` and nothing of JAX. Phases, in order (16 and 17 run right
-after 13, before mixtral takes the card; 19 and 20 after 18, each on a card
-that every earlier engine has left); any failure exits non-zero:
+card, ``nvcc`` and nothing of JAX. Phases, in order (16, 21 and 17 run
+right after 13, before mixtral takes the card; 19 and 20 after 18, each on
+a card that every earlier engine has left); any failure exits non-zero:
 
 1. device: prints the card's name and power limit (nvidia-smi);
 2. build: compiles every kernel of the path from ``dynamo_tpu_torch/csrc``,
@@ -188,7 +188,30 @@ that every earlier engine has left); any failure exits non-zero:
     ratio and the routing choices that differ printed, not held; forced
     onto the tp run's stream block by block (:func:`mixtral_tp_parity`),
     every block's output and the logits held at 2e-2;
-21. prints the kernels' JSON line and, last, the device JSON line.
+21. observability (after 16, phase 7's bf16 weights kept): the dispatch
+    gate (``csrc/dispatch_gate.cu``, the profiling plane's device timer)
+    held against its plain version and timed; then fresh engines on the
+    weights (llama3-8b, 32 layers, 8 slots, context 2048) behind
+    ``cli.run``'s HTTP server: 8 streams of 32 tokens, each with its own
+    ``traceparent``, with the default planes and ``DYN_TPU_PROFILE=1``;
+    ``/live``, ``/metrics`` (8 successes, 4 per endpoint, TTFT count 8,
+    inflight 0, the engine's phase histograms), ``/debug/traces`` (8
+    traces under the sent ids, ``http.edge`` -> ``engine.request`` ->
+    queue-wait, prefill and decode of 32 tokens), ``/debug/slo`` (the TTFT
+    and ITL objectives with their events) and ``/debug/profile?trace=1``
+    (Chrome-trace JSON; ``dispatches_total`` equal to the engine's chunk
+    and decode dispatches) held; with every dispatch timed
+    (``DYN_TPU_PROFILE_SAMPLE=1``), the engine's decode device time per
+    step and device idle fraction held against ``torch.profiler``'s over
+    the same decode dispatches, at least 4 (0.7-2x, within 0.10; the gaps
+    between kernels printed as a share of the gated segments); TTFT p50
+    and tok/s with the default planes against ``DYN_TPU_TRACE=0
+    DYN_TPU_SLO=0`` and with ``DYN_TPU_PROFILE=1`` against profiling off
+    (printed, not held); an engine with int8 weights, int8 KV, the host
+    tier and ``spec_k`` 4, every dispatch timed over three waves: no gate
+    timeout, timed chunk and verify dispatches, drafts and host-tier hits
+    held;
+22. prints the kernels' JSON line and, last, the device JSON line.
 Each phase prints its seconds.
 """
 
@@ -318,13 +341,17 @@ def mixtral_tokenizer_json(vocab_size: int = MIXTRAL["vocab"]) -> dict:
     }
 
 
-def write_model_dir(path: str, num_layers: int = LLAMA3_8B["layers"], arch=LLAMA3_8B) -> str:
+def write_model_dir(path: str, num_layers: int = LLAMA3_8B["layers"], arch=LLAMA3_8B,
+                    text_vocab: bool = False) -> str:
     """config.json at ``arch``'s widths (llama3-8b or mixtral-8x7b, context
-    2048), a tokenizer (the byte-level one; mixtral's shape for mixtral) and
-    a chat template; no weight files (random weights)."""
+    2048), a tokenizer (the byte-level one; mixtral's shape for mixtral, or
+    with ``text_vocab``, where every id of the model's vocabulary past the
+    byte tokens decodes to text) and a chat template; no weight files
+    (random weights)."""
     c = dict(arch, layers=num_layers)
     moe = "experts" in c
-    bos, eos = (1, 2) if moe else (256, 257)
+    sp = moe or text_vocab  # the SentencePiece-shaped tokenizer
+    bos, eos = (1, 2) if sp else (256, 257)
     config = {
         "architectures": ["MixtralForCausalLM" if moe else "LlamaForCausalLM"],
         "model_type": c["model_type"],
@@ -341,7 +368,7 @@ def write_model_dir(path: str, num_layers: int = LLAMA3_8B["layers"], arch=LLAMA
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
     with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
-        spec = mixtral_tokenizer_json(c["vocab"]) if moe else byte_level_tokenizer_json()
+        spec = mixtral_tokenizer_json(c["vocab"]) if sp else byte_level_tokenizer_json()
         json.dump(spec, f, ensure_ascii=False)
     with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
         json.dump({"bos_token": "<s>", "eos_token": "</s>", "chat_template": CHAT_TEMPLATE,
@@ -396,11 +423,11 @@ def _kernel_label(ln: str) -> str:
 
 
 def phase_build() -> None:
-    from dynamo_tpu_torch.ops import int8_matmul, paged_attention
+    from dynamo_tpu_torch.ops import dispatch_gate, int8_matmul, paged_attention
     from dynamo_tpu_torch.ops.build import build_all
 
     t0 = time.perf_counter()
-    infos = build_all([paged_attention.LIBRARY, int8_matmul.LIBRARY])
+    infos = build_all([paged_attention.LIBRARY, int8_matmul.LIBRARY, dispatch_gate.LIBRARY])
     print(f"build: {len(infos)} sources, one nvcc each in parallel, in "
           f"{time.perf_counter() - t0:.2f} s")
     for src, info in infos.items():
@@ -1441,10 +1468,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _stream(port: int, path: str, body: dict, t_sent: list, i: int) -> dict:
+def _stream(port: int, path: str, body: dict, t_sent: list, i: int,
+            headers: dict = None) -> dict:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t_sent[i] = time.perf_counter()
-    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    conn.request("POST", path, json.dumps(body),
+                 dict({"Content-Type": "application/json"}, **(headers or {})))
     resp = conn.getresponse()
     out = {"status": resp.status, "finish": None, "usage": None, "text": "", "end": None}
     if resp.status != 200:
@@ -1501,6 +1530,106 @@ TRACE_KERNELS = {"paged_decode_attention": ("paged_decode_split_kernel",
                                         "w8f32_kernel")}
 
 
+# the dispatch gate's kernel (csrc/dispatch_gate.cu): a wait, not work
+GATE_KERNEL = "dispatch_gate_wait_kernel"
+# inside a gated segment the card runs the kernels back to back; a longer gap
+# ends the segment (what follows was enqueued after the timer's end)
+SEGMENT_GAP_US = 20.0
+# within a dispatch the next gate is queued before the segment ahead of it
+# ends; between dispatches the card waits for the host to finish one
+# dispatch and build the next
+DISPATCH_GAP_US = 200.0
+
+
+def dispatch_device_times(trace_path: str, calls: list, gates: tuple) -> dict:
+    """Each timed decode dispatch of ``calls`` (:func:`profile_decode`) as
+    the card ran it, read from the torch.profiler trace on the device side
+    alone. Each gate opens a segment: the chain of device events that
+    starts as the gate ends and runs back to back (gaps under
+    SEGMENT_GAP_US) until the next gate, what the engine's event pair
+    around the segment times. A gate that starts more than DISPATCH_GAP_US
+    after the segment before it ended starts a dispatch (every dispatch
+    boundary is one, and a host stall may add some). The timed dispatches
+    launched while the profiler ran (``gates``: the process's gate count
+    at its start and stop; a call's gates are launches ``g0 - 1`` to
+    ``g1 - 1``) take the trace's dispatches in order, and a decode call
+    counts when it got all of its gates. Returns, per such call (under
+    "dispatches"): its number, its
+    gates, the sum of its segments (``span_us``: what the engine's device
+    time measures), the union of their events (``busy_us``: the profiler's
+    device time) and the sum of their durations, and its first gate's
+    start; the numbers of every timed dispatch of ``calls`` (under
+    "timed_calls"); the gates the trace holds, the gates launched while it
+    ran, and the dispatches each side counts; and the device's idle share
+    from the first pair's first gate to the last one's (one minus the union
+    of every device event but the gates' over that interval), the interval
+    over which the engine's ``device_idle_frac`` of the same dispatches
+    runs."""
+    import bisect
+
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    dev = sorted((e for e in events if e.get("ph") == "X" and "dur" in e
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                 key=lambda e: e["ts"])
+    gate_evs = [e for e in dev if GATE_KERNEL in e["name"]]
+    work = [e for e in dev if GATE_KERNEL not in e["name"]]
+    starts = [e["ts"] for e in work]
+    # each gate's segment: (start, end, busy, sum of durations)
+    segs = []
+    for j, g in enumerate(gate_evs):
+        a = g["ts"] + g["dur"]
+        bound = gate_evs[j + 1]["ts"] if j + 1 < len(gate_evs) else float("inf")
+        end, busy, ksum = a, 0.0, 0.0
+        i = bisect.bisect_left(starts, a - 1.0)
+        while i < len(work) and work[i]["ts"] < bound and work[i]["ts"] <= end + SEGMENT_GAP_US:
+            e = work[i]
+            busy += max(0.0, e["ts"] + e["dur"] - max(e["ts"], end))
+            ksum += e["dur"]
+            end = max(end, e["ts"] + e["dur"])
+            i += 1
+        segs.append((a, end, busy, ksum))
+    groups = []  # runs of gate indices, one per dispatch
+    for j, g in enumerate(gate_evs):
+        if j == 0 or g["ts"] - segs[j - 1][1] > DISPATCH_GAP_US:
+            groups.append([])
+        groups[-1].append(j)
+    g_start, g_end = gates
+    # the timed dispatches launched while the profiler ran, in order: each
+    # takes the trace's next dispatches while their gates fit in its count
+    # (a host stall inside a dispatch can split it; a gate the trace lost
+    # leaves it short)
+    window = [c for c in calls if c["timed"] and c["g0"] - 1 >= g_start and c["g1"] <= g_end]
+    out, k = [], 0
+    for call in window:
+        want, got = call["g1"] - call["g0"] + 1, []
+        while k < len(groups) and len(got) + len(groups[k]) <= want:
+            got += groups[k]
+            k += 1
+        if call["kind"] != "decode" or len(got) != want:
+            continue
+        parts = [segs[j] for j in got]
+        out.append({"n": call["n"], "gates": want,
+                    "span_us": sum(p[1] - p[0] for p in parts),
+                    "busy_us": sum(p[2] for p in parts),
+                    "kernel_sum_us": sum(p[3] for p in parts),
+                    "t0": gate_evs[got[0]]["ts"]})
+    idle = None
+    if len(out) >= 2:
+        t0, t1 = out[0]["t0"], out[-1]["t0"]
+        busy, end = 0.0, t0
+        for e in work:
+            a, b = max(e["ts"], t0), min(e["ts"] + e["dur"], t1)
+            if a < b and b > end:
+                busy += b - max(a, end)
+                end = b
+        idle = max(0.0, 1.0 - busy / (t1 - t0))
+    return {"dispatches": out, "idle_share": idle, "gates_in_trace": len(gate_evs),
+            "gates_launched": g_end - g_start, "trace_dispatches": [len(g) for g in groups],
+            "window_calls": len(window),
+            "timed_calls": [c["n"] for c in calls if c["timed"] and c["kind"] == "decode"]}
+
+
 def expert_event(e) -> bool:
     """An int8 kernel event launched by int8_expert_matmul: its grid's z is
     the expert axis (8 at mixtral's shapes), 1 for every llama-family
@@ -1524,14 +1653,31 @@ def warm_profiler() -> float:
     return time.perf_counter() - t0
 
 
-def profile_decode(port: int, bodies: list, core) -> dict:
-    """torch.profiler (CPU and CUDA) over PROFILE_DISPATCHES steady decode
+def profile_decode(port: int, bodies: list, core, quiesce=nullcontext,
+                   dispatches: int = PROFILE_DISPATCHES, trace_hook=None) -> dict:
+    """torch.profiler (CPU and CUDA) over ``dispatches`` steady decode
     dispatches of a second wave of the same requests, PROFILE_TOKENS long.
     Prints the top device kernels, each port kernel's share of device time,
     the paged decode kernels' device events per wrapper call in the window,
     and the device's idle share of the window (host clock); prints "not
-    measured" when the profiler records no device activity."""
+    measured" when the profiler records no device activity. The dispatch
+    gate's spins (the profiling plane's device timer holding the stream
+    for the host) are waits, not work: they count neither as kernels nor
+    as busy time; ``quiesce()`` is entered around the profiler's start and
+    stop (phase 21: no dispatch is gated then).
+    ``trace_hook(trace_path, calls, gates)``, when given, reads the trace
+    before it is deleted and its result is returned under "trace":
+    ``calls`` holds, per chunk and decode dispatch of the wave, its number,
+    its kind, whether the device timer timed it, and the count of dispatch
+    gates launched so far at its start and at its end (the process's
+    count); ``gates`` is
+    that count when the profiler started and when it stopped, each read
+    with the card drained, so that the trace holds exactly the gates
+    launched in between."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from dynamo_tpu_torch.ops.dispatch_gate import dispatch_gate_wait
 
     from dynamo_tpu_torch.ops.int8_matmul import int8_expert_matmul, int8_weight_matmul
     from dynamo_tpu_torch.ops.paged_attention import (
@@ -1558,40 +1704,66 @@ def profile_decode(port: int, bodies: list, core) -> dict:
     # right before the dispatch launches anything (every launch before it is
     # the earlier dispatches'): per-step counts between two such marks are
     # exact, where a read from this thread may land in mid-dispatch
-    marks, window = [], [False]
-    build = core._decode
+    marks, window, dispatch_calls = [], [False], []
+    # one wrapper per variant: the engine knows a step function by it
+    wrapped = {}
 
-    def marked(*key):
-        fn = build(*key)
+    def wrap(kind, build):
+        def marked(*key):
+            if (kind, key) not in wrapped:
+                fn = build(*key)
 
-        def dispatch(*a, **kw):
-            if window[0]:
-                marks.append((core.decode_steps_total, counts()))
-            return fn(*a, **kw)
-        return dispatch
+                def dispatch(*a, **kw):
+                    if window[0] and kind == "decode":
+                        marks.append((core.decode_steps_total, counts()))
+                    g0 = dispatch_gate_wait.launches
+                    out = fn(*a, **kw)
+                    # the device timer passes layer_hook only to a dispatch
+                    # it times, and has launched its first gate before
+                    dispatch_calls.append({"n": len(dispatch_calls), "kind": kind,
+                                           "timed": "layer_hook" in kw, "g0": g0,
+                                           "g1": dispatch_gate_wait.launches})
+                    return out
+                wrapped[(kind, key)] = dispatch
+            return wrapped[(kind, key)]
+        return marked
 
-    core._decode = marked
+    core._decode = wrap("decode", core._decode)
+    core._chunk = wrap("chunk", core._chunk)
     d0 = core.decode_dispatches
     for t in threads:
         t.start()
     try:
         _wait_until(lambda: core.decode_dispatches >= d0 + 2, threads)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            window[0] = True
-            d1, s1 = core.decode_dispatches, core.decode_steps_total
-            c1, i1 = paged_decode_attention.launches, int8_weight_matmul.launches
-            x1, q1 = int8_expert_matmul.launches, paged_decode_attention_int8.launches
-            _wait_until(lambda: core.decode_dispatches >= d1 + PROFILE_DISPATCHES, threads)
-            window[0] = False
-            d2, s2 = core.decode_dispatches, core.decode_steps_total
-            calls = paged_decode_attention.launches - c1
-            kv8_calls = paged_decode_attention_int8.launches - q1
-            int8_calls = int8_weight_matmul.launches - i1
-            expert_calls = int8_expert_matmul.launches - x1
-            window_us = (time.perf_counter() - t0) * 1e6
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        gates = [0, 0]
+        with quiesce():
+            if trace_hook is not None:
+                torch.cuda.synchronize()
+            prof.start()
+            gates[0] = dispatch_gate_wait.launches
+        t0 = time.perf_counter()
+        w0 = time.time()
+        window[0] = True
+        d1, s1 = core.decode_dispatches, core.decode_steps_total
+        c1, i1 = paged_decode_attention.launches, int8_weight_matmul.launches
+        x1, q1 = int8_expert_matmul.launches, paged_decode_attention_int8.launches
+        _wait_until(lambda: core.decode_dispatches >= d1 + dispatches, threads)
+        window[0] = False
+        d2, s2 = core.decode_dispatches, core.decode_steps_total
+        calls = paged_decode_attention.launches - c1
+        kv8_calls = paged_decode_attention_int8.launches - q1
+        int8_calls = int8_weight_matmul.launches - i1
+        expert_calls = int8_expert_matmul.launches - x1
+        window_us = (time.perf_counter() - t0) * 1e6
+        w1 = time.time()
+        with quiesce():
+            if trace_hook is not None:
+                torch.cuda.synchronize()
+            gates[1] = dispatch_gate_wait.launches
+            prof.stop()
     finally:
-        del core._decode  # the engine's own method again
+        del core._decode, core._chunk  # the engine's own methods again
     for t in threads:
         t.join(600)
     for i, r in enumerate(results):
@@ -1610,10 +1782,15 @@ def profile_decode(port: int, bodies: list, core) -> dict:
         path = os.path.join(tmp, "decode_trace.json")
         prof.export_chrome_trace(path)
         kernels, dev = device_intervals_us(path)
+        traced = trace_hook(path, dispatch_calls, gates) if trace_hook is not None else None
+    gates = [e for e in dev if GATE_KERNEL in e["name"]]
+    kernels = [e for e in kernels if GATE_KERNEL not in e["name"]]
+    dev = [e for e in dev if GATE_KERNEL not in e["name"]]
     if not kernels or steps == 0:
         print(f"profile: device time not measured (the profiler recorded {len(kernels)} "
               f"kernels over {steps} decode steps)")
-        return {"measured": False, "per_step": per_step}
+        return {"measured": False, "per_step": per_step, "window_epoch": (w0, w1),
+                "trace": traced}
     busy, end = 0.0, -1.0
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
         if b > end:
@@ -1657,9 +1834,10 @@ def profile_decode(port: int, bodies: list, core) -> dict:
             "expert_matmul_share": shares.get("int8_expert_matmul"),
             "device_ms_per_step": busy / steps / 1e3,
             "kernels_per_step": len(kernels) / steps, "wrapper_calls": calls,
+            "window_epoch": (w0, w1), "gate_events": len(gates),
             "int8_kv_wrapper_calls": kv8_calls,
             "int8_wrapper_calls": int8_calls, "expert_wrapper_calls": expert_calls,
-            "device_events": events, "per_step": per_step}
+            "device_events": events, "per_step": per_step, "trace": traced}
 
 
 @contextmanager
@@ -1710,15 +1888,17 @@ def request_bodies(name: str, n: int, max_tokens: int) -> list:
     return bodies
 
 
-def run_streams(port: int, bodies: list, max_tokens: int):
-    """Send every request at once; (results, send times, wall seconds).
-    Fails unless each stream ends with a finish reason, [DONE] and
-    ``max_tokens`` completion tokens."""
+def run_streams(port: int, bodies: list, max_tokens: int, headers: list = None):
+    """Send every request at once (request i with ``headers[i]``, when
+    given); (results, send times, wall seconds). Fails unless each stream
+    ends with a finish reason, [DONE] and ``max_tokens`` completion
+    tokens."""
     results = [None] * len(bodies)
     t_sent = [0.0] * len(bodies)
 
     def run_one(i):
-        results[i] = _stream(port, bodies[i][0], bodies[i][1], t_sent, i)
+        results[i] = _stream(port, bodies[i][0], bodies[i][1], t_sent, i,
+                             headers[i] if headers else None)
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=run_one, args=(i,)) for i in range(len(bodies))]
@@ -1737,6 +1917,15 @@ def run_streams(port: int, bodies: list, max_tokens: int):
         if not r["usage"] or r["usage"]["completion_tokens"] != max_tokens:
             fail(f"request {i}: usage {r['usage']}, expected {max_tokens} completion tokens")
     return results, t_sent, wall
+
+
+def wave_figures(results, t_sent, ttfts) -> tuple:
+    """(TTFT p50 ms, decode tok/s) of one wave of N_REQUESTS streams of
+    MAX_TOKENS: TTFT from engine enqueue to first token, tok/s over the
+    lanes from the first token to the last stream's end."""
+    first = min(t_sent) + min(ttfts)
+    tok_s = N_REQUESTS * (MAX_TOKENS - 1) / (max(r["end"] for r in results) - first)
+    return statistics.median(ttfts) * 1e3, tok_s
 
 
 def reset_all_counts() -> None:
@@ -1796,9 +1985,7 @@ def serve_and_count(card: str, label: str, core, chat, comp, name, flags) -> dic
     for k, n in kernel_launches.items():
         if n < L * steps:
             fail(f"{k} launched {n} times on the main path, expected >= {L} x {steps}")
-    first = min(t_sent) + min(ttfts)
-    decode_tok_s = N_REQUESTS * (MAX_TOKENS - 1) / (max(r["end"] for r in results) - first)
-    ttft_p50 = statistics.median(ttfts) * 1e3
+    ttft_p50, decode_tok_s = wave_figures(results, t_sent, ttfts)
     print(f"{label}: TTFT p50 {ttft_p50:.1f} ms (engine enqueue -> first token), decode "
           f"{decode_tok_s:.1f} tok/s over {N_REQUESTS} lanes, wall {wall:.2f} s, on {card}")
     return {"launches": launches, "kernel_launches": kernel_launches,
@@ -4274,6 +4461,466 @@ def mixtral_tp_parity(torch, cfg, handed: list) -> dict:
     return res
 
 
+# -- phase 21: the observability planes --------------------------------------------
+
+# the traceparent of request i: its trace id and the client's span id
+OBS_TRACEPARENTS = [f"00-{i + 1:02x}{'ab' * 15}-{'cd' * 7}{i + 1:02x}-01" for i in range(N_REQUESTS)]
+# what the kept llama3-8b weights serve in this phase: bf16, native KV pages,
+# no host tier, no speculation
+OBS_ENGINE = dict(quantize=None, kv_dtype="bf16", host_cache_blocks=0, num_kv_blocks=None,
+                  spec_k=0)
+
+
+def _get(port: int, path: str) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = resp.read().decode()
+    conn.close()
+    return resp.status, body
+
+
+def _metric(text: str, name: str, **labels):
+    """The sum of the samples of ``name`` whose labels include ``labels``
+    in a Prometheus text exposition; None when there is none."""
+    total = None
+    for ln in text.splitlines():
+        if ln.startswith("#"):
+            continue
+        head, _, value = ln.rpartition(" ")
+        metric, _, lab = head.partition("{")
+        if metric != name:
+            continue
+        got = dict(re.findall(r'(\w+)="([^"]*)"', lab))
+        if all(got.get(k) == v for k, v in labels.items()):
+            total = (total or 0.0) + float(value)
+    return total
+
+
+@contextmanager
+def planes_env(**env):
+    """The DYN_TPU_* knobs given (None: unset) and the process-global
+    tracing, telemetry and profiling state rebuilt from them; both restored
+    after."""
+    from dynamo_tpu_torch.runtime import profiling, telemetry, tracing
+
+    old = {k: os.environ.get(k) for k in env}
+
+    def apply(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tracing.configure()
+        telemetry.configure()
+        profiling.reset_for_tests()
+
+    apply(env)
+    try:
+        yield
+    finally:
+        apply(old)
+
+
+@contextmanager
+def obs_server(weights: dict, flags, name: str):
+    """A fresh engine over the kept weights with the planes the environment
+    arms, its pipelines and ``cli.run``'s HTTP server; yields (engine,
+    port) and closes the engine after."""
+    from dynamo_tpu_torch.cli.run import make_pipelines
+
+    core = fresh_engine(weights["params"], weights["cfg"], weights["ecfg"], **OBS_ENGINE)
+    flags.port = _free_port()
+    chat, comp = make_pipelines(core_card(flags), core)
+    try:
+        with http_server(chat, comp, name, flags) as port:
+            yield core, port
+    finally:
+        close_engine(core)
+
+
+def obs_wave(core, port: int, bodies: list, headers=None) -> dict:
+    n0 = len(core.recent_ttft_s)
+    results, t_sent, wall = run_streams(port, bodies, MAX_TOKENS, headers)
+    ttft, tok_s = wave_figures(results, t_sent, list(core.recent_ttft_s)[n0:])
+    return {"ttft_p50_ms": ttft, "decode_tok_s": tok_s, "wall_s": wall}
+
+
+def check_routes(port: int, name: str, dispatches: int) -> dict:
+    """Phase 21's first check, on the server of the wave just answered."""
+    from dynamo_tpu_torch.runtime import telemetry
+
+    st, live = _get(port, "/live")
+    if st != 200 or json.loads(live) != {"live": True}:
+        fail(f"observability: /live answered {st} {live[:200]}")
+    st, text = _get(port, "/metrics")
+    req = "dynamo_frontend_requests_total"
+    got = {
+        "success": _metric(text, req, model=name, status="success"),
+        "chat": _metric(text, req, model=name, endpoint="chat/completions", status="success"),
+        "completions": _metric(text, req, model=name, endpoint="completions",
+                               status="success"),
+        "ttft_count": _metric(text, "dynamo_frontend_time_to_first_token_seconds_count",
+                              model=name),
+        "inflight": _metric(text, "dynamo_frontend_inflight_requests", model=name),
+        **{f"phase_{p}": _metric(text, "dynamo_phase_latency_seconds_count", phase=p)
+           for p in ("queue_wait", "prefill", "decode", "ttft", "inter_token")},
+    }
+    half = N_REQUESTS // 2
+    want = {"success": N_REQUESTS, "chat": half, "completions": half,
+            "ttft_count": N_REQUESTS, "inflight": 0, "phase_queue_wait": N_REQUESTS,
+            "phase_prefill": N_REQUESTS, "phase_decode": N_REQUESTS}
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if st != 200 or bad or not got["phase_inter_token"]:
+        fail(f"observability: /metrics {st}: (got, want) {bad}, inter_token {got['phase_inter_token']}")
+    st, body = _get(port, "/debug/traces")
+    traces = {t["trace_id"]: t for t in map(json.loads, body.splitlines())} if st == 200 else {}
+    for tp in OBS_TRACEPARENTS:
+        _, tid, parent, _ = tp.split("-")
+        spans = {s["name"]: s for s in traces.get(tid, {}).get("spans", [])}
+        edge, req_s = spans.get("http.edge"), spans.get("engine.request")
+        ok = (edge is not None and req_s is not None and edge.get("parent_id") == parent
+              and req_s.get("parent_id") == edge["span_id"]
+              and all(spans.get(f"engine.{p}", {}).get("parent_id") == req_s["span_id"]
+                      for p in ("queue_wait", "prefill", "decode"))
+              and spans["engine.decode"].get("attributes", {}).get("tokens") == MAX_TOKENS)
+        if not ok:
+            fail(f"observability: trace {tid} in /debug/traces ({st}) is not http.edge -> "
+                 f"engine.request -> queue_wait/prefill/decode with {MAX_TOKENS} tokens: "
+                 f"{json.dumps(traces.get(tid))[:600]}")
+    if len(traces) != N_REQUESTS:
+        fail(f"observability: /debug/traces holds {len(traces)} traces, expected {N_REQUESTS}")
+    st, body = _get(port, "/debug/slo")
+    slo = json.loads(body) if st == 200 else {}
+    rows = {(r["slo"], r["labels"].get("model")) for r in slo.get("slo", [])}
+    # events in the fast window of the edge's latency series
+    fast = f"{telemetry.policy().fast_window:g}s"
+    series = slo.get("series", {})
+    ttft_n = series.get(f"ttft_ms{{model={name}}}", {}).get(fast, {}).get("count", 0)
+    itl_n = series.get(f"itl_ms{{model={name}}}", {}).get(fast, {}).get("count", 0)
+    if not {("ttft_p95", name), ("itl_p95", name)} <= rows or ttft_n != N_REQUESTS or itl_n < 1:
+        fail(f"observability: /debug/slo {st}: objectives {sorted(map(str, rows))}, "
+             f"ttft events {ttft_n}, itl events {itl_n}")
+    st, body = _get(port, "/debug/profile?trace=1")
+    chrome = json.loads(body) if st == 200 else {}
+    slices = [e for e in chrome.get("traceEvents", []) if e.get("ph") == "X"]
+    st2, body = _get(port, "/debug/profile")
+    summary = json.loads(body).get("summary", {}) if st2 == 200 else {}
+    if not slices or summary.get("dispatches_total") != dispatches:
+        fail(f"observability: /debug/profile?trace=1 {st} with {len(slices)} slices; summary "
+             f"dispatches_total {summary.get('dispatches_total')} against the engine's "
+             f"{dispatches} chunk and decode dispatches")
+    return {"metrics": got, "traces": len(traces), "slo_rows": len(rows), "ttft_events": ttft_n,
+            "itl_events": itl_n, "chrome_slices": len(slices), "summary": summary}
+
+
+GATE_CALLS = 500  # gate launches per timing, each already released
+
+
+def gate_kernel_check(card: str) -> dict:
+    """The dispatch gate against its plain version (the host's verdict on
+    the same flags and ticket): released, work behind it runs and equals
+    the same work ungated; not released, it holds (and its plain version
+    says closed) until the ticket is written. Times a released gate on the
+    card (launches queued behind a sleep kernel, so the card, not the
+    host, is timed) and the plain version on the host."""
+    import torch
+
+    from dynamo_tpu_torch.ops.dispatch_gate import dispatch_gate_wait, dispatch_gate_wait_plain
+
+    dev = torch.device("cuda")
+    flags = torch.zeros(2, dtype=torch.int32, pin_memory=True)
+    counter = flags.numpy().view("uint32")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    a = torch.randn((1024, 4096), generator=gen, device=dev).bfloat16()
+    w = torch.randn((4096, 4096), generator=gen, device=dev).bfloat16()
+    want = a @ w
+    torch.cuda.synchronize()
+    if dispatch_gate_wait_plain(flags, 1):
+        fail("dispatch gate: the plain version calls an unwritten ticket released")
+    dispatch_gate_wait(flags, 1, dev)
+    got = a @ w
+    done = torch.cuda.Event()
+    done.record()
+    time.sleep(0.05)
+    held = not done.query()
+    counter[0] = 1
+    done.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not held or not dispatch_gate_wait_plain(flags, 1) or err != 0.0 or flags[1].item():
+        fail(f"dispatch gate: held {held}, max |gated - ungated| {err}, timeout flag "
+             f"{flags[1].item()}")
+    torch.cuda._sleep(100_000_000)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(GATE_CALLS):
+        dispatch_gate_wait(flags, 1, dev)
+    t1.record()
+    t1.synchronize()
+    ms = t0.elapsed_time(t1) / GATE_CALLS
+    h0 = time.perf_counter()
+    for _ in range(GATE_CALLS):
+        dispatch_gate_wait_plain(flags, 1)
+    plain_ms = (time.perf_counter() - h0) * 1e3 / GATE_CALLS
+    # the bytes rule's bound (one 4-byte read at the HBM rate) means nothing
+    # for a kernel that polls the host's memory; what binds it is one launch
+    # and one read over PCIe: the first is timed here as a one-element fill
+    # run back to back the same way
+    bound_ms = 4 / hbm_rate(card) * 1e3
+    one = torch.zeros(1, device=dev)
+    one.fill_(1.0)  # loaded before it is queued behind the sleep
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0.record()
+    for _ in range(GATE_CALLS):
+        one.fill_(1.0)
+    t1.record()
+    t1.synchronize()
+    floor_ms = t0.elapsed_time(t1) / GATE_CALLS
+    print(f"dispatch gate: holds the stream until released (work behind it equal to the "
+          f"ungated product, max |d| {err}); a released gate {ms * 1e3:.2f} us on the card "
+          f"against a one-element fill's {floor_ms * 1e3:.2f} us run the same way (the launch "
+          f"floor), its plain version {plain_ms * 1e3:.2f} us on the host; the bytes rule's "
+          f"bound {bound_ms:.2e} ms (one 4-byte read at the HBM rate: not what binds a poll "
+          f"of host memory)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "launch_floor_ms": floor_ms}
+
+
+def phase_observability(card: str, weights: dict, flags, name: str) -> dict:
+    """The JAX serving path's observability planes on the port, through
+    ``cli.run``'s HTTP pipeline over fresh engines on the kept llama3-8b
+    bf16 weights (32 layers, 8 slots, context 2048): (1) with the default
+    planes and DYN_TPU_PROFILE=1, 8 streams each carrying its own
+    traceparent, then the five routes held (:func:`check_routes`); (2) with
+    every dispatch timed (DYN_TPU_PROFILE_SAMPLE=1), the engine's decode
+    device time per step and its device idle fraction held against the
+    profiler's over the same decode dispatches (:func:`timeline_check`:
+    0.7-2x, within 0.10); (3) TTFT p50 and decode tok/s with the default
+    planes against tracing and SLO telemetry off, and with
+    DYN_TPU_PROFILE=1 against profiling off: printed, not held; (4) the
+    timed path on int8 weights, int8 KV, the host tier and speculation
+    (:func:`timed_configs_check`). The engines serve a card
+    whose tokenizer decodes every id to text, so that every stream has
+    content chunks for the edge's TTFT and ITL."""
+    gate = gate_kernel_check(card)
+    # the edge's TTFT and ITL need content chunks: a card whose tokenizer
+    # decodes every id of the random model's vocabulary to text (the
+    # byte-level one decodes ids past 257 to nothing)
+    tmp = tempfile.TemporaryDirectory()
+    served_path, flags.model_path = flags.model_path, write_model_dir(
+        os.path.join(tmp.name, "llama3-8b-text-vocab"), text_vocab=True)
+    try:
+        return observability_checks(card, weights, flags, name, gate)
+    finally:
+        flags.model_path = served_path
+        tmp.cleanup()
+
+
+def observability_checks(card: str, weights: dict, flags, name: str, gate: dict) -> dict:
+    """Phase 21's four checks (:func:`phase_observability`)."""
+    from dynamo_tpu_torch.ops import dispatch_gate
+    from dynamo_tpu_torch.ops.dispatch_gate import dispatch_gate_wait
+    from dynamo_tpu_torch.runtime import profiling
+
+    bodies = request_bodies(name, N_REQUESTS, MAX_TOKENS)
+    headers = [{"traceparent": tp} for tp in OBS_TRACEPARENTS]
+    planes = {"default planes": {"DYN_TPU_PROFILE": None},
+              "trace and slo off": {"DYN_TPU_PROFILE": None, "DYN_TPU_TRACE": "0",
+                                    "DYN_TPU_SLO": "0"},
+              "profile on": {"DYN_TPU_PROFILE": "1", "DYN_TPU_PROFILE_SAMPLE": None}}
+    # check 3's waves in turns, a fresh engine each; check 1 on the first
+    # wave with DYN_TPU_PROFILE=1
+    cost = {label: [] for label in planes}
+    routes = None
+    for label in list(planes) + list(planes)[::-1]:
+        with planes_env(**planes[label]), obs_server(weights, flags, name) as (core, port):
+            if label == "profile on" and routes is None:
+                dispatch_gate.reset_launch_counts()
+                cost[label].append(obs_wave(core, port, bodies, headers))
+                gate_launches = dispatch_gate_wait.launches
+                routes = check_routes(port, name, core.chunk_dispatches + core.decode_dispatches)
+                sampled_total = profiling.timeline().sampled_total
+                m = core.metrics_snapshot()
+            else:
+                cost[label].append(obs_wave(core, port, bodies))
+    print(f"observability: {N_REQUESTS} traced streams (4 chat, 4 completions); /live, "
+          f"/metrics {routes['metrics']}, {routes['traces']} traces http.edge -> engine.request "
+          f"-> queue_wait/prefill/decode, /debug/slo {routes['slo_rows']} objective rows with "
+          f"{routes['ttft_events']} TTFT and {routes['itl_events']} ITL events, "
+          f"/debug/profile?trace=1 {routes['chrome_slices']} slices, dispatches_total "
+          f"{routes['summary']['dispatches_total']} ({sampled_total} timed at the default "
+          f"sample rate, {gate_launches} dispatch gates); snapshot gauges "
+          + ", ".join(f"{k} {m[k]}" for k in ("decode_tokens_per_s", "step_time_ms",
+                                              "batch_slot_util", "dispatch_device_us_p95",
+                                              "dispatch_host_overhead_us_p95",
+                                              "device_idle_frac", "dispatch_gate_timeouts")))
+    if m["dispatch_gate_timeouts"]:
+        fail(f"observability: {m['dispatch_gate_timeouts']} dispatch gates timed out")
+    timeline = timeline_check(card, weights, flags, name, bodies)
+    configs = timed_configs_check(weights)
+    mean = {label: {k_: statistics.fmean(w[k_] for w in waves)
+                    for k_ in ("ttft_p50_ms", "decode_tok_s")} for label, waves in cost.items()}
+    base, quiet, profiled = (mean[k_] for k_ in planes)
+    print("observability: cost of the planes (two waves each, in turns; printed, not held): "
+          + "; ".join(f"{label}: TTFT p50 "
+                      + ", ".join(f"{w['ttft_p50_ms']:.1f}" for w in waves) + " ms, decode "
+                      + ", ".join(f"{w['decode_tok_s']:.1f}" for w in waves) + " tok/s"
+                      for label, waves in cost.items())
+          + f"; default planes against tracing and SLO off (means): TTFT "
+          f"{base['ttft_p50_ms'] / quiet['ttft_p50_ms'] - 1:+.1%}, tok/s "
+          f"{base['decode_tok_s'] / quiet['decode_tok_s'] - 1:+.1%}; DYN_TPU_PROFILE=1 against "
+          f"off: TTFT {profiled['ttft_p50_ms'] / base['ttft_p50_ms'] - 1:+.1%}, tok/s "
+          f"{profiled['decode_tok_s'] / base['decode_tok_s'] - 1:+.1%}")
+    return {"routes": routes, "cost": cost, "gate_launches": gate_launches, "gate": gate,
+            "timeline": timeline, "timed_configs": configs}
+
+
+TIMELINE_DISPATCHES = 6  # decode dispatches in check 2's profiler window, at least
+
+
+def timeline_check(card: str, weights: dict, flags, name: str, bodies: list) -> dict:
+    """Phase 21's second check. Every dispatch timed (DYN_TPU_PROFILE_SAMPLE=1)
+    under :func:`profile_decode`'s torch.profiler window, started and
+    stopped with the engine's device timing paused
+    (``pause_device_timing``), so that every decode dispatch the trace holds
+    whole was timed or not as a whole. The engine's decode records are
+    matched one to one with those dispatches (the k-th timed dispatch made
+    the k-th record), and both sides are read over the same dispatches,
+    found in the trace by their gates (:func:`dispatch_device_times`): the
+    engine's device time per step
+    against the profiler's (the union of the dispatch's device events,
+    held 0.7-2x) and against the sum of the profiler's gated segments (what
+    the engine's event pairs time: printed, with the gaps between kernels
+    as a share of it), and the engine's device_idle_frac against the
+    profiler's idle share from the first dispatch's start to the last one's
+    (held within 0.10); at least 4 matched dispatches, each with all its
+    gates in the trace."""
+    from dynamo_tpu_torch.runtime import profiling
+    from dynamo_tpu_torch.runtime.profiling import StepTimeline
+
+    with planes_env(DYN_TPU_PROFILE="1", DYN_TPU_PROFILE_SAMPLE="1"), obs_server(
+            weights, flags, name) as (core, port):
+        n0 = sum(r["phase"] == "decode" for r in profiling.timeline().records())
+        prof = profile_decode(port, bodies, core, core.pause_device_timing,
+                              TIMELINE_DISPATCHES, dispatch_device_times)
+        k = core.config.decode_steps
+        every = [r for r in profiling.timeline().records()
+                 if r["phase"] in ("chunk", "decode", "verify")]
+        recs = [r for r in every if r["phase"] == "decode"][n0:]
+        timeouts = core.metrics_snapshot()["dispatch_gate_timeouts"]
+    traced = prof["trace"]
+    if timeouts or traced is None:
+        fail(f"observability: {timeouts} gate timeouts; trace read {traced is not None}")
+    # the wave's decode dispatches after profile_decode unwraps the step
+    # functions make records of their own, after the wrapped ones
+    timed = traced["timed_calls"]
+    if len(recs) < len(timed):
+        fail(f"observability: {len(timed)} timed decode dispatches but {len(recs)} decode "
+             f"records")
+    by_n = dict(zip(timed, recs))
+    disp = traced["dispatches"]
+    pairs = [(d, by_n[d["n"]]) for d in disp]
+    if len(pairs) < 4:
+        fail(f"observability: {len(pairs)} timed decode dispatches held whole by the trace "
+             f"(at least 4 needed); {traced['gates_in_trace']} gates in the trace, "
+             f"{traced['gates_launched']} launched while it ran; {traced['window_calls']} timed "
+             f"decode dispatches launched then; gates per dispatch in the trace "
+             f"{traced['trace_dispatches']}")
+    steps = len(pairs) * k
+    eng_ms = sum(r["device_us"] for _, r in pairs) / 1e3 / steps
+    prof_ms = sum(d["busy_us"] for d, _ in pairs) / 1e3 / steps
+    span_ms = sum(d["span_us"] for d, _ in pairs) / 1e3 / steps
+    gap_share = 1.0 - sum(d["kernel_sum_us"] for d, _ in pairs) / sum(d["span_us"]
+                                                                      for d, _ in pairs)
+    ratio = eng_ms / prof_ms
+    # every record from the first matched dispatch's to the last one's, a
+    # chunk between them included, as the profiler's busy time includes it
+    t_lo, t_hi = pairs[0][1]["ts"], pairs[-1][1]["ts"]
+    eng_idle = StepTimeline.device_idle_frac([r for r in every if t_lo <= r["ts"] <= t_hi])
+    prof_idle = traced["idle_share"]
+    per = ", ".join(f"{r['device_us'] / 1e3:.3f}/{d['busy_us'] / 1e3:.3f}/{d['span_us'] / 1e3:.3f}"
+                    f" ({d['gates']} gates)" for d, r in pairs)
+    print(f"observability: timeline against the profiler over the same {len(pairs)} decode "
+          f"dispatches ({steps} steps, every dispatch timed, each with all its gates in the "
+          f"trace; {traced['gates_in_trace']} gates in the trace of "
+          f"{traced['gates_launched']} launched while it ran, {traced['window_calls']} timed "
+          f"decode dispatches): engine device {eng_ms:.3f} ms per step against the "
+          f"profiler's {prof_ms:.3f} (ratio {ratio:.3f}, held 0.7-2) and its gated segments' "
+          f"{span_ms:.3f} (engine / segments {eng_ms / span_ms:.3f}); gaps between kernels "
+          f"{gap_share:.3f} of the segments; engine device_idle_frac {eng_idle:.4f} against "
+          f"the profiler's idle share {prof_idle:.4f} over the same span (held within 0.10); "
+          f"per dispatch engine/profiler/segments ms {per}; host_us per decode dispatch "
+          f"{statistics.median(r['host_us'] for _, r in pairs) / 1e3:.1f} ms (median); the "
+          f"profile window's own figures {prof.get('device_ms_per_step', float('nan')):.3f} ms "
+          f"per step, idle {prof.get('idle_share', float('nan')):.4f}; on {card}")
+    if not 0.7 <= ratio <= 2.0 or abs(eng_idle - prof_idle) > 0.10:
+        fail(f"observability: engine device {eng_ms:.3f} ms/step, idle {eng_idle:.4f} against "
+             f"the profiler's {prof_ms:.3f}, {prof_idle:.4f} over the same dispatches")
+    return {"engine_device_ms_per_step": eng_ms, "engine_idle_frac": eng_idle,
+            "profiler_device_ms_per_step": prof_ms, "profiler_segments_ms_per_step": span_ms,
+            "gap_share": gap_share, "profiler_idle_share": prof_idle, "ratio": ratio,
+            "decode_dispatches": len(pairs),
+            "per_dispatch_ms": [(r["device_us"] / 1e3, d["busy_us"] / 1e3, d["span_us"] / 1e3)
+                                for d, r in pairs]}
+
+
+def timed_configs_check(weights: dict) -> dict:
+    """Phase 21's fourth check: the timed path on the configurations check
+    2 does not run. One engine on the kept weights with ``quantize="int8"``,
+    int8 KV pages, the host tier and ``spec_k`` = SPEC_K, every dispatch
+    timed: three waves straight into ``core.generate`` (prompts that repeat
+    a phrase; others that evict their cached blocks to the host tier; the
+    first again). Holds: no gate timed out, timed chunk and verify
+    dispatches (decode ones printed: with speculation on there are few),
+    drafted tokens and host-tier hits."""
+    import numpy as np
+
+    from dynamo_tpu_torch.runtime import profiling
+
+    params, cfg, ecfg = weights["params"], weights["cfg"], weights["ecfg"]
+    rng = np.random.default_rng(21)
+    first, other = repeating_prompts(rng, cfg.vocab_size), repeating_prompts(rng, cfg.vocab_size)
+    bs, k = ecfg.kv_block_size, ecfg.decode_steps
+    blocks = max(sum(-(-(len(p) + MAX_TOKENS + 2 * k + SPEC_K + 1) // bs) + 1 for p in wave)
+                 for wave in (first, other)) + 16
+    t0 = time.perf_counter()
+    with planes_env(DYN_TPU_PROFILE="1", DYN_TPU_PROFILE_SAMPLE="1"):
+        core = fresh_engine(params, cfg, ecfg, quantize="int8", kv_dtype="int8", spec_k=SPEC_K,
+                            num_kv_blocks=blocks, host_cache_blocks=4 * blocks)
+        try:
+            for i, prompts in enumerate((first, other, first)):
+                engine_wave(core, prompts, MAX_TOKENS)
+                if i == 1:  # the spills reach the host pool between waves
+                    deadline = time.perf_counter() + 30
+                    while not len(core.host_pool) and time.perf_counter() < deadline:
+                        time.sleep(0.01)
+            recs = profiling.timeline().records()
+            m = core.metrics_snapshot()
+        finally:
+            close_engine(core)
+    by = {p: [r["device_us"] / 1e3 for r in recs if r["phase"] == p]
+          for p in ("chunk", "decode", "verify")}
+    print(f"observability: int8 weights, int8 KV, host tier of {4 * blocks} blocks, spec_k "
+          f"{SPEC_K}, every dispatch timed, three waves in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{p} {len(v)} timed (device ms median "
+                      f"{statistics.median(v) if v else float('nan'):.3f})" for p, v in by.items())
+          + f" of {m['chunk_dispatches']} chunk, "
+          f"{m['decode_dispatches']} decode and {m['verify_dispatches']} verify dispatches; "
+          f"{m['dispatch_gate_timeouts']} gate timeouts, drafted {m['spec_drafted_tokens']}, "
+          f"host-tier hits {m['host_cache_hits']}")
+    if (m["dispatch_gate_timeouts"] or not by["chunk"] or not by["verify"]
+            or min(by["chunk"] + by["verify"] + by["decode"]) <= 0
+            or m["spec_drafted_tokens"] <= 0 or m["host_cache_hits"] <= 0):
+        fail("observability: the timed path on int8 weights, int8 KV, the host tier and "
+             "speculation did not hold (the line above)")
+    return {"timed": {p: len(v) for p, v in by.items()},
+            "device_ms_median": {p: statistics.median(v) if v else None for p, v in by.items()},
+            "gate_timeouts": m["dispatch_gate_timeouts"], "drafted": m["spec_drafted_tokens"],
+            "host_cache_hits": m["host_cache_hits"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "dynamo_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -4325,6 +4972,8 @@ def main() -> int:
     integ = timed("integrity", phase_integrity, card, weights)
     spec = timed("spec serve", phase_spec_serve, card, weights, int8k["per_verify"])
     tps = timed("tp serve", phase_tp_serve, card, weights, served)
+    obs = timed("observability", phase_observability, card, weights, served["flags"],
+                served["name"])
     del weights
     tp70 = timed("tp 70b", phase_tp_70b, card)
     # every llama engine is closed: free the card for mixtral's 47 GB
@@ -4527,6 +5176,24 @@ def main() -> int:
         "tile_kernel_graph_ms": echunk["tile_graph_ms"],
         "chunk_dispatches": mixs["chunk_dispatches"],
         "kernel_sweep": expk["sweep"],
+    }, {
+        "name": "dispatch_gate_wait",
+        "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/dispatch_gate.cu",
+        "replaces": "none — the profiling plane's device timing: jax.block_until_ready around "
+                    "a sampled dispatch, dynamo_tpu/engine_jax/engine.py:2537",
+        # phase 21's wave with DYN_TPU_PROFILE=1 at the default sample rate
+        "launches": obs["gate_launches"],
+        "unit": "one released gate (a 4-byte read of the host's counter)",
+        "max_abs_err": obs["gate"]["max_abs_err"],
+        "ms": obs["gate"]["ms"],
+        "plain_ms": obs["gate"]["plain_ms"],
+        "bound_ms": obs["gate"]["bound_ms"],
+        "bound_by": "bytes",
+        # what does bind a released gate: one launch (timed as a one-element
+        # fill run back to back) and one read of host memory over PCIe
+        "launch_floor_ms": obs["gate"]["launch_floor_ms"],
+        "library_ms": None,
     }], "serve": {"ttft_p50_ms": served["ttft_p50_ms"], "decode_tok_s": served["decode_tok_s"],
                   "profile": served["profile"], "parity_ratio": parity},
         "int8_serve": {"ttft_p50_ms": int8s["ttft_p50_ms"], "decode_tok_s": int8s["decode_tok_s"],
@@ -4537,7 +5204,7 @@ def main() -> int:
             "warmup_s", "decode_steps", "chunk_dispatches", "launches", "int8_launches",
             "expert_launches", "int8_kernel_launches")},
         "mixtral_parity": mixp, "mixtral_load": mixl, "tp_serve": tps, "tp_70b": tp70,
-        "llama3_70b": l70, "mixtral_tp": mixtp,
+        "llama3_70b": l70, "mixtral_tp": mixtp, "observability": obs,
         "load": loaded, "phase_seconds": seconds,
         "card": card, "seconds": time.perf_counter() - t0}
     print(json.dumps(line))

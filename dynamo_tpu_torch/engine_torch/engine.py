@@ -80,13 +80,26 @@ Counterpart of the main path of the JAX package's ``engine_jax/engine.py``:
   (``ops/moe.py``). Heads that do not split over tp raise (ROADMAP A11),
   as do ep, pp and sp (A7).
 
+- **The observability planes**, on by default as in the JAX engine: each
+  finished request records retroactive ``engine.request`` → queue-wait /
+  prefill / decode spans under the trace its context carries
+  (``runtime/tracing.py``, ``DYN_TPU_TRACE=0`` turns it off); the
+  telemetry plane's live decode gauges (``_EnginePerf``,
+  ``DYN_TPU_SLO=0``); the heartbeat, beaten once per step-loop iteration
+  (``runtime/health.py``). Opt-in: the dispatch timeline
+  (``DYN_TPU_PROFILE=1``, every ``DYN_TPU_PROFILE_SAMPLE``-th dispatch
+  timed, its device time by the segment-gated ``device_timer.py``) and the
+  straggler feed (``DYN_TPU_STRAGGLER=1``, every dispatch). A plane that is
+  off costs one ``None`` check per dispatch.
+
 Not in this engine yet (later slices, ROADMAP.md): disaggregated prefill,
-live migration, QoS, profiling/straggler hooks, dp/pp/sp/ep meshes.
+live migration, QoS, dp/pp/sp/ep meshes.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import math
 import os
@@ -114,7 +127,7 @@ from ..models.llama import (
     rank_config,
     shard_params,
 )
-from ..ops import int8_matmul, paged_attention
+from ..ops import dispatch_gate, int8_matmul, paged_attention
 from ..ops.build import build_all
 from ..ops.paged_attention import (
     paged_decode_attention,
@@ -124,8 +137,12 @@ from ..ops.paged_attention import (
 from ..parallel.mesh import Mesh, MeshConfig, make_mesh
 from ..runtime import faults as faults_mod
 from ..runtime import integrity as integrity_mod
+from ..runtime import profiling as profiling_mod
+from ..runtime import straggler as straggler_mod
+from ..runtime import telemetry, tracing
 from ..runtime.annotated import Annotated
 from ..runtime.engine import AsyncEngine, Context
+from ..runtime.health import EngineHeartbeat
 from ..runtime.integrity import WATCHDOG_TOKEN
 from .allocator import (
     BlockAllocator,
@@ -136,6 +153,7 @@ from .allocator import (
     SequenceAllocation,
     resolve_crc,
 )
+from .device_timer import DeviceTimer
 from .drafter import MAX_SPEC_K, NgramDrafter, env_spec_k, env_spec_ngram
 from .sampling import (
     apply_penalties,
@@ -147,6 +165,66 @@ from .sampling import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+class _EnginePerf:
+    """Live decode-perf accounting (engine thread only, EMA-smoothed): the
+    JAX engine's ``_EnginePerf``. Tokens/s, step time, slot utilization and
+    the speculative accept rate as live gauges of ``metrics_snapshot()``.
+    Built only when telemetry sampling is enabled (``DYN_TPU_SLO=0`` ⇒ the
+    engine holds ``None`` and the step loop pays one attribute check).
+
+    Timing anchors on the gap between consecutive *processed* decode
+    dispatches (which in pipelined decode equals the dispatch's wall time);
+    idle gaps are excluded via :meth:`note_idle` so a quiet engine's
+    throughput gauge reflects its last busy period instead of decaying
+    toward zero.
+    """
+
+    __slots__ = (
+        "decode_tps", "step_time_ms", "slot_util", "spec_accept_rate",
+        "_last_t", "_alpha",
+    )
+
+    def __init__(self, alpha: float = 0.2):
+        self.decode_tps = 0.0
+        self.step_time_ms = 0.0
+        self.slot_util = 0.0
+        # acceptance-rate EMA over verify dispatches (accepted drafts /
+        # drafted); 0.0 with speculation off or before the first draft
+        self.spec_accept_rate = 0.0
+        self._last_t: Optional[float] = None
+        self._alpha = alpha
+
+    def _ema(self, prev: float, sample: float) -> float:
+        return sample if prev == 0.0 else prev + self._alpha * (sample - prev)
+
+    def note_decode(self, n_tokens: int, k_steps: int) -> None:
+        now = time.perf_counter()
+        last, self._last_t = self._last_t, now
+        if last is None:
+            return
+        dt = now - last
+        if dt <= 0:
+            return
+        if n_tokens > 0:
+            self.decode_tps = self._ema(self.decode_tps, n_tokens / dt)
+        self.step_time_ms = self._ema(
+            self.step_time_ms, dt * 1e3 / max(k_steps, 1)
+        )
+
+    def note_slots(self, active: int, total: int) -> None:
+        if total > 0:
+            self.slot_util = self._ema(self.slot_util, active / total)
+
+    def note_spec(self, drafted: int, accepted: int) -> None:
+        if drafted > 0:
+            self.spec_accept_rate = self._ema(
+                self.spec_accept_rate, accepted / drafted
+            )
+
+    def note_idle(self) -> None:
+        self._last_t = None
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -490,9 +568,33 @@ class TorchServingEngine(AsyncEngine):
         self.watchdog_trips = 0
         self.spec_drafted_total = 0
         self.spec_accepted_total = 0
-        self.spec_accept_rate = 0.0
         # seconds from enqueue to first token of the latest requests
         self.recent_ttft_s: Deque[float] = deque(maxlen=1024)
+
+        # health plane: the step loop beats this once per iteration; a busy
+        # engine whose beats stop is a wedged engine thread
+        self.heartbeat = EngineHeartbeat()
+        # live perf accounting (telemetry plane): None when sampling is off,
+        # so the step loop's only cost is this attribute's None-check
+        self._perf: Optional[_EnginePerf] = (
+            _EnginePerf() if telemetry.enabled() else None
+        )
+        # performance attribution plane (runtime/profiling.py): sampled
+        # per-dispatch host/device/alloc timing into the process-global
+        # StepTimeline. None with DYN_TPU_PROFILE off: the step loop then
+        # pays one None-check per dispatch and no timeline, no device timer
+        # is ever constructed
+        profile = profiling_mod.maybe_from_env()
+        self._timeline = profiling_mod.timeline() if profile is not None else None
+        self._device_timer = DeviceTimer(self.device) if profile is not None else None
+        # allocator microseconds (alloc/grow/seal-checksum) accrued since the
+        # last dispatch record: admission allocs between dispatches charge
+        # the NEXT dispatch's record
+        self._prof_alloc_us = 0.0
+        # fail-slow plane (runtime/straggler.py): every dispatch's wall
+        # microseconds per token into the process-global detector. None with
+        # DYN_TPU_STRAGGLER off (one None-check per dispatch, no detector)
+        self._straggler = straggler_mod.maybe_detector()
 
     def _put(self, host_arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(host_arr)).to(self.device)
@@ -524,7 +626,7 @@ class TorchServingEngine(AsyncEngine):
         wd_limit = self._integrity.logit_limit if wd else 0.0
 
         def decode(tokens, positions, tables, step_ctr, seeds, temp_host, topk,
-                   temp, topp, freqp, presp, counts, wdf=None):
+                   temp, topp, freqp, presp, counts, wdf=None, layer_hook=None):
             # k_steps forward+sample iterations, each sampled token fed back
             # in; the pool is read-only inside, the window is flushed once
             base = positions
@@ -537,6 +639,7 @@ class TorchServingEngine(AsyncEngine):
             for k in range(k_steps):
                 logits, wk, wv = forward_window(
                     self.params_decode, cfg, toks, pos, self.cache, tables, base, wk, wv, k,
+                    layer_hook=layer_hook,
                 )
                 if wd:
                     logits, bad = _watchdog_bad(logits, wdf, wd_limit)
@@ -563,7 +666,7 @@ class TorchServingEngine(AsyncEngine):
                 pos = torch.where((pos >= 0) & (pos < max_pos), pos + 1,
                                   torch.full_like(pos, -1))
                 toks = nxt
-            flush_window(self.cache, tables, base, wk, wv, max_pos)
+            flush_window(self.cache, tables, base, wk, wv, max_pos, layer_hook=layer_hook)
             out = torch.stack(outs, dim=1)  # [S, k_steps]
             if with_lp:
                 return (out, torch.stack(lps, 1), torch.stack(tids, 1),
@@ -589,13 +692,13 @@ class TorchServingEngine(AsyncEngine):
         wd_limit = self._integrity.logit_limit if wd else 0.0
 
         def chunk(tokens, positions, tables, sample_at, step_ctr, seeds, temp_host,
-                  topk, temp, topp, freqp, presp, counts, wdf=None):
+                  topk, temp, topp, freqp, presp, counts, wdf=None, layer_hook=None):
             # tokens/positions [S, C] (-1 positions = padding); sample_at [S]
             # picks the position whose logits are sampled (-1: unused); the
             # LM head runs on those [S, E] rows only
             h, _ = forward_chunk(
                 self.params, cfg, tokens, positions, self.cache, tables,
-                hidden_only=True, with_history=with_history,
+                hidden_only=True, with_history=with_history, layer_hook=layer_hook,
             )
             rows = torch.arange(S, device=self.device)
             hs = h[rows, sample_at.clamp(min=0).long()]
@@ -642,14 +745,14 @@ class TorchServingEngine(AsyncEngine):
         wd_limit = self._integrity.logit_limit if wd else 0.0
 
         def verify(tokens, positions, tables, step_ctr, seeds, temp_host, topk,
-                   temp, topp, freqp, presp, counts, wdf=None):
+                   temp, topp, freqp, presp, counts, wdf=None, layer_hook=None):
             # KV for every fed position is written by the forward; positions
             # past the accepted prefix hold garbage that later dispatches
             # overwrite before any position mask lets it be attended
             params = self.params_decode
             h, _ = forward_chunk(
                 params, cfg, tokens, positions, self.cache, tables,
-                hidden_only=True, with_history=True,
+                hidden_only=True, with_history=True, layer_hook=layer_hook,
             )
             b, k1 = positions.shape
             logits_all = lm_head(params, cfg, h.reshape(b * k1, -1)).reshape(b, k1, -1)
@@ -814,6 +917,8 @@ class TorchServingEngine(AsyncEngine):
             "output watchdog tripped for request %s: non-finite or exploding "
             "logits; ending the stream with a resume directive", seq.ctx.id,
         )
+        if tracing.enabled():
+            self._record_phase_spans(seq, FinishReason.ERROR)
         self._release_lane(seq, defer_free)
         seq.emit(Annotated.from_data(
             {"migrating": {
@@ -823,6 +928,111 @@ class TorchServingEngine(AsyncEngine):
             id=seq.ctx.id,
         ))
         seq.emit(_FINISHED)
+
+    # -- performance attribution (runtime/profiling.py, runtime/straggler.py) --
+
+    def _launch(self, fn, args: tuple):
+        """Call a step function on its (already uploaded) arguments. With
+        profiling armed every dispatch counts into the timeline, and one
+        the timeline samples runs under the device timer, its forward
+        marking the segment boundaries, when the timer says it may be timed
+        (``DeviceTimer.ready``); it is waited for here. Returns (outputs,
+        timing): timing is None when not timed (or when a gate timed out),
+        else (t_enqueued, device_us, t_ready)."""
+        timer = self._device_timer
+        if timer is None:
+            return fn(*args), None
+        # every dispatch tells the timer which step function runs (its
+        # first run is never timed), sampled or not
+        if not timer.ready(fn, self._timeline.should_sample()):
+            return fn(*args), None
+        try:
+            timer.begin()
+            out = fn(*args, layer_hook=timer.mark)
+        finally:
+            timer.end()  # releases the last gate, whatever happened
+        t_enq = time.perf_counter()
+        device_us = timer.device_us()
+        if device_us is None:
+            return out, None
+        return out, (t_enq, device_us, time.perf_counter())
+
+    def pause_device_timing(self):
+        """A context manager under which no dispatch is timed; on entry the
+        timed dispatch in flight has released its gates
+        (``DeviceTimer.quiesce``). Enter it from another thread around
+        anything that waits for the card while profiling is armed, such as
+        ``torch.profiler``'s start and stop; a no-op without the timer."""
+        if self._device_timer is None:
+            return contextlib.nullcontext()
+        return self._device_timer.quiesce()
+
+    def _step_start(self) -> float:
+        """A dispatch step's start on the host clock, when a plane reads it."""
+        if self._timeline is None and self._straggler is None:
+            return 0.0
+        return time.perf_counter()
+
+    def _dispatch_done(self, phase: str, t_step: float, timing, batch: int,
+                       tokens: int) -> None:
+        """A dispatch's end: its record into the timeline when it was timed
+        (else the accrued allocator share is dropped, so that it cannot pile
+        up across the sampling stride), and its wall time per token into
+        the straggler feed, on every dispatch."""
+        if timing is not None:
+            self._note_dispatch(phase, t_step, *timing, time.perf_counter(), batch, tokens)
+        elif self._timeline is not None:
+            self._prof_alloc_us = 0.0
+        if self._straggler is not None:
+            self._straggler.note_dispatch(phase, (time.perf_counter() - t_step) * 1e6, tokens)
+
+    def _note_dispatch(self, phase: str, t_step: float, t_enq: float, device_us: float,
+                       t_ready: float, t_end: float, batch: int, tokens: int) -> None:
+        """One timed dispatch into the timeline (StepTimeline's field
+        definitions): host build + enqueue (``t_step`` → ``t_enq``), the
+        device's execution time, host emit work (``t_ready`` → ``t_end``),
+        the accrued allocator share, the queue depth, and the request and
+        trace ids riding the batch."""
+        alloc_us, self._prof_alloc_us = self._prof_alloc_us, 0.0
+        reqs: List[str] = []
+        traces: List[str] = []
+        for s in self._slots:
+            if s is None or len(reqs) >= 8:
+                continue
+            reqs.append(str(s.ctx.id))
+            tid = getattr(s.ctx.context.trace, "trace_id", None)
+            if tid:
+                traces.append(str(tid))
+        # epoch-align the perf_counter anchors so captures from different
+        # processes merge onto one Perfetto timeline
+        now_wall = time.time()
+        now_perf = time.perf_counter()
+        self._timeline.note_dispatch(
+            phase,
+            ts=now_wall - (now_perf - t_step),
+            step=self._step_counter,
+            batch=batch,
+            tokens=tokens,
+            host_us=(t_enq - t_step) * 1e6,
+            device_us=device_us,
+            post_us=(t_end - t_ready) * 1e6,
+            alloc_us=alloc_us,
+            queue=len(self._pending),
+            reqs=reqs,
+            traces=traces,
+        )
+
+    def _alloc_timed(self, fn, *args):
+        """An allocator call (allocation; block seal and checksum hand-off)
+        whose time accrues to the allocator share of the next dispatch
+        record (profiling armed); the bare call otherwise."""
+        if self._timeline is None:
+            return fn(*args)
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self._prof_alloc_us += (time.perf_counter() - t) * 1e6
 
     # -- penalty counts -------------------------------------------------------
 
@@ -875,6 +1085,8 @@ class TorchServingEngine(AsyncEngine):
             libs = [paged_attention.LIBRARY]
             if self.params.int8 or self.params_decode.int8:
                 libs.append(int8_matmul.LIBRARY)
+            if self._device_timer is not None:
+                libs.append(dispatch_gate.LIBRARY)
             timings["kernel_build"] = max(b["seconds"] for b in build_all(libs).values())
         tables = self._put(np.zeros((S, MB), np.int32))
         neg = self._put(np.full((S,), -1, np.int32))
@@ -990,9 +1202,21 @@ class TorchServingEngine(AsyncEngine):
                             and not self._pending_spills  # idle pass drains them
                             and not self._crc_batch  # idle pass starts them
                         ):
+                            # parking idle: record it, or the last busy beat
+                            # would age into a false stall
+                            self.heartbeat.beat(busy=False)
                             self._cond.wait()
                         if self._shutdown:
                             return
+                    # liveness beat BEFORE the work: if the dispatch below
+                    # wedges, the recorded busy flag plus a growing beat age
+                    # is the stall signature
+                    self.heartbeat.beat(busy=bool(
+                        self._pending
+                        or self._inflight is not None
+                        or any(s is not None for s in self._slots)
+                        or self._pending_spills
+                    ))
                     idle = (
                         not self._pending and not any(self._slots)
                         and self._inflight is None
@@ -1002,6 +1226,9 @@ class TorchServingEngine(AsyncEngine):
                     self._harvest_spills(force=idle)
                     if idle:
                         self._release_counts()
+                        if self._perf is not None:
+                            # exclude the idle gap from throughput timing
+                            self._perf.note_idle()
                     self._coalesce_admission_wave()
                     self._admit()
                     self._dispatch_step()
@@ -1048,7 +1275,7 @@ class TorchServingEngine(AsyncEngine):
 
     def _try_alloc(self, seq: _Seq, deferred: List[_Seq]):
         """allocate_sequence; an in-flight shared prefix parks the request."""
-        alloc = self.allocator.allocate_sequence(seq.prompt)
+        alloc = self._alloc_timed(self.allocator.allocate_sequence, seq.prompt)
         if isinstance(alloc, InflightPrefix):
             seq.joined_inflight = True
             seq.wait_hash = alloc.seq_hash
@@ -1159,6 +1386,7 @@ class TorchServingEngine(AsyncEngine):
         a chunk of prompt; decode lanes advance one token."""
         cfg = self.config
         S, C = cfg.max_slots, cfg.prefill_chunk
+        t_step = self._step_start()
         for seq in [s for s in self._slots if s is not None]:
             if seq.slot is None:
                 continue  # preempted earlier in this pass
@@ -1169,6 +1397,10 @@ class TorchServingEngine(AsyncEngine):
                 need = min(seq.total_len, cfg.max_model_len)
                 if not self.allocator.grow(seq.alloc, need):
                     self._preempt(seq)
+        if self._timeline is not None:
+            # the loop above is grow work: the allocator share of this
+            # dispatch's host time
+            self._prof_alloc_us += (time.perf_counter() - t_step) * 1e6
         if not any(self._slots):
             return
 
@@ -1205,10 +1437,12 @@ class TorchServingEngine(AsyncEngine):
             for s in lanes
         )
         (want_lp, want_pen, want_sample), counts, wd = self._dispatch_args(lanes)
-        sampled, lp, tids, tlps = self._chunk(want_lp, want_pen, want_sample, want_history)(
+        args = (
             self._put(tokens), self._put(positions), self._put(self._tables),
             self._put(sample_at), self._step_counter, *self._sampling_args(), counts, *wd,
         )
+        (sampled, lp, tids, tlps), timing = self._launch(
+            self._chunk(want_lp, want_pen, want_sample, want_history), args)
         sampled_np = sampled.cpu().numpy()
         if want_lp:
             lp_np, tids_np, tlps_np = lp.cpu().numpy(), tids.cpu().numpy(), tlps.cpu().numpy()
@@ -1221,7 +1455,7 @@ class TorchServingEngine(AsyncEngine):
             seq = self._slots[i]
             if seq is None or consumed[i] is None:
                 continue
-            self.allocator.note_tokens_computed(seq.alloc, consumed[i])
+            self._alloc_timed(self.allocator.note_tokens_computed, seq.alloc, consumed[i])
             lpinfo = (
                 (float(lp_np[i]), tids_np[i], tlps_np[i]) if lp_np is not None else None
             )
@@ -1241,6 +1475,8 @@ class TorchServingEngine(AsyncEngine):
                     self._emit_token(seq, tok, lpinfo=lpinfo)
             else:
                 self._emit_token(seq, tok, lpinfo=lpinfo)
+        self._dispatch_done("chunk", t_step, timing, sum(1 for c in consumed if c is not None),
+                            sum(len(c) for c in consumed if c))
 
     def _decode_step(self) -> None:
         """Pipelined decode: dispatch N+1 off dispatch N's device carry, then
@@ -1249,6 +1485,7 @@ class TorchServingEngine(AsyncEngine):
         allocations park in ``_zombie_allocs`` until it is fetched."""
         cfg = self.config
         S, k = cfg.max_slots, cfg.decode_steps
+        t_step = self._step_start()
 
         stopped = [s for s in self._slots if s is not None and s.ctx.context.is_stopped]
         if stopped:
@@ -1259,6 +1496,7 @@ class TorchServingEngine(AsyncEngine):
 
         # capacity: this dispatch writes total_len-1 .. total_len-2+k, and
         # the next (speculative) one another k past that
+        t_grow = time.perf_counter() if self._timeline is not None else 0.0
         while True:
             ok = True
             for seq in [s for s in self._slots if s is not None]:
@@ -1272,6 +1510,10 @@ class TorchServingEngine(AsyncEngine):
                     break
             if ok:
                 break
+        if self._timeline is not None:
+            # grow/preempt work: the allocator share of this dispatch's
+            # host time
+            self._prof_alloc_us += (time.perf_counter() - t_grow) * 1e6
         if not any(self._slots):
             return
 
@@ -1321,10 +1563,12 @@ class TorchServingEngine(AsyncEngine):
         self.decode_dispatches += 1
         self.decode_steps_total += k
         (want_lp, want_pen, want_sample), counts, wd = self._dispatch_args(lanes)
-        out, lps, tids, tlps, toks2, pos2 = self._decode(want_lp, want_pen, want_sample)(
+        args = (
             toks_in, pos_in, self._put(self._tables), self._step_counter,
             *self._sampling_args(), counts, *wd,
         )
+        (out, lps, tids, tlps, toks2, pos2), timing = self._launch(
+            self._decode(want_lp, want_pen, want_sample), args)
         if not want_pen:
             self._release_counts()
         fetch = lambda t: None if t is None else _HostFetch(t)  # noqa: E731
@@ -1333,6 +1577,8 @@ class TorchServingEngine(AsyncEngine):
         )
         if prev is not None:
             self._process_chunk(prev, defer_free=True)
+        n_active = sum(1 for s in lanes if s is not None)
+        self._dispatch_done("decode", t_step, timing, n_active, n_active * k)
 
     def _verify_step(self) -> None:
         """One speculative-verify dispatch (the JAX ``_verify_step``).
@@ -1345,6 +1591,7 @@ class TorchServingEngine(AsyncEngine):
         lane drafts, the plain pipelined decode step runs instead."""
         cfg = self.config
         S = cfg.max_slots
+        t_step = self._step_start()
         # the host needs every lane's true last token and the drafters the
         # emitted suffix before proposing
         self._drain_inflight()
@@ -1405,10 +1652,12 @@ class TorchServingEngine(AsyncEngine):
         self.verify_dispatches += 1
         lanes = list(self._slots)
         (want_lp, want_pen, want_sample), counts, wd = self._dispatch_args(lanes)
-        tgt, lps, tids, tlps = self._verify(want_lp, want_pen, want_sample)(
+        args = (
             self._put(tokens), self._put(positions), self._put(self._tables),
             self._step_counter, *self._sampling_args(), counts, *wd,
         )
+        (tgt, lps, tids, tlps), timing = self._launch(
+            self._verify(want_lp, want_pen, want_sample), args)
         tgt_np = tgt.cpu().numpy()
         if want_lp:
             lp_np, tids_np, tlps_np = lps.cpu().numpy(), tids.cpu().numpy(), tlps.cpu().numpy()
@@ -1417,6 +1666,9 @@ class TorchServingEngine(AsyncEngine):
         if not want_pen:
             self._release_counts()
 
+        if self._perf is not None:
+            tokens_before = self.total_generated_tokens
+            self._perf.note_slots(sum(1 for s in self._slots if s is not None), S)
         drafted_total = accepted_total = 0
         fix_rows: List[int] = []
         fix_toks: List[int] = []
@@ -1458,13 +1710,12 @@ class TorchServingEngine(AsyncEngine):
             )
         self.spec_drafted_total += drafted_total
         self.spec_accepted_total += accepted_total
-        if drafted_total:
-            rate = accepted_total / drafted_total
-            # the JAX engine's EMA (alpha 0.2, seeded by the first sample)
-            self.spec_accept_rate = (
-                rate if self.spec_accept_rate == 0.0
-                else self.spec_accept_rate + 0.2 * (rate - self.spec_accept_rate)
-            )
+        if self._perf is not None:
+            self._perf.note_decode(self.total_generated_tokens - tokens_before, 1)
+            self._perf.note_spec(drafted_total, accepted_total)
+        # lanes still live after the emits (the JAX engine's count)
+        n_lanes = sum(1 for s in self._slots if s is not None)
+        self._dispatch_done("verify", t_step, timing, n_lanes, accepted_total + n_lanes)
 
     def _emit_token_run(self, seq: _Seq, cand: List[int], lp_rows, *,
                         defer_free: bool = False) -> int:
@@ -1498,7 +1749,7 @@ class TorchServingEngine(AsyncEngine):
             finish = FinishReason.LENGTH
         # fed tokens whose KV is valid and part of the sequence
         fed0 = seq.generated[-1] if seq.generated else seq.prompt[-1]
-        self.allocator.note_tokens_computed(seq.alloc, [fed0] + toks[:-1])
+        self._alloc_timed(self.allocator.note_tokens_computed, seq.alloc, [fed0] + toks[:-1])
 
         log_probs = top_logprobs = None
         if lp_rows is not None and seq.logprobs is not None:
@@ -1528,6 +1779,14 @@ class TorchServingEngine(AsyncEngine):
         return len(toks)
 
     def _process_chunk(self, chunk: _Inflight, defer_free: bool) -> None:
+        if self._perf is not None:
+            # gap between consecutive processed dispatches ≈ a dispatch's
+            # wall time in pipelined decode; tokens counted below feed the
+            # tps EMA
+            tokens_before = self.total_generated_tokens
+            self._perf.note_slots(
+                sum(1 for s in chunk.lanes if s is not None), self.config.max_slots,
+            )
         out = chunk.out.get()  # [S, k_steps]
         if chunk.lps is not None:
             lps, tids, tlps = chunk.lps.get(), chunk.top_ids.get(), chunk.top_lps.get()
@@ -1540,6 +1799,10 @@ class TorchServingEngine(AsyncEngine):
                 seq, [int(t) for t in out[i]],
                 (lps[i], tids[i], tlps[i]) if lps is not None else None,
                 defer_free=defer_free,
+            )
+        if self._perf is not None:
+            self._perf.note_decode(
+                self.total_generated_tokens - tokens_before, self.config.decode_steps,
             )
 
     def _drain_inflight(self) -> None:
@@ -1594,7 +1857,60 @@ class TorchServingEngine(AsyncEngine):
                 self.allocator.free_sequence(seq.alloc)
             seq.alloc = None
 
+    def _record_phase_spans(self, seq: _Seq, reason: FinishReason) -> None:
+        """Retroactive phase spans from the timestamps the hot path already
+        stamps (engine thread, once per request: dispatch loops stay
+        allocation-free), as the JAX engine records them. queue_wait =
+        enqueue → slot admission; prefill = admission → first token;
+        decode = first token → finish, with the token count."""
+        now = time.perf_counter()
+        parent = seq.ctx.context.trace
+        status = tracing.STATUS_OK
+        if reason == FinishReason.CANCELLED:
+            status = "cancelled"
+        elif reason == FinishReason.ERROR:
+            status = "error"
+        req_span = tracing.record_span(
+            "engine.request", seq.enqueue_t, now, parent=parent,
+            attributes={
+                "request_id": seq.ctx.id,
+                "prompt_tokens": len(seq.prompt),
+                "output_tokens": seq.emitted,
+                # no disaggregated prefill in the port (yet): every prefill
+                # is local
+                "remote_prefill": False,
+                "finish_reason": str(getattr(reason, "value", reason)),
+            },
+            status=status,
+        )
+        parent = req_span or parent
+        first = seq.first_token_t
+        prefill_start = seq.enqueue_t
+        if seq.admit_t is not None and (first is None or seq.admit_t <= first):
+            prefill_start = seq.admit_t
+        tracing.record_span(
+            "engine.queue_wait", seq.enqueue_t, prefill_start,
+            parent=parent, phase="queue_wait",
+        )
+        if first is not None:
+            tracing.record_span(
+                "engine.prefill", prefill_start, first, parent=parent, phase="prefill",
+            )
+            decode_attrs: Dict[str, Any] = {"tokens": seq.emitted}
+            if seq.spec_drafted:
+                # per-request speculation outcome on the decode span, and
+                # the acceptance rate (0..1) on the spec_accept histogram
+                decode_attrs["spec_drafted"] = seq.spec_drafted
+                decode_attrs["spec_accepted"] = seq.spec_accepted
+                tracing.observe_phase("spec_accept", seq.spec_accepted / seq.spec_drafted)
+            tracing.record_span(
+                "engine.decode", first, now, parent=parent, phase="decode",
+                attributes=decode_attrs,
+            )
+
     def _finish(self, seq: _Seq, reason: FinishReason, defer_free: bool = False) -> None:
+        if tracing.enabled():
+            self._record_phase_spans(seq, reason)
         self._release_lane(seq, defer_free)
         seq.emit(Annotated.from_data(LLMEngineOutput.final(reason).to_dict(), id=seq.ctx.id))
         seq.emit(_FINISHED)
@@ -1736,10 +2052,14 @@ class TorchServingEngine(AsyncEngine):
     def metrics_snapshot(self) -> Dict[str, Any]:
         """Load and KV gauges (the ForwardPassMetrics fields the router
         reads) plus the engine's dispatch counters and the paged decode
-        kernel's launch count."""
+        kernel's launch count; with the telemetry plane on (the default)
+        the live decode gauges, with ``DYN_TPU_PROFILE`` the timeline's
+        decode split and device idle fraction, with ``DYN_TPU_STRAGGLER``
+        the fail-slow gauges and this worker's latched verdict, as the JAX
+        engine reports them."""
         with self._cond:
             probe = max(self.allocator.probe_tokens, 1)
-            return {
+            m = {
                 "request_active_slots": sum(1 for s in self._slots if s is not None),
                 "request_total_slots": self.config.max_slots,
                 "kv_active_blocks": self.allocator.active_blocks,
@@ -1761,11 +2081,10 @@ class TorchServingEngine(AsyncEngine):
                 "paged_decode_sharded_launches": paged_decode_attention_sharded.launches,
                 "tensor_parallel_size": self.mesh.tp if self.mesh is not None else 1,
                 "kv_quantized": int(self.kv_quantized),
-                # speculative decoding: cumulative draft counters, and the
-                # acceptance rate per verify dispatch as an EMA (alpha 0.2)
+                # speculative decoding: cumulative draft counters (the
+                # acceptance-rate EMA is the telemetry plane's)
                 "spec_drafted_tokens": self.spec_drafted_total,
                 "spec_accepted_tokens": self.spec_accepted_total,
-                "spec_accept_rate": round(self.spec_accept_rate, 4),
                 "verify_dispatches": self.verify_dispatches,
                 # integrity plane: this engine's output-watchdog trips (the
                 # process-global trip and quarantine counters are
@@ -1775,6 +2094,22 @@ class TorchServingEngine(AsyncEngine):
                     "host_cache_hits": self.host_pool.hits}
                    if self.host_pool is not None else {}),
             }
+        if self._perf is not None:
+            m["decode_tokens_per_s"] = round(self._perf.decode_tps, 3)
+            m["step_time_ms"] = round(self._perf.step_time_ms, 3)
+            m["batch_slot_util"] = round(self._perf.slot_util, 4)
+            m["spec_accept_rate"] = round(self._perf.spec_accept_rate, 4)
+        if self._timeline is not None:
+            # decode-phase device/host p95 split + device idle fraction,
+            # from the process-global dispatch timeline
+            m.update(self._timeline.gauges())
+            m["dispatch_gate_timeouts"] = self._device_timer.timeouts
+        if self._straggler is not None:
+            # normalized per-token latency + sample freshness, and this
+            # worker's latched verdict
+            m.update(self._straggler.gauges())
+            m["straggler_state"] = straggler_mod.verdict()
+        return m
 
 
 class _DeviceScope:

@@ -71,13 +71,17 @@ def gumbel_noise(
     n: int = CANDIDATES, device="cpu",
 ) -> torch.Tensor:
     """[B, n] Gumbel noise; row i comes from a CPU generator seeded by
-    (seeds[i], step, k), zeros for lanes that do not sample."""
+    (seeds[i], step, k), zeros for lanes that do not sample. A CUDA
+    ``device`` gets it through pinned memory without waiting for the
+    stream (the step functions call this between their launches)."""
     out = torch.zeros((len(seeds), n), dtype=torch.float32)
     for i, (s, on) in enumerate(zip(seeds, sampled)):
         if on:
             g = torch.Generator().manual_seed(_seed_for(int(s), step, k))
             u = torch.rand(n, generator=g, dtype=torch.float32).clamp_(1e-20, 1.0 - 1e-7)
             out[i] = -torch.log(-torch.log(u))
+    if torch.device(device).type == "cuda":
+        return out.pin_memory().to(device, non_blocking=True)
     return out.to(device)
 
 

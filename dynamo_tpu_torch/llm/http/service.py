@@ -1,14 +1,24 @@
 """OpenAI-compatible HTTP frontend on ``asyncio.start_server``.
 
 Routes: POST /v1/chat/completions, POST /v1/completions (streaming SSE and
-unary), GET /v1/models, GET /health. HTTP/1.1 with one request per
-connection (``Connection: close``); streamed responses use chunked transfer
-encoding, one SSE frame per chunk. The engine is always called streaming;
-unary requests fold the chunk stream through the aggregators. A client that
-goes away kills the engine context.
+unary), GET /v1/models, GET /health, GET /live, GET /metrics, and the debug
+routes GET /debug/traces, /debug/slo and /debug/profile (query strings
+parsed with ``urllib.parse``). HTTP/1.1 with one request per connection
+(``Connection: close``); streamed responses use chunked transfer encoding,
+one SSE frame per chunk. The engine is always called streaming; unary
+requests fold the chunk stream through the aggregators. A client that goes
+away kills the engine context.
 
-Counterpart of the JAX package's ``llm/http/service.py`` (aiohttp) for the
-routes above; its QoS, tracing, metrics and telemetry planes are not here.
+The observability planes of the JAX package's ``llm/http/service.py``
+(aiohttp) run here by default as they do there: every OpenAI request is
+counted by an ``InflightGuard`` (``metrics.py``: request counters,
+inflight, duration, TTFT and ITL histograms, fed to the SLO store) and
+traced by an ``http.edge`` span, parented under the request's W3C
+``traceparent`` header when it carries a valid one; the span rides the
+engine context into the engine. With ``DYN_TPU_PROFILE`` armed the stream
+loop splits its per-token CPU into serialize and transport-write, and an
+event-loop lag sampler runs beside the server. Not here yet: the JAX
+edge's QoS gate (tenants, rate limits) and its discovery-backed health.
 """
 
 from __future__ import annotations
@@ -17,8 +27,11 @@ import asyncio
 import contextlib
 import json
 import logging
+import time
 from typing import Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 
+from ...runtime import profiling, telemetry, tracing
 from ...runtime.annotated import Annotated
 from ...runtime.engine import AsyncEngine, Context
 from ..protocols.common import HttpError
@@ -30,6 +43,7 @@ from ..protocols.openai import (
     model_list,
 )
 from ..protocols.sse import DONE_SENTINEL, SseMessage
+from .metrics import InflightGuard, ServiceMetrics
 
 logger = logging.getLogger(__name__)
 
@@ -78,7 +92,8 @@ class _BadRequest(Exception):
 
 
 async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, dict, bytes]:
-    """Parse one HTTP/1.1 request: (method, path, headers, body)."""
+    """Parse one HTTP/1.1 request: (method, target, headers, body); the
+    target keeps its query string."""
     line = await reader.readline()
     if not line:
         raise ConnectionResetError("client closed before sending a request")
@@ -102,7 +117,12 @@ async def _read_request(reader: asyncio.StreamReader) -> Tuple[str, str, dict, b
     if length < 0 or length > MAX_BODY:
         raise _BadRequest(413, "request body too large")
     body = await reader.readexactly(length) if length else b""
-    return method.upper(), target.split("?", 1)[0], headers, body
+    return method.upper(), target, headers, body
+
+
+def _query_flag(query: dict, name: str) -> bool:
+    """``?name=1`` style flags: anything but absent, empty, 0 or false."""
+    return query.get(name, [""])[0] not in ("", "0", "false")
 
 
 def _head(status: int, headers: dict) -> bytes:
@@ -112,9 +132,12 @@ def _head(status: int, headers: dict) -> bytes:
 
 
 def _json_bytes(status: int, payload) -> bytes:
-    body = json.dumps(payload).encode()
+    return _body_bytes(status, json.dumps(payload).encode(), "application/json")
+
+
+def _body_bytes(status: int, body: bytes, content_type: str) -> bytes:
     return _head(status, {
-        "Content-Type": "application/json", "Content-Length": str(len(body)),
+        "Content-Type": content_type, "Content-Length": str(len(body)),
         "Connection": "close",
     }) + body
 
@@ -137,16 +160,30 @@ class HttpService:
         self.manager = manager or ModelManager()
         self.host = host
         self.port = port
+        self.metrics = ServiceMetrics()
         self._server: Optional[asyncio.base_events.Server] = None
+        # profiling plane: with DYN_TPU_PROFILE armed, the stream loop
+        # attributes per-token CPU to serialize/transport-write and an
+        # event-loop lag sampler runs beside the server. None/off costs one
+        # None-check per chunk
+        self._fcpu = profiling.frontend_cpu() if profiling.enabled() else None
+        self._lag_sampler = None
 
     async def start(self) -> int:
         """Start serving; returns the bound port."""
         self._server = await asyncio.start_server(self._handle, self.host, self.port)
         self.port = self._server.sockets[0].getsockname()[1]
         logger.info("HTTP service listening on %s:%d", self.host, self.port)
+        if self._fcpu is not None and self._lag_sampler is None:
+            # one sampler per process, shared by services on the same loop
+            self._lag_sampler = profiling.lag_sampler()
+            self._lag_sampler.start()
         return self.port
 
     async def stop(self) -> None:
+        if self._lag_sampler is not None:
+            self._lag_sampler.stop()
+            self._lag_sampler = None
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
@@ -165,13 +202,13 @@ class HttpService:
     async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
         try:
             try:
-                method, path, _headers, body = await _read_request(reader)
+                method, target, headers, body = await _read_request(reader)
             except _BadRequest as e:
                 writer.write(_error_bytes(e.status, str(e)))
                 return
             except (ConnectionResetError, asyncio.IncompleteReadError):
                 return
-            await self._route(method, path, body, writer)
+            await self._route(method, target, headers, body, writer)
         except (ConnectionResetError, BrokenPipeError):
             pass
         except Exception:
@@ -184,21 +221,73 @@ class HttpService:
                 writer.close()
                 await writer.wait_closed()
 
-    async def _route(self, method: str, path: str, body: bytes, writer) -> None:
+    async def _route(self, method: str, target: str, headers: dict, body: bytes,
+                     writer) -> None:
+        url = urlsplit(target)
+        path, query = url.path, parse_qs(url.query)
         if path in ("/v1/chat/completions", "/v1/completions"):
             if method != "POST":
                 writer.write(_error_bytes(405, "use POST"))
                 return
-            await self._handle_openai(body, writer, chat=path.endswith("chat/completions"))
-        elif path == "/v1/models" and method == "GET":
-            writer.write(_json_bytes(200, model_list(self.manager.model_names())))
-        elif path == "/health" and method == "GET":
-            models = {n: {"status": "healthy"} for n in self.manager.model_names()}
-            writer.write(_json_bytes(200, {"status": "healthy", "models": models}))
+            await self._handle_openai(body, headers, writer,
+                                      chat=path.endswith("chat/completions"))
+            return
+        get = {
+            "/v1/models": lambda: _json_bytes(200, model_list(self.manager.model_names())),
+            "/health": self._health,
+            # pure process liveness: never coupled to upstream health
+            "/live": lambda: _json_bytes(200, {"live": True}),
+            "/metrics": lambda: _body_bytes(200, self.metrics.render().encode(), "text/plain"),
+            "/debug/traces": lambda: self._debug_traces(query),
+            "/debug/slo": lambda: _json_bytes(200, telemetry.dump_state()),
+            "/debug/profile": lambda: self._debug_profile(query),
+        }.get(path)
+        if get is not None and method == "GET":
+            writer.write(get())
         else:
             writer.write(_error_bytes(404, f"no route {method} {path}"))
 
-    async def _handle_openai(self, body: bytes, writer, chat: bool) -> None:
+    def _health(self) -> bytes:
+        models = {n: {"status": "healthy"} for n in self.manager.model_names()}
+        return _json_bytes(200, {"status": "healthy", "models": models})
+
+    @staticmethod
+    def _debug_traces(query: dict) -> bytes:
+        """Flight-recorder export: one JSON object per line per trace
+        (``?limit=N`` keeps the newest N, ``?trace_id=...`` one trace,
+        ``?errored=1`` only traces with a non-ok span)."""
+        try:
+            limit = int(query.get("limit", ["0"])[0])
+        except ValueError:
+            limit = 0
+        trace_id = query.get("trace_id", [None])[0]
+        body = tracing.recorder().dump_jsonl(
+            limit=limit, trace_id=trace_id, errored=_query_flag(query, "errored"),
+        )
+        return _body_bytes(200, (body + ("\n" if body else "")).encode(), "application/jsonl")
+
+    @staticmethod
+    def _debug_profile(query: dict) -> bytes:
+        """Performance-attribution export: the dispatch timeline summary,
+        the frontend per-token CPU split and the event-loop lag gauges;
+        ``?trace=1`` returns the same window as a Perfetto-loadable
+        Chrome-trace JSON, ``?seconds=N`` restricts to the last N seconds.
+        With ``DYN_TPU_PROFILE`` off it answers ``enabled: false`` with
+        empty sections."""
+        try:
+            since = float(query.get("seconds", ["0"])[0]) or None
+        except ValueError:
+            since = None
+        state = profiling.dump_state(since)
+        if _query_flag(query, "trace"):
+            return _json_bytes(200, profiling.to_chrome_trace([(
+                "frontend", state.get("records", []), state.get("events", []),
+            )]))
+        state.pop("records", None)  # summary view: keep the payload small
+        state.pop("events", None)
+        return _json_bytes(200, state)
+
+    async def _handle_openai(self, body: bytes, headers: dict, writer, chat: bool) -> None:
         try:
             raw = json.loads(body)
         except (json.JSONDecodeError, UnicodeDecodeError):
@@ -221,12 +310,39 @@ class HttpService:
             writer.write(_error_bytes(e.status, e.message))
             return
         ctx = Context(oai_req)
-        if oai_req.stream:
-            await self._stream_response(engine, ctx, writer, chat)
-        else:
-            await self._unary_response(engine, ctx, writer, chat)
+        endpoint = "chat/completions" if chat else "completions"
+        streaming = bool(oai_req.stream)
+        # edge span: the trace's root, or a child of the caller's context
+        # when a valid W3C traceparent header arrives (a malformed one just
+        # starts a fresh root). It rides ctx.context.trace into the engine;
+        # the contextvars make every log line of this handler carry the ids
+        edge = tracing.start_span(
+            "http.edge",
+            parent=tracing.parse_traceparent(headers.get("traceparent")),
+            attributes={"model": oai_req.model, "endpoint": endpoint,
+                        "stream": streaming, "request_id": ctx.id},
+        )
+        tokens = None
+        if edge is not None:
+            ctx.context.trace = edge
+            tokens = (tracing.set_current(edge), tracing.set_request_id(ctx.id))
+        guard = self.metrics.inflight_guard(
+            oai_req.model, endpoint, "stream" if streaming else "unary")
+        try:
+            with guard:
+                if streaming:
+                    await self._stream_response(engine, ctx, guard, writer, chat)
+                else:
+                    await self._unary_response(engine, ctx, guard, writer, chat)
+        finally:
+            if edge is not None:
+                edge.end(_EDGE_STATUS.get(guard.status, guard.status))
+            if tokens is not None:
+                tracing.reset_current(tokens[0])
+                tracing.reset_request_id(tokens[1])
 
-    async def _stream_response(self, engine: AsyncEngine, ctx: Context, writer, chat: bool) -> None:
+    async def _stream_response(self, engine: AsyncEngine, ctx: Context, guard: InflightGuard,
+                               writer, chat: bool) -> None:
         # pull the first item before sending headers, so validation errors
         # still surface as HTTP status codes
         it = engine.generate(ctx).__aiter__()
@@ -270,8 +386,29 @@ class HttpService:
                 if isinstance(payload, dict) and envelope is None:
                     envelope = {k: payload[k] for k in ("id", "object", "created", "model")
                                 if k in payload}
-                writer.write(_chunk(f"data: {json.dumps(payload)}\n\n".encode()))
-                await writer.drain()
+                has_content = _chunk_has_content(payload)
+                if has_content:
+                    guard.mark_chunk()  # TTFT on the first, the inter-token gap after
+                    guard.count_tokens()
+                if self._fcpu is None:
+                    writer.write(_chunk(f"data: {json.dumps(payload)}\n\n".encode()))
+                    await writer.drain()
+                else:
+                    # profiling: split the SSE hot path into serialize and
+                    # transport-write
+                    t0 = time.perf_counter()
+                    data = _chunk(f"data: {json.dumps(payload)}\n\n".encode())
+                    t1 = time.perf_counter()
+                    writer.write(data)
+                    await writer.drain()
+                    t2 = time.perf_counter()
+                    n = 1 if has_content else 0
+                    self._fcpu.note("serialize", (t1 - t0) * 1e6, tokens=n)
+                    self._fcpu.note("transport_write", (t2 - t1) * 1e6, tokens=n)
+                    if tracing.enabled():
+                        tracing.observe_phase("serialize", t1 - t0)
+            else:
+                guard.mark_ok()
             writer.write(_chunk(f"data: {DONE_SENTINEL}\n\n".encode()))
             writer.write(b"0\r\n\r\n")
         except (ConnectionResetError, BrokenPipeError, asyncio.CancelledError):
@@ -287,8 +424,10 @@ class HttpService:
             writer.write(_chunk(f"data: {DONE_SENTINEL}\n\n".encode()))
             writer.write(b"0\r\n\r\n")
 
-    async def _unary_response(self, engine: AsyncEngine, ctx: Context, writer, chat: bool) -> None:
+    async def _unary_response(self, engine: AsyncEngine, ctx: Context, guard: InflightGuard,
+                              writer, chat: bool) -> None:
         chunks: list[dict] = []
+        n_tokens = 0
         try:
             async for item in engine.generate(ctx):
                 if isinstance(item, Annotated):
@@ -301,6 +440,9 @@ class HttpService:
                     chunks.append(item.data)
                 else:
                     chunks.append(item)
+                if _chunk_has_content(chunks[-1]):
+                    guard.mark_first_token()
+                    n_tokens += 1
         except HttpError as e:
             writer.write(_error_bytes(e.status, e.message))
             return
@@ -308,7 +450,27 @@ class HttpService:
             writer.write(_error_bytes(500, "engine produced no response"))
             return
         full = aggregate_chat_chunks(chunks) if chat else aggregate_completion_chunks(chunks)
+        guard.mark_ok()
+        guard.count_tokens(n_tokens)
         writer.write(_json_bytes(200, full))
+
+
+# InflightGuard status label → edge-span terminal status (the recorder pins
+# "error"; plain "success" maps to the span model's "ok")
+_EDGE_STATUS = {"success": "ok", "overloaded": "overloaded", "error": "error"}
+
+
+def _chunk_has_content(payload) -> bool:
+    """True if this chunk carries generated content (a token), not just a
+    role/finish frame: keeps output-token metrics and TTFT honest."""
+    if not isinstance(payload, dict):
+        return False
+    for choice in payload.get("choices", []):
+        if (choice.get("delta") or {}).get("content"):
+            return True
+        if choice.get("text"):
+            return True
+    return False
 
 
 def _error_finish(envelope: Optional[dict], chat: bool) -> bytes:

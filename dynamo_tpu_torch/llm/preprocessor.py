@@ -1,8 +1,9 @@
 """OpenAI preprocessor: chat-template rendering + tokenization, and the
 detokenizer on the response path.
 
-Counterpart of the JAX package's ``llm/preprocessor.py`` (without its
-profiling and tracing hooks). Chat templates are rendered with jinja2
+Counterpart of the JAX package's ``llm/preprocessor.py``, with its
+detokenize CPU attribution (the profiling plane, ``DYN_TPU_PROFILE``).
+Chat templates are rendered with jinja2
 against the HF ``chat_template`` from tokenizer_config.json, with the helper
 environment HF uses (``raise_exception``, ``tojson``, ``strftime_now``).
 """
@@ -13,12 +14,14 @@ import asyncio
 import datetime
 import json
 import logging
+import time
 from dataclasses import replace
 from typing import AsyncIterator, Optional, Union
 
 import jinja2
 
 from ..engine_torch.sampling import CANDIDATES as SAMPLING_CANDIDATES
+from ..runtime import profiling, tracing
 from ..runtime.annotated import Annotated
 from ..runtime.engine import AsyncEngine, Context
 from ..runtime.pipeline import Operator
@@ -371,6 +374,9 @@ class DetokenizeOperator(Operator):
     def __init__(self, card: ModelDeploymentCard, tokenizer: Optional[HFTokenizer] = None):
         self.card = card
         self.tokenizer = tokenizer or HFTokenizer.from_file(card.tokenizer_file)
+        # per-token CPU of incremental detokenization (profiling plane).
+        # None with DYN_TPU_PROFILE off: one None-check per stream item
+        self._fcpu = profiling.frontend_cpu() if profiling.enabled() else None
 
     async def generate(
         self, request: Context[PreprocessedRequest], next_engine: AsyncEngine
@@ -402,6 +408,7 @@ class DetokenizeOperator(Operator):
             finish: Optional[FinishReason] = out.finish_reason
             stop_hit = False
             kept_tokens: list[int] = []
+            t_detok = time.perf_counter() if self._fcpu is not None else 0.0
             for tok in out.token_ids:
                 decision = decoder.step(tok)
                 if decision.text:
@@ -412,6 +419,11 @@ class DetokenizeOperator(Operator):
                     finish = FinishReason.STOP if not decision.stop_token else FinishReason.EOS
                     stop_hit = True
                     break
+            if self._fcpu is not None and out.token_ids:
+                dt = time.perf_counter() - t_detok
+                self._fcpu.note("detokenize", dt * 1e6, tokens=len(out.token_ids))
+                if tracing.enabled():
+                    tracing.observe_phase("detokenize", dt)
             emitted += len(kept_tokens)
 
             max_t = pre.stop_conditions.max_tokens

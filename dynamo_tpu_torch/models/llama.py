@@ -60,7 +60,7 @@ import dataclasses
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -959,13 +959,16 @@ def forward_chunk(
     positions: torch.Tensor,  # [B, C]; < 0 = padding
     kv_cache, block_tables: torch.Tensor,
     *, hidden_only: bool = False, with_history: bool = True,
+    layer_hook: Optional[Callable[[], None]] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill-chunk forward: attention is the flash merge of a partial over
     pool history (positions < each lane's chunk start) with an in-chunk
     causal partial over the fresh K/V in hand; the chunk's K/V are written
     into the pages for later chunks and decode. ``with_history=False``
     skips the history partial (every lane starts at position 0). On a tp
-    mesh each rank attends its own heads over its own pool (module note)."""
+    mesh each rank attends its own heads over its own pool (module note).
+    ``layer_hook`` is called after each layer's work is enqueued (the
+    device timer's segment boundaries)."""
     shards, cfgs, mesh = _split(params, config)
     ranks, tp = range(len(shards)), mesh is not None
     matw_wo = matw_partial if tp else matw
@@ -986,6 +989,8 @@ def forward_chunk(
             parts.append(matw_wo(attn.to(hs[r].dtype).reshape(b, t, c.q_dim), lps[r]["wo"]))
         hs = _residual(hs, parts)
         hs = _residual(hs, [mlp_partial(lps[r], cfgs[r], hs[r], pos[r], tp) for r in ranks])
+        if layer_hook is not None:
+            layer_hook()
     return _final(shards, cfgs, hs, hidden_only), kv_cache
 
 
@@ -1032,7 +1037,7 @@ def forward_window(
     window_k,  # [L, B, W, KVH, D] (on a mesh: one per rank, its KVH/tp heads)
     window_v,
     wslot: int,  # window slot of this step
-    *, decode_attention=None,
+    *, decode_attention=None, layer_hook: Optional[Callable[[], None]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step over the read-only pool plus the window of fresh K/V
     (the JAX ``forward_window`` in its paged history mode).
@@ -1045,8 +1050,9 @@ def forward_window(
     :func:`paged_decode_attention_int8`; a caller may pass a plain version
     to compare the two. On a tp mesh every rank's pool partial comes from
     one call of :func:`paged_decode_attention_sharded` (the kernel per rank),
-    or of ``decode_attention`` per rank when one is given. Returns (logits
-    [B, vocab] f32, window_k, window_v)."""
+    or of ``decode_attention`` per rank when one is given. ``layer_hook`` is
+    called after each layer's work is enqueued (the device timer's segment
+    boundaries). Returns (logits [B, vocab] f32, window_k, window_v)."""
     shards, cfgs, mesh = _split(params, config)
     ranks, tp = range(len(shards)), mesh is not None
     matw_wo = matw_partial if tp else matw
@@ -1089,6 +1095,8 @@ def forward_window(
             parts.append(matw_wo(attn.reshape(b, 1, c.q_dim), lps[r]["wo"]))
         hs = _residual(hs, parts)
         hs = _residual(hs, [mlp_partial(lps[r], cfgs[r], hs[r], pos2[r], tp) for r in ranks])
+        if layer_hook is not None:
+            layer_hook()
     return _final(shards, cfgs, hs, False)[:, 0], window_k, window_v
 
 
@@ -1097,12 +1105,14 @@ def flush_window(
     base: torch.Tensor,  # [B] first position written by this dispatch
     window_k,  # [L, B, W, KVH, D] (on a mesh: one per rank)
     window_v, max_pos: int,
+    layer_hook: Optional[Callable[[], None]] = None,
 ):
     """Scatter a decode dispatch's window into the paged pool (in place), one
     scatter per layer per dispatch; an int8 pool takes the window quantized
     per token, values and scales through the same scatter. Padding lanes
     (base < 0) and positions past ``max_pos`` are dropped. On a mesh each
-    rank's window goes into its own pool."""
+    rank's window goes into its own pool. ``layer_hook`` is called after
+    each layer's scatter is enqueued."""
     wks = window_k if isinstance(window_k, list) else [window_k]
     wvs = window_v if isinstance(window_v, list) else [window_v]
     pools = _pools(kv_cache, len(wks))
@@ -1115,4 +1125,6 @@ def flush_window(
         fp, tables = (x if x.device == dev else x.to(dev) for x in (fpos, block_tables))
         for i in range(wk.shape[0]):
             _write_pool(_layer_pool(pool, i), wk[i], wv[i], fp, tables)
+            if layer_hook is not None:
+                layer_hook()
     return kv_cache

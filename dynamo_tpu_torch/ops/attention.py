@@ -50,7 +50,16 @@ def write_kv_to_pages(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scatter new K/V rows into their pages, in place; padding and
     out-of-table positions are dropped (the JAX scatter's ``mode="drop"``).
-    Trailing-dim agnostic. Returns the (same) cache tensors."""
+    Trailing-dim agnostic. Returns the (same) cache tensors.
+
+    Nothing here waits for the card (a boolean index would, to count the
+    rows it keeps): a dropped row is redirected to the first kept row with
+    that row's own value, or, when no row is kept, to row 0 with the value
+    row 0 holds, so the duplicated writes all carry the same bits. Row 0
+    may belong to a live sequence (the allocator hands out block 0 first):
+    rewriting it is harmless only because the engine writes its pool on one
+    stream, in order, so that no other write can land between this read of
+    row 0 and its write-back."""
     num_blocks, block_size = k_cache.shape[0], k_cache.shape[1]
     max_blocks = block_tables.shape[1]
     positions = positions.to(torch.int64)
@@ -59,14 +68,21 @@ def write_kv_to_pages(
     phys = torch.gather(
         block_tables.to(torch.int64), 1, logical.clamp(0, max_blocks - 1)
     )
-    # filter the rows first: index_put_ has no drop mode, and a clamped
-    # index would write into a wrong page
+    # index_put_ has no drop mode, and a clamped index would write into a
+    # wrong page: redirect the dropped rows instead
     valid = ((positions >= 0) & (logical < max_blocks)).reshape(-1)
-    rows = (phys * block_size + slot).reshape(-1)[valid]
+    rows = (phys * block_size + slot).reshape(-1)
+    # [1], never a 0-dim index (indexing with one reads it on the host)
+    first = torch.argmax(valid.to(torch.int32), dim=0, keepdim=True)  # 0: none kept
+    kept = valid[first]
+    rows = torch.where(valid, rows, torch.where(kept, rows[first], 0))
     flat_k = k_cache.view(num_blocks * block_size, *k_cache.shape[2:])
     flat_v = v_cache.view(num_blocks * block_size, *v_cache.shape[2:])
-    flat_k[rows] = k_new.reshape(-1, *k_new.shape[2:])[valid].to(k_cache.dtype)
-    flat_v[rows] = v_new.reshape(-1, *v_new.shape[2:])[valid].to(v_cache.dtype)
+    for flat, new in ((flat_k, k_new), (flat_v, v_new)):
+        new = new.reshape(-1, *new.shape[2:]).to(flat.dtype)
+        ones = (1,) * (new.dim() - 1)
+        fill = torch.where(kept.reshape((1,) + ones), new[first], flat[:1])
+        flat[rows] = torch.where(valid.reshape((-1,) + ones), new, fill)
     return k_cache, v_cache
 
 

@@ -1052,3 +1052,182 @@ def test_moe_tp_partials_on_the_card(cuda, int8):
         plain, _ = moe.moe_mlp(cpu, rank_cfg, x.cpu(), with_aux=False, partial=True)
         rel = (part.cpu() - plain).abs().max() / plain.abs().max()
         assert rel <= 1e-2, rel
+
+
+# -- the profiling plane's device timing on the card -------------------------------
+
+
+def _flags():
+    return torch.zeros(2, dtype=torch.int32, pin_memory=True)
+
+
+def test_dispatch_gate_holds_the_stream_until_released(cuda):
+    """Work enqueued behind the gate does not run until the host writes the
+    ticket, and runs after; the wrapper counts its launch."""
+    import time
+
+    from dynamo_tpu_torch.ops.dispatch_gate import dispatch_gate_wait
+
+    flags = _flags()
+    x = torch.zeros(1024, device=cuda)
+    # load add_'s kernel first: a first launch waits for the card, and so
+    # would wait behind the gate (the device timer's note)
+    x.add_(0.0)
+    torch.cuda.synchronize()
+    before = dispatch_gate_wait.launches
+    dispatch_gate_wait(flags, 1, cuda)
+    x.add_(1.0)
+    done = torch.cuda.Event()
+    done.record()
+    time.sleep(0.05)
+    assert not done.query()  # nothing behind the gate has run
+    flags.numpy().view("uint32")[0] = 1
+    done.synchronize()
+    assert x.eq(1.0).all().item() and flags[1].item() == 0
+    assert dispatch_gate_wait.launches == before + 1
+    # released already (the counter at or past the ticket, modulo 2^32): passes
+    flags.numpy().view("uint32")[0] = 0xFFFFFFFF
+    dispatch_gate_wait(flags, 0xFFFFFFFE, cuda)
+    x.add_(1.0)
+    torch.cuda.synchronize()
+    assert x.eq(2.0).all().item()
+
+
+def test_dispatch_gate_times_out_without_a_release(cuda):
+    from dynamo_tpu_torch.ops.dispatch_gate import dispatch_gate_wait
+
+    flags = _flags()
+    dispatch_gate_wait(flags, 7, cuda, timeout_s=0.05)
+    torch.cuda.synchronize()
+    assert flags[1].item() == 1
+
+
+def _layers(n, d=4096, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((d, d), generator=gen, device="cuda").bfloat16() / d ** 0.5
+            for _ in range(n)]
+
+
+def _run_layers(x, ws, mark=None, host_pause=0.0):
+    import time
+
+    for w in ws:
+        x = torch.nn.functional.silu(x @ w) + x
+        if host_pause:
+            time.sleep(host_pause)  # a host slower than the card
+        if mark is not None:
+            mark()
+    return x
+
+
+def test_device_timer_times_the_device_not_the_host(cuda):
+    """The segment-gated time of a layer chain equals the chain's execution
+    time with every kernel queued ahead of the card (behind a sleep kernel),
+    within 30% (the events and the gates cost the card a few microseconds
+    per segment), even when the host pauses 2 ms per layer while
+    enqueueing it; an event pair around the same paused enqueue times the
+    host."""
+    from dynamo_tpu_torch.engine_torch.device_timer import DeviceTimer
+
+    ws = _layers(48)
+    x = torch.randn((256, 4096), device=cuda).bfloat16()
+    _run_layers(x, ws)
+    torch.cuda.synchronize()
+    refs = []
+    for _ in range(3):  # the chain with its kernels queued ahead of the card
+        torch.cuda._sleep(50_000_000)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        _run_layers(x, ws)
+        b.record()
+        b.synchronize()
+        refs.append(a.elapsed_time(b) * 1e3)
+    ref = min(refs)
+    timer = DeviceTimer(cuda)
+    got = []
+    for _ in range(3):
+        timer.begin()
+        try:
+            y = _run_layers(x, ws, timer.mark, host_pause=0.002)
+        finally:
+            timer.end()
+        got.append(timer.device_us())
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    _run_layers(x, ws, host_pause=0.002)
+    b.record()
+    b.synchronize()
+    naive = a.elapsed_time(b) * 1e3
+    assert timer.timeouts == 0 and all(g is not None for g in got)
+    assert 0.8 * ref <= min(got) <= 1.3 * ref, (got, ref)
+    assert naive > 48 * 2000 > 4 * max(got), (naive, got)
+    torch.testing.assert_close(y, _run_layers(x, ws))
+
+
+def test_device_timer_voids_a_wait_inside_a_segment_and_resumes(cuda, monkeypatch):
+    """A host that waits for the card inside a gated segment stalls until
+    the gate gives up: that dispatch's time is void and counted, the next
+    RESUME_AFTER dispatches run untimed, and then a clean dispatch is timed
+    again."""
+    from dynamo_tpu_torch.engine_torch.device_timer import RESUME_AFTER, DeviceTimer
+
+    ws = _layers(4)
+    x = torch.randn((256, 4096), device=cuda).bfloat16()
+    _run_layers(x, ws)
+    torch.cuda.synchronize()
+    monkeypatch.setattr("dynamo_tpu_torch.engine_torch.device_timer.GATE_TIMEOUT_S", 0.05)
+    timer = DeviceTimer(cuda)
+    step = object()
+    timer.ready(step)  # the first run of a step function is never timed
+    assert timer.ready(step)
+    timer.begin()
+    try:
+        _run_layers(x, ws, timer.mark)
+        x.sum().item()  # waits for the card behind the closed gate
+    finally:
+        timer.end()
+    assert timer.device_us() is None and timer.timeouts == 1
+    assert not any(timer.ready(step) for _ in range(RESUME_AFTER))
+    assert timer.ready(step)
+    timer.begin()
+    try:
+        _run_layers(x, ws, timer.mark)
+    finally:
+        timer.end()
+    assert timer.device_us() > 0 and timer.timeouts == 1
+
+
+def test_engine_timeline_on_the_card(cuda, monkeypatch):
+    """DYN_TPU_PROFILE=1, every dispatch sampled: every dispatch of the
+    tiny engine is counted and every one after its step function's first
+    run has a record with device time; no gate timed out, and the greedy
+    stream equals the unprofiled engine's."""
+    from dynamo_tpu_torch.runtime import profiling
+
+    prompt = list(range(3, 43))
+    eng = _tiny_engine(cuda)
+    try:
+        want, _, _ = _greedy(eng, prompt, 24)
+    finally:
+        eng.close()
+    monkeypatch.setenv("DYN_TPU_PROFILE", "1")
+    monkeypatch.setenv("DYN_TPU_PROFILE_SAMPLE", "1")
+    profiling.reset_for_tests()
+    eng = _tiny_engine(cuda)
+    try:
+        got, _, _ = _greedy(eng, prompt, 24)
+        recs = profiling.timeline().records()
+        total = profiling.timeline().dispatches_total
+        m = eng.metrics_snapshot()
+    finally:
+        eng.close()
+        profiling.reset_for_tests()
+    assert got == want
+    assert m["dispatch_gate_timeouts"] == 0
+    assert total == eng.chunk_dispatches + eng.decode_dispatches
+    phases = [r["phase"] for r in recs]
+    # the two chunks are the first runs of their variants (without and
+    # with pool history): untimed; one decode variant
+    assert phases.count("chunk") == 0 and eng.chunk_dispatches == 2
+    assert phases.count("decode") == eng.decode_dispatches - 1 > 0
+    assert all(r["device_us"] > 0 and r["host_us"] > 0 for r in recs)

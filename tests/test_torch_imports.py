@@ -197,3 +197,29 @@ def test_launcher_refuses_cpu_fallback_without_a_card(model_dir):
         pytest.skip("this machine has a CUDA card")
     with pytest.raises(RuntimeError, match="--device cpu"):
         asyncio.run(amain(["in=http", "out=torch", "--model-path", model_dir, "--port", "0"]))
+
+
+# the observability planes: the port's own copies of the JAX package's
+# tracing, telemetry, profiling, straggler and health modules, the service
+# metrics, the device timer and the dispatch gate's wrapper
+OBSERVABILITY_MODULES = ["dynamo_tpu_torch.runtime.tracing",
+                         "dynamo_tpu_torch.runtime.telemetry",
+                         "dynamo_tpu_torch.runtime.profiling",
+                         "dynamo_tpu_torch.runtime.straggler",
+                         "dynamo_tpu_torch.runtime.health",
+                         "dynamo_tpu_torch.llm.http.metrics",
+                         "dynamo_tpu_torch.engine_torch.device_timer",
+                         "dynamo_tpu_torch.ops.dispatch_gate"]
+
+
+@pytest.mark.parametrize("module", OBSERVABILITY_MODULES)
+def test_observability_module_imports_only_the_allowed(module):
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    assert path in _port_files()
+    tops = {m.split(".")[0] for m in _absolute_imports(path)}
+    assert not tops & set(BLOCKED), tops & set(BLOCKED)
+    assert tops <= set(sys.stdlib_module_names) | ALLOWED_THIRD_PARTY | {"dynamo_tpu_torch"}
+
+
+def test_observability_modules_load_with_jax_path_dependencies_blocked():
+    _load_blocked(OBSERVABILITY_MODULES + ["dynamo_tpu_torch.llm.http.service"])
